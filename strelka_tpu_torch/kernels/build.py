@@ -1,0 +1,149 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu -> one shared library).
+
+Route: nvcc by hand into a shared library with a plain C interface, loaded
+with ctypes. Each source compiles to an object in its own nvcc process, all
+started together, and the objects link into `libstrelka_kernels.so`. The
+build directory is keyed by a hash of the sources and flags, so a changed
+source builds again and an unchanged one is loaded as it is.
+
+Flags: `sm_90a`, -O3, no fast math. The intersection source also gets
+-fmad=false, so Möller–Trumbore rounds every product and sum on its own, as
+the CPU reference and the plain PyTorch version do.
+
+Nothing here runs at import: `load()` builds on first use.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(_PKG, "_build")
+LIB_NAME = "libstrelka_kernels.so"
+
+COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# per-source extra flags
+SOURCES = {
+    "sobol.cu": [],
+    "gather.cu": [],
+    "intersect.cu": ["-fmad=false"],
+}
+HEADERS = ["common.cuh"]
+
+_VP = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+# C entry points: name -> argtypes (every entry returns cudaGetLastError())
+SIGNATURES = {
+    "strelka_random_dims": [_VP, _VP, _I64, ctypes.c_uint32, _I32, _I32, _VP],
+    "strelka_intersect_closest": [_VP] * 13 + [_I32, _I64, _I32] + [_VP] * 5,
+    "strelka_intersect_any": [_VP] * 13 + [_I32, _I64, _I32] + [_VP] * 2,
+    "strelka_gather_rows_t": [_VP, _VP, _VP, _I64, _I32, _I32, _VP],
+    "strelka_error_string": [_I32],
+}
+
+
+class Built:
+    lib = None
+    seconds = None  # wall time of the build this process ran (None = loaded cached)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    h.update(repr((COMMON_FLAGS, sorted(SOURCES.items()))).encode())
+    for name in sorted(list(SOURCES) + HEADERS):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def _build(out_dir: str) -> float:
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for name, extra in SOURCES.items():
+        obj = os.path.join(out_dir, name.replace(".cu", ".o"))
+        cmd = [nvcc, *COMMON_FLAGS, *extra, "-Xptxas", "-v", "-c", os.path.join(CSRC, name), "-o", obj]
+        procs.append((name, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    failed, objs = [], []
+    for name, obj, p in procs:
+        out, _ = p.communicate()
+        with open(os.path.join(out_dir, name + ".log"), "wb") as f:
+            f.write(out)
+        if p.returncode != 0:
+            failed.append(f"{name}:\n{out.decode(errors='replace')}")
+        objs.append(obj)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = os.path.join(out_dir, LIB_NAME + ".tmp")
+    link = subprocess.run([nvcc, *COMMON_FLAGS, "-shared", *objs, "-o", tmp],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n" + link.stdout.decode(errors="replace"))
+    os.replace(tmp, os.path.join(out_dir, LIB_NAME))
+    return time.perf_counter() - t0
+
+
+def load():
+    """The loaded library, built first if this source hash has no build."""
+    if Built.lib is not None:
+        return Built.lib
+    out_dir = os.path.join(BUILD_ROOT, _digest())
+    os.makedirs(out_dir, exist_ok=True)
+    lib_path = os.path.join(out_dir, LIB_NAME)
+    with open(os.path.join(out_dir, "lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # one build per source hash across processes
+        try:
+            if not os.path.exists(lib_path):
+                Built.seconds = _build(out_dir)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    lib = ctypes.CDLL(lib_path)
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_char_p if name == "strelka_error_string" else ctypes.c_int
+    Built.lib = lib
+    return lib
+
+
+def ptxas_report() -> str:
+    """The compiler's register/shared-memory report of the current build."""
+    out_dir = os.path.join(BUILD_ROOT, _digest())
+    parts = []
+    for name in SOURCES:
+        path = os.path.join(out_dir, name + ".log")
+        if os.path.exists(path):
+            with open(path, encoding="utf-8", errors="replace") as f:
+                parts.append(f"== {name}\n{f.read()}")
+    return "\n".join(parts)
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry reported a CUDA error (a refused launch never runs)."""
+    if rc != 0:
+        msg = load().strelka_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

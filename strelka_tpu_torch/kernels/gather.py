@@ -1,0 +1,45 @@
+"""Kernel K4: row gather with transpose, table[clip(idx)].T -> [F, N].
+
+Replaces `strelka_tpu/ops/pallas_gather.py:pallas_gather_rows_t` (a one-hot
+bf16x3 matmul on the TPU); the CUDA source is csrc/gather.cu. Bit-exact:
+it copies. Indices are clipped to [0, T-1] as the Pallas kernel clips them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from strelka_tpu_torch import kernels as K
+from strelka_tpu_torch.kernels import build
+
+MAX_COLS = 190  # 64 lanes x (F + 1) words of shared memory within 48 KB
+
+
+def gather_rows_t_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    K.note_plain("gather_rows_t", table.device)
+    idx = torch.clamp(idx.to(torch.int64), 0, table.shape[0] - 1)
+    return table[idx].T.contiguous()
+
+
+def gather_rows_t(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table [T, F] f32, idx [N] int32 -> [F, N] f32."""
+    if table.device.type == "cpu":
+        return gather_rows_t_plain(table, idx)
+    K.require_cuda(table, "gather_rows_t")
+    if table.dtype != torch.float32 or table.dim() != 2 or not table.is_contiguous():
+        raise ValueError("gather_rows_t: table must be a contiguous [T, F] f32 tensor")
+    if idx.dtype != torch.int32 or idx.dim() != 1 or not idx.is_contiguous() or idx.device != table.device:
+        raise ValueError("gather_rows_t: idx must be a contiguous [N] int32 tensor on the table's device")
+    rows, cols = table.shape
+    if rows < 1 or not 1 <= cols <= MAX_COLS:
+        raise ValueError(f"gather_rows_t: table shape {tuple(table.shape)} not supported")
+    n = idx.shape[0]
+    out = torch.empty((cols, n), dtype=torch.float32, device=table.device)
+    if n == 0:
+        return out
+    rc = build.load().strelka_gather_rows_t(
+        table.data_ptr(), idx.data_ptr(), out.data_ptr(), n, rows, cols, build.stream_ptr(table.device)
+    )
+    build.check(rc, "gather_rows_t")
+    K.launch_counts["gather_rows_t"] += 1
+    return out

@@ -1,0 +1,318 @@
+"""Device scene tables: host Scene -> the tensors the integrator reads.
+
+The PyTorch counterpart of strelka_tpu/render/device_scene.py, flat path
+only. Instances are flattened into a world-space triangle soup (the same
+numpy code as the JAX package), padded to a multiple of 128, and packed
+into the tables the kernels and the shade epilogue read:
+
+  v0, e1, e2     [T, 3] f32   Möller–Trumbore inputs (kernels K2/K3)
+  geom_mask      [T]    i32   triangle / light-proxy geometry masks
+  attr_table     [T, 68] f32  per-prim attributes joined with its material
+                              row (24:48) and hit-light row (48:68) (K4)
+  mat_table      [M, 24] f32
+  light_table    [L, 20] f32
+
+Triangle order is the JAX CPU build's (no Morton sort, which is a TPU
+layout). Scenes the later slices cover raise NotImplementedError: above
+1024 triangles (the CPU build's BVH), curves, hair materials.
+
+`device_scene_from_arrays` / `frame_state_from_arrays` carry the JAX
+package's state across: they take its DeviceScene or FrameState as a dict
+of numpy arrays and build the port's equivalent on a given device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from strelka_tpu_torch import log
+from strelka_tpu_torch.materials import BsdfType, MaterialManager
+from strelka_tpu_torch.scene.scene import InstanceType, Scene
+from strelka_tpu_torch.utils.device import resolve_device
+
+GEOMETRY_MASK_TRIANGLE = 1
+GEOMETRY_MASK_CURVE = 2
+GEOMETRY_MASK_LIGHT = 4
+RAY_MASK_PRIMARY = GEOMETRY_MASK_TRIANGLE | GEOMETRY_MASK_CURVE | GEOMETRY_MASK_LIGHT
+RAY_MASK_SHADOW = GEOMETRY_MASK_TRIANGLE | GEOMETRY_MASK_CURVE
+
+# Packed attr_table column layout (strelka_tpu/render/device_scene.py:63-72):
+# normals/tangents are 12:12 octahedral 24-bit codes stored as exact f32 values.
+ATTR_N = 9  # 9:12  oct normal code per corner
+ATTR_T = 12  # 12:15 oct tangent code per corner
+ATTR_UV = 15  # 15:21 uv f32
+ATTR_MAT = 21
+ATTR_LIGHT = 22
+ATTR_MASK = 23
+ATTR_COLS = 24
+ATTR_MAT_ROW = 24  # 24:48 joined per-prim material row
+ATTR_LIGHT_ROW = 48  # 48:68 joined emissive-hit light row
+ATTR_JOINED = 68
+_OCT_Q = 4094.0
+FLAT_MAX_TRIS = 1024  # above this the CPU reference builds a BVH (ROADMAP A.8)
+PAD_MULTIPLE = 128  # triangle count padding of the JAX build
+
+TABLES = ("v0", "e1", "e2", "geom_mask", "attr_table", "mat_table", "light_table")
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceScene:
+    """Flattened world-space scene on one device."""
+
+    v0: torch.Tensor  # [T, 3] f32
+    e1: torch.Tensor  # [T, 3] f32 v1 - v0
+    e2: torch.Tensor  # [T, 3] f32 v2 - v0
+    geom_mask: torch.Tensor  # [T] i32
+    attr_table: torch.Tensor  # [T, ATTR_JOINED] f32
+    mat_table: torch.Tensor  # [M, 24] f32
+    light_table: torch.Tensor  # [L, 20] f32
+    num_lights: int
+    num_triangles: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.v0.device
+
+
+def _oct_encode24(v: np.ndarray) -> np.ndarray:
+    """[M,3] vectors -> [M] f32 of 24-bit (12:12) octahedral codes."""
+    norm = np.linalg.norm(v, axis=1, keepdims=True)
+    n = v / np.maximum(norm, 1e-20)
+    ax = np.abs(n).sum(axis=1)
+    ax = np.maximum(ax, 1e-20)
+    px = n[:, 0] / ax
+    py = n[:, 1] / ax
+    south = n[:, 2] < 0.0
+    sx = np.where(px >= 0.0, 1.0, -1.0)
+    sy = np.where(py >= 0.0, 1.0, -1.0)
+    fx = np.where(south, (1.0 - np.abs(py)) * sx, px)
+    fy = np.where(south, (1.0 - np.abs(px)) * sy, py)
+    qu = np.rint((fx + 1.0) * 0.5 * _OCT_Q)
+    qv = np.rint((fy + 1.0) * 0.5 * _OCT_Q)
+    return (qu * 4096.0 + qv).astype(np.float32)
+
+
+def _pad_to(arr: np.ndarray, n: int, fill=0.0) -> np.ndarray:
+    pad = n - arr.shape[0]
+    if pad <= 0:
+        return arr
+    return np.concatenate([arr, np.full((pad,) + arr.shape[1:], fill, dtype=arr.dtype)], axis=0)
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m if n > 0 else m
+
+
+def flatten_scene_geometry(scene: Scene):
+    """Bake instance transforms into a world-space triangle soup (numpy)."""
+    positions, normals, tangents, uvs, indices = scene.vertex_pools()
+    removed = set(getattr(scene, "_del_instances", ()))
+    tri_chunks = []
+    for inst_id, inst in enumerate(scene.instances):
+        if inst.type == InstanceType.eCurve or inst_id in removed:
+            continue
+        mesh = scene.meshes[inst.geom_id]
+        tri = indices[mesh.index : mesh.index + mesh.count].reshape(-1, 3).astype(np.int64)
+        tri = tri + mesh.vb_offset
+        m = inst.transform
+        rot = m[:3, :3]
+        inv_t = np.linalg.inv(rot).T if abs(np.linalg.det(rot)) > 1e-12 else rot
+        p = positions[tri.reshape(-1)].astype(np.float64) @ rot.T + m[:3, 3]
+        n = normals[tri.reshape(-1)].astype(np.float64) @ inv_t.T
+        t = tangents[tri.reshape(-1)].astype(np.float64) @ rot.T
+        n /= np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-20)
+        t /= np.maximum(np.linalg.norm(t, axis=1, keepdims=True), 1e-20)
+        uv = uvs[tri.reshape(-1)]
+        ntri = tri.shape[0]
+        is_light = inst.type == InstanceType.eLight
+        tri_chunks.append({
+            "p": p.reshape(ntri, 3, 3).astype(np.float32),
+            "n": n.reshape(ntri, 3, 3).astype(np.float32),
+            "t": t.reshape(ntri, 3, 3).astype(np.float32),
+            "uv": uv.reshape(ntri, 3, 2).astype(np.float32),
+            "material_id": np.full(ntri, max(inst.material_id, 0), np.int32),
+            "light_id": np.full(ntri, inst.light_id if is_light else -1, np.int32),
+            "geom_mask": np.full(
+                ntri, GEOMETRY_MASK_LIGHT if is_light else GEOMETRY_MASK_TRIANGLE, np.int32
+            ),
+        })
+    if tri_chunks:
+        return {k: np.concatenate([c[k] for c in tri_chunks]) for k in tri_chunks[0]}
+    return {
+        "p": np.zeros((0, 3, 3), np.float32),
+        "n": np.zeros((0, 3, 3), np.float32),
+        "t": np.zeros((0, 3, 3), np.float32),
+        "uv": np.zeros((0, 3, 2), np.float32),
+        "material_id": np.zeros(0, np.int32),
+        "light_id": np.zeros(0, np.int32),
+        "geom_mask": np.zeros(0, np.int32),
+    }
+
+
+def _light_table(scene: Scene) -> np.ndarray:
+    """[L, 20]: 4 corner points, color, normal, type, half angle
+    (a one-row zero table when the scene has no light)."""
+    lights = scene.lights
+    if not lights:
+        return np.zeros((1, 20), np.float32)
+    rows = [
+        np.concatenate([
+            np.asarray(l.points[:, :3], np.float32).reshape(12),
+            np.asarray(l.color[:3], np.float32),
+            np.asarray(l.normal[:3], np.float32),
+            np.array([l.type, l.half_angle], np.float32),
+        ])
+        for l in lights
+    ]
+    return np.stack(rows).astype(np.float32)
+
+
+def _mat_table(tbl) -> np.ndarray:
+    """[M, 24] material rows (column order of the JAX build)."""
+    return np.concatenate(
+        [
+            tbl.bsdf_type.astype(np.float32)[:, None],
+            tbl.diffuse_color,
+            tbl.metallic[:, None],
+            tbl.roughness[:, None],
+            tbl.specular_level[:, None],
+            tbl.ior[:, None],
+            tbl.glass_color,
+            tbl.opacity[:, None],
+            tbl.diffuse_tex.astype(np.float32)[:, None],
+            tbl.normal_tex.astype(np.float32)[:, None],
+            tbl.roughness_tex.astype(np.float32)[:, None],
+            tbl.metallic_tex.astype(np.float32)[:, None],
+            tbl.uv_scale,
+            tbl.uv_offset,
+            tbl.emission_color,
+            tbl.thin_walled.astype(np.float32)[:, None],
+        ],
+        axis=1,
+    ).astype(np.float32)
+
+
+def _has_curves(scene: Scene) -> bool:
+    return any(inst.type == InstanceType.eCurve for inst in scene.instances)
+
+
+def build_device_scene(
+    scene: Scene,
+    material_manager: Optional[MaterialManager] = None,
+    device=None,
+) -> DeviceScene:
+    """Host scene -> DeviceScene on `device` (default: the CUDA card)."""
+    device = resolve_device(device)
+    if _has_curves(scene):
+        raise NotImplementedError("curves: later slice, ROADMAP A.9")
+    cat = flatten_scene_geometry(scene)
+    num_tri = int(cat["p"].shape[0])
+    if num_tri > FLAT_MAX_TRIS:
+        raise NotImplementedError(
+            f"{num_tri} triangles: scenes above {FLAT_MAX_TRIS} need the BVH, later slice, ROADMAP A.8"
+        )
+    padded = _round_up(num_tri, PAD_MULTIPLE)
+    # padding triangles are degenerate (zero-area at origin) with mask 0
+    p = _pad_to(cat["p"], padded)
+    n = _pad_to(cat["n"], padded)
+    t = _pad_to(cat["t"], padded)
+    uv = _pad_to(cat["uv"], padded)
+    light_id = _pad_to(cat["light_id"], padded, fill=-1)
+    geom_mask = _pad_to(cat["geom_mask"], padded, fill=0)
+
+    mm = material_manager or MaterialManager()
+    compiled = mm.compile_scene_materials(scene.materials)
+    table, mat_remap = mm.generate_target_code_deduped(compiled)
+    if (np.asarray(table.bsdf_type) == BsdfType.HAIR).any():
+        raise NotImplementedError("hair materials: later slice, ROADMAP A.9")
+    cat["material_id"] = mat_remap[np.clip(cat["material_id"], 0, len(mat_remap) - 1)]
+    material_id = _pad_to(cat["material_id"], padded)
+
+    attr = np.zeros((padded, ATTR_COLS), np.float32)
+    attr[:, 0:3] = p[:, 0]
+    attr[:, 3:6] = p[:, 1] - p[:, 0]
+    attr[:, 6:9] = p[:, 2] - p[:, 0]
+    attr[:, ATTR_N : ATTR_N + 3] = _oct_encode24(n.reshape(padded * 3, 3)).reshape(padded, 3)
+    attr[:, ATTR_T : ATTR_T + 3] = _oct_encode24(t.reshape(padded * 3, 3)).reshape(padded, 3)
+    attr[:, ATTR_UV : ATTR_UV + 6] = uv.reshape(padded, 6)
+    attr[:, ATTR_MAT] = material_id
+    attr[:, ATTR_LIGHT] = light_id
+    attr[:, ATTR_MASK] = geom_mask
+
+    mat_np = _mat_table(table)
+    light_np = _light_table(scene)
+    mj = np.clip(material_id.astype(np.int64), 0, mat_np.shape[0] - 1)
+    lj = np.clip(light_id.astype(np.int64), 0, light_np.shape[0] - 1)
+    attr = np.concatenate([attr, mat_np[mj], light_np[lj]], axis=1)
+
+    log.info(
+        "Device scene: {} triangles ({} padded), {} lights, {} materials on {}",
+        num_tri, padded, len(scene.lights), len(compiled), device,
+    )
+    arrays = {
+        "v0": p[:, 0],
+        "e1": p[:, 1] - p[:, 0],
+        "e2": p[:, 2] - p[:, 0],
+        "geom_mask": geom_mask,
+        "attr_table": attr,
+        "mat_table": mat_np,
+        "light_table": light_np,
+        "num_lights": len(scene.lights),
+        "num_triangles": num_tri,
+    }
+    return device_scene_from_arrays(arrays, device)
+
+
+def _is_none(v) -> bool:
+    return v is None or (isinstance(v, np.ndarray) and v.dtype == object and v.shape == () and v.item() is None)
+
+
+def device_scene_from_arrays(arrays: dict, device) -> DeviceScene:
+    """DeviceScene from numpy arrays by field name.
+
+    Takes the tables of this module's build, or a JAX DeviceScene converted
+    field by field (`{name: np.asarray(getattr(scene, name))}`). Fields of
+    later slices (bvh, curves, cones, textures) must be absent or None."""
+    device = torch.device(device)
+    for key, item in (("bvh", "A.8"), ("curves", "A.9"), ("cones", "A.9"), ("textures", "A.7")):
+        if key in arrays and not _is_none(arrays[key]):
+            raise NotImplementedError(f"{key}: later slice, ROADMAP {item}")
+    at = np.asarray(arrays["attr_table"], np.float32)
+    if at.shape[1] != ATTR_JOINED:
+        raise ValueError(f"attr_table has {at.shape[1]} columns, expected the joined {ATTR_JOINED}")
+
+    def f32(name):
+        return torch.tensor(np.ascontiguousarray(arrays[name], np.float32), device=device)
+
+    return DeviceScene(
+        v0=f32("v0"),
+        e1=f32("e1"),
+        e2=f32("e2"),
+        geom_mask=torch.tensor(np.ascontiguousarray(arrays["geom_mask"], np.int32), device=device),
+        attr_table=f32("attr_table"),
+        mat_table=f32("mat_table"),
+        light_table=f32("light_table"),
+        num_lights=int(arrays["num_lights"]),
+        num_triangles=int(arrays["num_triangles"]),
+    )
+
+
+def frame_state_from_arrays(arrays: dict, device):
+    """FrameState from numpy arrays by field name (a JAX FrameState converted
+    with `{name: np.asarray(field)}`, or the port's own)."""
+    from strelka_tpu_torch.ops.integrator import FrameState
+
+    device = torch.device(device)
+    f32 = lambda k: torch.tensor(np.ascontiguousarray(arrays[k], np.float32), device=device)  # noqa: E731
+    i32 = lambda k: torch.tensor(np.ascontiguousarray(arrays[k], np.int32), device=device)  # noqa: E731
+    return FrameState(
+        accum=f32("accum"),
+        diffuse=f32("diffuse"),
+        diffuse_counter=i32("diffuse_counter"),
+        specular=f32("specular"),
+        specular_counter=i32("specular_counter"),
+    )
