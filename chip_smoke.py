@@ -6,16 +6,30 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. build the four CUDA kernels from strelka_tpu_torch/csrc with nvcc
-     (sm_90a) into strelka_tpu_torch/_build/;
-  2. hold each kernel against its plain PyTorch version on the card, at the
-     shapes of the Cornell main path (512x512, 4 spp: 2^20 rays a bounce),
-     and time both (CUDA events, median);
-  3. render the Cornell box through TorchRender at its golden config and
-     require SSIM >= 0.99 against goldens/cornell_golden.png;
-  4. drive the main path at full size (render_launch, 512x512, 4 spp,
-     depth 4, accumulation): 1 warm-up + 16 timed launches, with every
-     kernel's launch count reset just before and read just after;
+  1. build the CUDA kernels from strelka_tpu_torch/csrc with nvcc (sm_90a,
+     one nvcc per source, all started together) into
+     strelka_tpu_torch/_build/;
+  2. Cornell (flat scene, kernels K1-K4): hold each kernel against its plain
+     PyTorch version on the card at every shape the Cornell main path
+     gives it (512x512, 4 spp: 2^20 rays a bounce) and time both (CUDA
+     events, median); render the golden config through TorchRender and require
+     SSIM >= 0.99 against goldens/cornell_golden.png; drive the main path
+     at full size (render_launch, depth 4, accumulation: 1 warm-up + 16
+     timed launches) with every launch count reset just before and read
+     just after;
+  3. box_field(grid=12), 25,732 triangles, built flat and with the BVH:
+     K2/K3 against their plain versions at that size, K5/K6 against K2/K3,
+     and the two golden-config renders compared;
+  4. box_field(grid=48), 411,652 triangles on a BVH (kernels K1, K4, K5,
+     K6): K5/K6 against the plain traversal and against K2/K3 brute force
+     on the scene's camera, bounce-1 and shadow rays (2^19 lanes each),
+     their times and bounds, K1 at 2^19 sample indices, K4 at this scene's
+     two tables (attr_table [411776, 68] and light_table [2, 20]); the
+     golden config
+     against goldens/box_field_golden.png; the main path at 512x512, 2 spp,
+     depth 4 (1 warm-up + 4 timed launches), counts reset and read as above;
+     after each main path, every (kernel, shape) it launched must be one
+     that was held against its plain version before;
   5. print the kernels' JSON line, the card's name and power limit, and
      last the {"ok": true, ...} line.
 
@@ -31,17 +45,31 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# main-path configuration (the cornell row of bench.py:231)
-WIDTH = HEIGHT = 512
-SPP = 4
-DEPTH = 4
+
+class Config(NamedTuple):
+    """One row of bench.py's config list: a scene at a launch shape."""
+
+    name: str
+    width: int
+    height: int
+    spp: int
+    depth: int
+    timed_launches: int
+    kernels: tuple  # the kernels its main path runs
+
+
+# main-path configurations (the cornell and box_field rows of bench.py:231-232)
+CORNELL = Config("cornell", 512, 512, 4, 4, 16, ("sobol", "intersect_closest", "intersect_any", "gather_rows_t"))
+BOX = Config("box_field", 512, 512, 2, 4, 4, ("sobol", "bvh_closest", "bvh_any", "gather_rows_t"))
+BOX_GRID = 48  # bench.build_host_scene("box_field"): 411,652 triangles
+FLAT_GRID = 12  # 25,732 triangles: the range of the TPU's _flat/_mxu_flat kernels
 MAX_SAMPLE_COUNT = 100000  # as bench.py's render_launch
-TIMED_LAUNCHES = 16
 EXPOSURE = [6.25e-4] * 3  # as bench.py's build_scene
-GOLDEN = (64, 64, 4, 4)  # bench.GOLDEN_CONFIGS["cornell"]: w, h, spp, launches
+GOLDEN = (64, 64, 4, 4)  # bench.GOLDEN_CONFIGS of both scenes: w, h, spp, launches
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -61,11 +89,39 @@ REPLACES = {
     "intersect_closest": ("strelka_tpu/ops/pallas_intersect.py:2574", "strelka_tpu_torch/csrc/intersect.cu"),
     "intersect_any": ("strelka_tpu/ops/pallas_intersect.py:2642", "strelka_tpu_torch/csrc/intersect.cu"),
     "gather_rows_t": ("strelka_tpu/ops/pallas_gather.py:53", "strelka_tpu_torch/csrc/gather.cu"),
+    "bvh_closest": ("strelka_tpu/ops/pallas_intersect.py:2247", "strelka_tpu_torch/csrc/bvh.cu"),
+    "bvh_any": ("strelka_tpu/ops/pallas_intersect.py:2322", "strelka_tpu_torch/csrc/bvh.cu"),
 }
+
+
+# (kernel, shape) pairs held against the plain version so far: a main path
+# may launch no kernel at a shape that is not in here
+HELD = set()
 
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+def held(fn):
+    """fn() launches kernels whose results the caller then compares with
+    their plain versions (and raises where they differ): note the
+    (kernel, shape) pairs it launched."""
+    from strelka_tpu_torch import kernels as K
+
+    before = dict(K.launch_shapes)
+    out = fn()
+    HELD.update(k for k, v in K.launch_shapes.items() if v > before.get(k, 0))
+    return out
+
+
+def ray_bytes(tmin, tmax, exclude, out_bytes: int) -> int:
+    """Bytes an intersection kernel must move for its rays: a live lane reads
+    origin, direction, tmin, tmax (8 f32) and its exclude id; a dead lane
+    (tmax <= tmin) only tmin and tmax; every lane writes its outputs."""
+    n = tmin.shape[0]
+    live = int((tmax > tmin).sum())
+    return live * (8 * 4 + (4 if exclude is not None else 0)) + (n - live) * 8 + n * out_bytes
 
 
 def time_ms(fn, samples: int = 20, inner: int = 10, warmup: int = 2) -> float:
@@ -136,31 +192,34 @@ def launch_params(host, width: int, height: int, subframe: int = 0):
     )
 
 
-def main_path_kw() -> dict:
-    """render_launch's keyword arguments on the main path."""
-    return dict(width=WIDTH, height=HEIGHT, samples_per_launch=SPP, max_sample_count=MAX_SAMPLE_COUNT,
-                max_depth=DEPTH, enable_accumulation=True)
+def main_path_kw(cfg: Config) -> dict:
+    """render_launch's keyword arguments on a main path."""
+    return dict(width=cfg.width, height=cfg.height, samples_per_launch=cfg.spp,
+                max_sample_count=MAX_SAMPLE_COUNT, max_depth=cfg.depth, enable_accumulation=True)
 
 
-def main_path_rays(scene, params, device):
-    """Sample indices, camera rays and bounce-1 rays of the first launch of
-    the main path (the shapes the kernels see there)."""
+def main_path_rays(scene, params, device, cfg: Config):
+    """Sample indices, camera rays, bounce-1 rays, the bounce-0 NEE shadow
+    rays, the camera hits' prims and the sampled light ids of the first
+    launch of a main path (the shapes the kernels see there), taken as
+    trace_paths makes them."""
     import torch
 
     from strelka_tpu_torch.ops import bsdf as B
     from strelka_tpu_torch.ops import integrator as I
+    from strelka_tpu_torch.ops import light_sampling as LS
     from strelka_tpu_torch.ops import sampler as S
     from strelka_tpu_torch.ops import vec as V
     from strelka_tpu_torch.ops.intersect import intersect_closest, offset_ray_vec
     from strelka_tpu_torch.render.device_scene import ATTR_LIGHT_ROW, ATTR_MAT_ROW, RAY_MASK_PRIMARY
 
-    n = WIDTH * HEIGHT
+    n = cfg.width * cfg.height
     idx = torch.arange(n, dtype=torch.int64, device=device)
-    px, py = (idx % WIDTH).repeat(SPP), (idx // WIDTH).repeat(SPP)
-    s_of_ray = torch.arange(SPP, dtype=torch.int64, device=device).repeat_interleave(n)
+    px, py = (idx % cfg.width).repeat(cfg.spp), (idx // cfg.width).repeat(cfg.spp)
+    s_of_ray = torch.arange(cfg.spp, dtype=torch.int64, device=device).repeat_interleave(n)
     sample_idx = S.make_sample_index(px, py, s_of_ray, MAX_SAMPLE_COUNT)
     jxy = S.random_dims(sample_idx, 0, (0, 1))
-    origin, direction = I.generate_camera_rays(params, px, py, jxy[0], jxy[1], WIDTH, HEIGHT)
+    origin, direction = I.generate_camera_rays(params, px, py, jxy[0], jxy[1], cfg.width, cfg.height)
     m = sample_idx.shape[0]
     tmin = torch.zeros(m, dtype=torch.float32, device=device)
     tmax = torch.full((m,), 1e16, dtype=torch.float32, device=device)
@@ -177,27 +236,76 @@ def main_path_rays(scene, params, device):
     alive1 = (hit.prim >= 0) & (light_id < 0) & (smp.event_type != B.BSDF_EVENT_ABSORB)
     camera = dict(o=origin, d=direction, tmin=tmin, tmax=tmax, exclude=torch.full_like(hit.prim, -1))
     bounce1 = dict(o=org1, d=smp.k2, tmin=tmin, tmax=torch.where(alive1, 1e16, 0.0), exclude=hit.prim)
-    return sample_idx, camera, bounce1, hit.prim
+    # bounce-0 next-event rays (trace_paths' NEE block, uniform rect sampling)
+    nee_able = alive1 & ((smp.event_type & (B.BSDF_EVENT_DIFFUSE | B.BSDF_EVENT_GLOSSY)) != 0)
+    lid = torch.clamp((scene.num_lights * dims[int(S.SampleDimension.eLightId) % 5]).to(torch.int32), 0,
+                      scene.num_lights - 1)
+    lp = I._gather_light(scene, lid)
+    ls = LS.sample_light(lp, dims[int(S.SampleDimension.eLightPointX) % 5],
+                         dims[int(S.SampleDimension.eLightPointY) % 5], position, 0)
+    geom_ok = (V.dot(frame.normal, ls.L) > 0.0) & (-V.dot(ls.L, ls.normal) > 0.0) & V.all_nonzero(lp.color)
+    shadow = dict(o=offset_ray_vec(position, frame.geom_normal), d=ls.L, tmin=tmin,
+                  tmax=torch.where(nee_able & geom_ok, ls.dist_to_light, 0.0), exclude=hit.prim)
+    return sample_idx, camera, bounce1, shadow, hit.prim, lid
 
 
 def _contig(rays):
     return tuple(c.contiguous() for c in rays["o"]), tuple(c.contiguous() for c in rays["d"])
 
 
-def check_intersect(scene, rays, ray_mask, name):
+def flat_args(scene, rays, ray_mask):
+    """K2/K3's arguments for one ray set against a scene's triangle arrays."""
+    o, d = _contig(rays)
+    return (o, d, rays["tmin"].contiguous(), rays["tmax"].contiguous(), rays["exclude"].contiguous(), scene.v0,
+            scene.e1, scene.e2, scene.geom_mask, ray_mask)
+
+
+def bvh_args(scene, rays, ray_mask):
+    """K5/K6's arguments: K2/K3's with the tree before the triangles."""
+    a = flat_args(scene, rays, ray_mask)
+    return a[:5] + (scene.bvh,) + a[5:]
+
+
+def timed_once_ms(fn):
+    """Host-clock time of one call that ends in a synchronize (for the plain
+    versions above 1024 triangles, which take seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def closest_mismatch(t_a, p_a, t_b, p_b):
+    """Lanes where two closest-hit results disagree beyond the tie rule:
+    hit/miss differs, or both hit other prims with |dt| > 1e-5 t (a tie is
+    two prims at the same distance: a shared edge, coplanar faces). Returns
+    (bad lanes, tie lanes, max relative t difference over lanes where both hit)."""
+    import torch
+
+    both = (p_a >= 0) & (p_b >= 0)
+    rel = torch.where(both, torch.abs(t_a - t_b) / torch.abs(t_b), 0.0)
+    differ = p_a != p_b
+    tie = both & (rel <= 1e-5)
+    agree = both & (~differ | tie)
+    max_rel = float(rel[agree].max()) if bool(agree.any()) else 0.0
+    return int((differ & ~tie).sum()), int((differ & tie).sum()), max_rel
+
+
+def check_intersect(scene, rays, ray_mask, name, time_plain: bool = False):
     """K2 and K3 against their plain versions on one ray set. Returns the
-    kernels' arguments and K2's largest absolute difference in t, u or v
-    over the lanes where both give the same prim (misses included)."""
+    kernels' arguments, K2's largest absolute difference in t, u or v over
+    the lanes where both give the same prim (misses included), and the plain
+    versions' times (one call each) if asked for."""
     import torch
 
     from strelka_tpu_torch.kernels import intersect as KI
 
-    o, d = _contig(rays)
-    args = (o, d, rays["tmin"], rays["tmax"], rays["exclude"], scene.v0, scene.e1, scene.e2, scene.geom_mask,
-            ray_mask)
-    t_k, p_k, u_k, v_k = KI.intersect_closest(*args)
-    t_p, p_p, u_p, v_p = KI.closest_plain(*args)
-    torch.cuda.synchronize()
+    args = flat_args(scene, rays, ray_mask)
+    t_k, p_k, u_k, v_k = held(lambda: KI.intersect_closest(*args))
+    (t_p, p_p, u_p, v_p), closest_plain_ms = timed_once_ms(lambda: KI.closest_plain(*args))
     # tie rule: ids equal, except where two prims give t within 1e-5 t
     both = (p_k >= 0) & (p_p >= 0)
     differ = p_k != p_p
@@ -212,17 +320,18 @@ def check_intersect(scene, rays, ray_mask, name):
     if bad_prim or t_err > 1e-6 or uv_bits:
         raise AssertionError(f"K2 on {name}: {bad_prim} prims differ beyond ties, max rel t err {t_err}, "
                              f"u or v not bit-equal on {uv_bits} lanes with equal prims")
-    occ_k = KI.intersect_any(*args)
-    occ_p = KI.any_plain(*args)
-    torch.cuda.synchronize()
+    occ_k = held(lambda: KI.intersect_any(*args))
+    occ_p, any_plain_ms = timed_once_ms(lambda: KI.any_plain(*args))
     bad_occ = int((occ_k != occ_p).sum())
     if bad_occ:
         raise AssertionError(f"K3 on {name}: {bad_occ} occlusion results differ")
     max_abs = max(float(torch.abs(a - b)[same].max()) if bool(same.any()) else 0.0
                   for a, b in ((t_k, t_p), (u_k, u_p), (v_k, v_p)))
-    log(f"K2/K3 on {name} rays ({rays['tmin'].shape[0]}): prims equal but for {int(differ.sum())} ties "
-        f"(|dt| <= 1e-5 t), max rel t err {t_err:.3g} (limit 1e-6), u and v bit-equal on the "
-        f"{int(same.sum())} lanes with equal prims, occlusion equal ({int(occ_k.sum())} occluded)")
+    log(f"K2/K3 on {name} rays ({rays['tmin'].shape[0]} x {scene.v0.shape[0]} triangles): prims equal but for "
+        f"{int(differ.sum())} ties (|dt| <= 1e-5 t), max rel t err {t_err:.3g} (limit 1e-6), u and v bit-equal "
+        f"on the {int(same.sum())} lanes with equal prims, occlusion equal ({int(occ_k.sum())} occluded)")
+    if time_plain:
+        return args, max_abs, (closest_plain_ms, any_plain_ms)
     return args, max_abs
 
 
@@ -238,50 +347,69 @@ def tests_needed(args, any_hit: bool) -> int:
     ntri = v0.shape[0]
     ids = torch.arange(ntri, device=v0.device)
     match = (mask & ray_mask) != 0
+    if not any_hit:
+        live = tmax > tmin
+        own = live & (exclude >= 0) & match[torch.clamp(exclude, min=0).to(torch.int64)]
+        return int(live.sum()) * int(match.sum()) - int(own.sum())
     total = 0
-    for r0 in range(0, tmin.shape[0], 65536):
-        rs = slice(r0, r0 + 65536)
+    chunk = max(1024, min(65536, (1 << 26) // ntri))  # [chunk, ntri] temporaries of at most 256 MB
+    for r0 in range(0, tmin.shape[0], chunk):
+        rs = slice(r0, r0 + chunk)
         live = tmax[rs] > tmin[rs]
         candidate = match[None, :] & (ids[None, :] != exclude[rs, None])
-        if any_hit:
-            oc, dc = [c[rs] for c in o], [c[rs] for c in d]
-            _, _, _, hit = KI.mt_block(oc, dc, v0, e1, e2, tmin[rs], tmax[rs])
-            hit = KI._valid(hit, mask, ray_mask, 0, exclude[rs])
-            first = torch.where(hit, ids[None, :], ntri).min(dim=1).values
-            candidate = candidate & (ids[None, :] <= first[:, None])
+        oc, dc = [c[rs] for c in o], [c[rs] for c in d]
+        _, _, _, hit = KI.mt_block(oc, dc, v0, e1, e2, tmin[rs], tmax[rs])
+        hit = KI._valid(hit, mask, ray_mask, 0, exclude[rs])
+        first = torch.where(hit, ids[None, :], ntri).min(dim=1).values
+        candidate = candidate & (ids[None, :] <= first[:, None])
         total += int((candidate & live[:, None]).sum())
     return total
+
+
+JITTER_DIMS, BOUNCE_DIMS = (0, 1), (0, 1, 2, 3, 4)  # the two dimension lists render_launch asks K1 for
+
+
+def sobol_rows(sample_idx, cfg: Config, where: str):
+    """K1 against its plain version, bit for bit, at both calls a launch
+    makes: the pixel jitter (2 dimensions, depth 0) and a bounce's 5
+    dimensions at every depth; both timed."""
+    import torch
+
+    from strelka_tpu_torch.kernels import sobol as KS
+
+    n = sample_idx.shape[0]
+    for dims, depths in ((JITTER_DIMS, (0,)), (BOUNCE_DIMS, range(cfg.depth))):
+        for depth in depths:
+            a = held(lambda: KS.random_dims(sample_idx, depth, dims))
+            b = KS.random_dims_plain(sample_idx, depth, dims)
+            torch.cuda.synchronize()
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise AssertionError(f"K1 differs from its plain version at depth {depth}, dims {dims} ({where})")
+    log(f"K1 bit-equal (tolerance: none) on {n} sample indices of {where}: {len(BOUNCE_DIMS)} dimensions at depths "
+        f"0..{cfg.depth - 1}, {len(JITTER_DIMS)} at depth 0")
+    return [dict(
+        kernel="sobol", at=f"{where}, {len(dims)} dimensions", shape=(n, len(dims)),
+        ms=time_ms(lambda: KS.random_dims(sample_idx, depth, dims)),
+        plain_ms=time_ms(lambda: KS.random_dims_plain(sample_idx, depth, dims), samples=5, inner=2),
+        bound_bytes=n * 8 + len(dims) * n * 4, bound_ops_s=sobol_bound_s(n, len(dims)),
+        max_abs_err=0.0, library_ms=None,
+    ) for dims, depth in ((BOUNCE_DIMS, 1), (JITTER_DIMS, 0))]
 
 
 def phase_kernels(scene, params):
     import torch
 
-    from strelka_tpu_torch.kernels import gather as KG
     from strelka_tpu_torch.kernels import intersect as KI
-    from strelka_tpu_torch.kernels import sobol as KS
     from strelka_tpu_torch.ops import sampler as S
     from strelka_tpu_torch.render.device_scene import RAY_MASK_PRIMARY, RAY_MASK_SHADOW
 
     dev = scene.device
-    sample_idx, camera, bounce1, prims = main_path_rays(scene, params, dev)
+    sample_idx, camera, bounce1, _, prims, _ = main_path_rays(scene, params, dev, CORNELL)
     n = sample_idx.shape[0]
-    rows = {}
+    where = "cornell 2^20 lanes x 640 triangles"
 
-    # ---- K1: every depth of the main path, bit-equal
-    dims = (0, 1, 2, 3, 4)
-    for depth in range(DEPTH):
-        a = KS.random_dims(sample_idx, depth, dims)
-        b = KS.random_dims_plain(sample_idx, depth, dims)
-        torch.cuda.synchronize()
-        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
-            raise AssertionError(f"K1 differs from its plain version at depth {depth}")
-    log(f"K1 bit-equal (tolerance: none) on {n} sample indices, depths 0..{DEPTH - 1}")
-    rows["sobol"] = dict(
-        ms=time_ms(lambda: KS.random_dims(sample_idx, 1, dims)),
-        plain_ms=time_ms(lambda: KS.random_dims_plain(sample_idx, 1, dims), samples=5, inner=2),
-        bound_bytes=n * 8 + len(dims) * n * 4, bound_ops_s=sobol_bound_s(n, len(dims)),
-        max_abs_err=0.0, library_ms=None,
-    )
+    # ---- K1: both calls of a launch, every depth of the main path, bit-equal
+    rows = sobol_rows(sample_idx, CORNELL, "cornell")
 
     # ---- K2 / K3: camera rays and bounce-1 rays (2^20 each)
     cam_args, err_cam = check_intersect(scene, camera, RAY_MASK_PRIMARY, "camera")
@@ -293,64 +421,88 @@ def phase_kernels(scene, params):
     o, d, tmin, tmax, ex, v0, e1, e2, mask, _ = b1_args
     shadow_tmax = torch.where(tmax > 0, torch.clamp(t_b1, max=1e3) * frac, 0.0).contiguous()
     sh_args = (o, d, tmin, shadow_tmax, ex, v0, e1, e2, mask, RAY_MASK_SHADOW)
-    if not torch.equal(KI.intersect_any(*sh_args), KI.any_plain(*sh_args)):
+    if not torch.equal(held(lambda: KI.intersect_any(*sh_args)), KI.any_plain(*sh_args)):
         raise AssertionError("K3 differs from its plain version on shadow-style rays")
     ntri = scene.v0.shape[0]
     tests_k2, tests_k3 = tests_needed(b1_args, any_hit=False), tests_needed(sh_args, any_hit=True)
     log(f"ray-triangle tests needed: K2 {tests_k2} on the bounce-1 rays, K3 {tests_k3} on the shadow-style "
         f"rays; of {ntri} triangles {int(((scene.geom_mask & RAY_MASK_PRIMARY) != 0).sum())} match the "
         f"primary ray mask, {int(((scene.geom_mask & RAY_MASK_SHADOW) != 0).sum())} the shadow mask")
-    rows["intersect_closest"] = dict(
+    rows.append(dict(
+        kernel="intersect_closest", at=where + ", bounce-1 rays", shape=(n, ntri),
         ms=time_ms(lambda: KI.intersect_closest(*b1_args)),
         plain_ms=time_ms(lambda: KI.closest_plain(*b1_args), samples=3, inner=1, warmup=1),
-        bound_bytes=n * (8 * 4 + 4 + 16) + ntri * 40,
+        bound_bytes=ray_bytes(*b1_args[2:5], 16) + ntri * 40,
         bound_ops_s=tests_k2 * KI.MT_FLOPS / F32_OPS_PER_S,
         max_abs_err=max(err_cam, err_b1), library_ms=None,
-    )
-    rows["intersect_any"] = dict(
+    ))
+    rows.append(dict(
+        kernel="intersect_any", at=where + ", shadow-style rays", shape=(n, ntri),
         ms=time_ms(lambda: KI.intersect_any(*sh_args)),
         plain_ms=time_ms(lambda: KI.any_plain(*sh_args), samples=3, inner=1, warmup=1),
-        bound_bytes=n * (8 * 4 + 4 + 1) + ntri * 40,
+        bound_bytes=ray_bytes(*sh_args[2:5], 1) + ntri * 40,
         bound_ops_s=tests_k3 * KI.MT_FLOPS / F32_OPS_PER_S,
         max_abs_err=0.0, library_ms=None,
-    )
+    ))
 
     # ---- K4: the attr table at the camera hits (2^20 indices), bit-equal
-    table = scene.attr_table
+    rows.append(gather_row(scene.attr_table, prims, "cornell attr_table at the camera hits"))
+    return rows
+
+
+def gather_row(table, prims, where: str):
+    """K4 against its plain version at one table and index set, timed. Its
+    bound counts the table rows these indices name, not the whole table."""
+    import torch
+
+    from strelka_tpu_torch.kernels import gather as KG
+
+    n = prims.shape[0]
     gidx = torch.clamp(prims, min=0).contiguous()
-    a = KG.gather_rows_t(table, gidx)
+    a = held(lambda: KG.gather_rows_t(table, gidx))
     b = KG.gather_rows_t_plain(table, gidx)
     torch.cuda.synchronize()
     if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
         raise AssertionError("K4 differs from its plain version")
-    log(f"K4 bit-equal (tolerance: none) on attr_table {tuple(table.shape)} x {n} indices")
+    rows_named = int(torch.unique(gidx).numel())
+    log(f"K4 bit-equal (tolerance: none) on {where}: table {tuple(table.shape)} x {n} indices naming "
+        f"{rows_named} rows")
     gidx64 = gidx.to(torch.int64)
-    rows["gather_rows_t"] = dict(
+    return dict(
+        kernel="gather_rows_t", at=where, shape=(table.shape[0], table.shape[1], n),
         ms=time_ms(lambda: KG.gather_rows_t(table, gidx)),
         plain_ms=time_ms(lambda: KG.gather_rows_t_plain(table, gidx)),
-        bound_bytes=n * 4 + table.numel() * 4 + n * table.shape[1] * 4,
+        bound_bytes=n * 4 + rows_named * table.shape[1] * 4 + n * table.shape[1] * 4,
         bound_ops_s=0.0,
         max_abs_err=0.0,
         library_ms=time_ms(lambda: torch.index_select(table, 0, gidx64).t().contiguous()),
     )
-    return rows
 
 
-def phase_golden(device) -> float:
+def finish_bounds(rows):
+    for r in rows:
+        if (r["kernel"], tuple(r["shape"])) not in HELD:
+            raise AssertionError(f"{r['kernel']} was timed at {r['shape']} but not held against its plain version")
+        bytes_s = r["bound_bytes"] / HBM_BYTES_PER_S
+        r["bound_ms"] = max(bytes_s, r["bound_ops_s"]) * 1e3
+        r["bound_by"] = "bytes" if bytes_s >= r["bound_ops_s"] else "operations"
+
+
+def golden_render(host, device, use_bvh=None):
+    """The golden config (64x64, 4 spp x 4 launches) through TorchRender -> [H, W, 3] in [0, 1]."""
     import numpy as np
 
     from strelka_tpu_torch.render.buffer import BufferDesc, BufferFormat
     from strelka_tpu_torch.render.render import RenderFactory, RenderType
-    from strelka_tpu_torch.scene import testscenes as TS
     from strelka_tpu_torch.settings import SharedContext, make_default_settings
-    from strelka_tpu_torch.utils.image import read_png, ssim
 
     w, h, spp, launches = GOLDEN
     s = make_default_settings(w, h)
     s.set("render/pt/sppTotal", spp * launches)
     s.set("render/pt/spp", spp)
     r = RenderFactory.create_render(RenderType.eTorch, device=device)
-    r.set_scene(TS.cornell_box(light_intensity=5000.0, metal_box=True, glass_sphere=True))
+    r.use_bvh = use_bvh
+    r.set_scene(host)
     r.set_shared_context(SharedContext(s))
     r.init()
     buf = r.create_buffer(BufferDesc(w, h, BufferFormat.FLOAT4))
@@ -359,11 +511,30 @@ def phase_golden(device) -> float:
     img = buf.map()[..., :3]
     if not np.isfinite(img).all():
         raise AssertionError("golden-config render has non-finite pixels")
-    golden = read_png(os.path.join(REPO, "goldens", "cornell_golden.png"))[..., :3]
-    return float(ssim(np.clip(img, 0.0, 1.0), golden))
+    return np.clip(img, 0.0, 1.0)
 
 
-def phase_main_path(scene, host):
+def phase_golden(host, device, golden_png: str, kernels: tuple) -> float:
+    """Golden-config render on the card: SSIM >= 0.99 against the golden,
+    every kernel of the path launched, no plain version run on CUDA."""
+    from strelka_tpu_torch import kernels as K
+    from strelka_tpu_torch.utils.image import read_png, ssim
+
+    K.reset_counts()
+    img = golden_render(host, device)
+    counts = dict(K.launch_counts)
+    golden = read_png(os.path.join(REPO, "goldens", golden_png))[..., :3]
+    s = float(ssim(img, golden))
+    log(f"golden config {GOLDEN}: SSIM vs goldens/{golden_png} = {s:.6f}; launches {counts}")
+    if s < 0.99:
+        raise AssertionError(f"SSIM {s} < 0.99 against goldens/{golden_png}")
+    if not all(counts[k] for k in kernels) or any(K.plain_cuda_calls.values()):
+        raise AssertionError(f"the golden-config render did not run {kernels} on the card: {counts}, "
+                             f"plain versions on CUDA {dict(K.plain_cuda_calls)}")
+    return s
+
+
+def phase_main_path(scene, host, cfg: Config):
     import numpy as np
     import torch
 
@@ -371,34 +542,45 @@ def phase_main_path(scene, host):
     from strelka_tpu_torch.ops import integrator as I
 
     dev = scene.device
-    kw = main_path_kw()
-    state = I.make_frame_state(HEIGHT, WIDTH, dev)
+    kw = main_path_kw(cfg)
+    w, h = cfg.width, cfg.height
+    state = I.make_frame_state(h, w, dev)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     K.reset_counts()
-    state, image = I.render_launch(scene, launch_params(host, WIDTH, HEIGHT, 0), state, **kw)  # warm-up
+    state, image = I.render_launch(scene, launch_params(host, w, h, 0), state, **kw)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(TIMED_LAUNCHES):
-        state, image = I.render_launch(scene, launch_params(host, WIDTH, HEIGHT, (i + 1) * SPP), state, **kw)
+    for i in range(cfg.timed_launches):
+        state, image = I.render_launch(scene, launch_params(host, w, h, (i + 1) * cfg.spp), state, **kw)
     torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / TIMED_LAUNCHES
+    dt = (time.perf_counter() - t0) / cfg.timed_launches
     counts = dict(K.launch_counts)
+    shapes = dict(K.launch_shapes)
     plain = dict(K.plain_cuda_calls)
-    launches = 1 + TIMED_LAUNCHES
-    for name, c in counts.items():
-        if c == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    launches = 1 + cfg.timed_launches
+    unheld = sorted(k for k in shapes if k not in HELD)
+    if unheld:
+        raise AssertionError(f"the {cfg.name} main path launched kernels at shapes that were not held against "
+                             f"their plain versions: {unheld}")
+    for name in cfg.kernels:
+        if counts[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the {cfg.name} main path")
     if any(plain.values()):
-        raise AssertionError(f"a plain version ran on CUDA on the main path: {plain}")
+        raise AssertionError(f"a plain version ran on CUDA on the {cfg.name} main path: {plain}")
     img = image.cpu().numpy()
-    if img.shape != (3, HEIGHT, WIDTH) or not np.isfinite(img).all():
-        raise AssertionError(f"main-path image is {img.shape} with non-finite values")
+    if img.shape != (3, h, w) or not np.isfinite(img).all():
+        raise AssertionError(f"{cfg.name} main-path image is {img.shape} with non-finite values")
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
     # alive-ray accounting: one instrumented launch, same config
-    _, _, stats = I.render_launch(scene, launch_params(host, WIDTH, HEIGHT, launches * SPP), state,
+    _, _, stats = I.render_launch(scene, launch_params(host, w, h, launches * cfg.spp), state,
                                   collect_stats=True, **kw)
     alive = float(stats["closest_rays"]) + float(stats["shadow_rays"])
-    padded = WIDTH * HEIGHT * SPP * 2 * DEPTH
+    padded = w * h * cfg.spp * 2 * cfg.depth
     result = dict(
+        scene=cfg.name,
+        config=f"{w}x{h} spp={cfg.spp} depth={cfg.depth}",
+        triangles=scene.num_triangles,
         ms_per_launch=dt * 1e3,
         padded_mrays_per_s=padded / dt / 1e6,
         alive_mrays_per_s=alive / dt / 1e6,
@@ -406,10 +588,283 @@ def phase_main_path(scene, host):
         image_mean=float(img.mean()),
         render_launches=launches,
         launch_counts=counts,
+        launch_shapes=[dict(kernel=k, shape=list(s), launches=v) for (k, s), v in sorted(shapes.items())],
         launches_per_render_launch={k: v / launches for k, v in counts.items()},
         plain_cuda_calls=plain,
+        peak_device_memory_mb=peak_mb,
     )
+    log(f"{cfg.name} {result['config']}: {result['ms_per_launch']:.3f} ms/launch, "
+        f"{result['padded_mrays_per_s']:.1f} padded Mrays/s, {result['alive_mrays_per_s']:.1f} alive Mrays/s "
+        f"(alive fraction {result['alive_ray_frac']:.3f}), peak device memory {peak_mb:.0f} MB")
+    log(f"launch counts over {launches} render launches: {counts} (plain versions on CUDA: {plain}); by shape, "
+        f"each held against its plain version before: " +
+        ", ".join(f"{k}{list(s)} x {v}" for (k, s), v in sorted(shapes.items())))
     return result
+
+
+# ---------------------------------------------------------------------------
+# BVH scenes: kernels K5 and K6
+# ---------------------------------------------------------------------------
+
+
+def check_bvh_vs_plain(scene, rays, ray_mask, name, any_hit: bool):
+    """K5 (or K6) against the plain traversal on one ray set: the same walk
+    and arithmetic, so prim, t, u and v must be EQUAL (t, u, v bit for bit).
+    Returns (args, the plain walk's TraversalCounts, plain ms)."""
+    import torch
+
+    from strelka_tpu_torch.kernels import bvh as KB
+    from strelka_tpu_torch.ops.bvh import intersect_bvh_plain
+
+    args = bvh_args(scene, rays, ray_mask)
+    label = "bvh_any" if any_hit else "bvh_closest"
+    out_p, plain_ms = timed_once_ms(
+        lambda: intersect_bvh_plain(*args, any_hit=any_hit, counts=True, name=label))
+    t_p, p_p, u_p, v_p, walk = out_p
+    if any_hit:
+        occ = held(lambda: KB.bvh_any(*args))
+        torch.cuda.synchronize()
+        bad = int((occ != (p_p >= 0)).sum())
+        if bad:
+            raise AssertionError(f"K6 on {name}: {bad} occlusion results differ from the plain traversal")
+        log(f"K6 on {name} rays ({occ.shape[0]}): occlusion equal to the plain traversal ({int(occ.sum())} "
+            f"occluded; tolerance: none); plain walk {walk.steps} steps, {plain_ms:.0f} ms")
+    else:
+        t_k, p_k, u_k, v_k = held(lambda: KB.bvh_closest(*args))
+        torch.cuda.synchronize()
+        bad = int((p_k != p_p).sum())
+        bits = int(sum((a.view(torch.int32) != b.view(torch.int32)).sum()
+                       for a, b in ((t_k, t_p), (u_k, u_p), (v_k, v_p))))
+        if bad or bits:
+            raise AssertionError(f"K5 on {name}: {bad} prims and {bits} values of t, u, v differ from the "
+                                 "plain traversal")
+        log(f"K5 on {name} rays ({p_k.shape[0]}): prim, t, u, v equal to the plain traversal bit for bit "
+            f"({int((p_k >= 0).sum())} hits; tolerance: none); plain walk {walk.steps} steps, {plain_ms:.0f} ms")
+    return args, walk, plain_ms
+
+
+def check_bvh_vs_bruteforce(scene, rays, ray_mask, name):
+    """K5/K6 against K2/K3 sweeping every triangle of the same (leaf-ordered)
+    arrays: an independent oracle. Bar: hit/miss equal and, where both hit
+    other prims, |dt| <= 1e-5 t (the tie rule); t within 1e-5 relative.
+    A BVH may lose a grazing hit that brute force keeps (a slab test can cull
+    an edge-on triangle), so up to 1e-4 of the lanes may differ, the
+    reference's own bar being 1% of prims (tests/test_bvh.py); the count is
+    printed. Returns the fraction of lanes that differ."""
+    import torch
+
+    from strelka_tpu_torch.kernels import bvh as KB
+    from strelka_tpu_torch.kernels import intersect as KI
+
+    fa, ba = flat_args(scene, rays, ray_mask), bvh_args(scene, rays, ray_mask)
+    t_k, p_k, _, _ = KB.bvh_closest(*ba)
+    t_f, p_f, _, _ = KI.intersect_closest(*fa)
+    occ_k, occ_f = KB.bvh_any(*ba), KI.intersect_any(*fa)
+    torch.cuda.synchronize()
+    n = p_k.shape[0]
+    hit_miss = int(((p_k >= 0) != (p_f >= 0)).sum())
+    bad, ties, rel = closest_mismatch(t_k, p_k, t_f, p_f)
+    bad_occ = int((occ_k != occ_f).sum())
+    log(f"K5/K6 vs brute force (K2/K3 over {scene.v0.shape[0]} triangles) on {name} rays ({n}): closest differs "
+        f"on {bad} lanes beyond ties ({hit_miss} of them hit against miss), {ties} ties, max rel t diff {rel:.3g} "
+        f"(limit 1e-5); occlusion differs on {bad_occ} lanes (bar: at most {1e-4 * n:.0f} lanes each)")
+    if bad > 1e-4 * n or bad_occ > 1e-4 * n or rel > 1e-5:
+        raise AssertionError(f"K5/K6 disagree with brute force on {name} rays")
+    return max(bad, bad_occ) / n
+
+
+def bvh_rows(scene, sets, where: str):
+    """K5/K6 rows: times on the bounce-1 (K5) and shadow (K6) rays, and the
+    bound from what these rays need: the nodes whose box overlaps
+    [tmin, final t] and the triangles of such leaves that pass mask and
+    exclude (K6: up to the first occluder in the kernel's order). The
+    operations count every such visit; the bytes count each such node row
+    (32 bytes) and triangle (40) once, whatever the number of rays that
+    need it, and the rays as `ray_bytes` does."""
+    from strelka_tpu_torch.kernels import bvh as KB
+    from strelka_tpu_torch.kernels.intersect import MT_FLOPS
+    from strelka_tpu_torch.ops.bvh import SLAB_FLOPS, intersect_bvh_plain
+
+    (b1_args, b1_walk, b1_plain_ms), (sh_args, sh_walk, sh_plain_ms) = sets
+    n = b1_args[2].shape[0]
+    live_b1 = int((b1_args[3] > b1_args[2]).sum())
+    live_sh = int((sh_args[3] > sh_args[2]).sum())
+    t_final = KB.bvh_closest(*b1_args)[0]
+    ideal = intersect_bvh_plain(*b1_args, prime_t=t_final, counts=True)[4]
+    log(f"K5 on the bounce-1 rays ({live_b1} live of {n}): the kernel's order visits "
+        f"{b1_walk.nodes_visited / live_b1:.1f} nodes and tests {b1_walk.tri_tests / live_b1:.2f} triangles a "
+        f"live ray; given the final t a ray needs {ideal.nodes_overlapped / live_b1:.1f} nodes "
+        f"(boxes overlapping [tmin, t]) and {ideal.tri_tests / live_b1:.2f} triangles")
+    log(f"K6 on the shadow rays ({live_sh} live of {n}): the kernel's order visits "
+        f"{sh_walk.nodes_visited / max(live_sh, 1):.1f} nodes and tests "
+        f"{sh_walk.tri_tests / max(live_sh, 1):.2f} triangles a live ray, "
+        f"{sh_walk.nodes_overlapped / max(live_sh, 1):.1f} of the nodes overlapped")
+    log(f"tree these rays need: K5 {ideal.nodes_touched} of {scene.bvh.num_nodes} nodes and {ideal.tris_touched} "
+        f"of {scene.v0.shape[0]} triangles; K6 {sh_walk.nodes_touched} nodes and {sh_walk.tris_touched} triangles")
+    shape = (n, scene.bvh.num_nodes, scene.v0.shape[0])
+    rows = [
+        dict(
+            kernel="bvh_closest", at=where + ", bounce-1 rays", shape=shape,
+            ms=time_ms(lambda: KB.bvh_closest(*b1_args), samples=10, inner=3),
+            plain_ms=b1_plain_ms,
+            bound_bytes=ray_bytes(*b1_args[2:5], 16) + ideal.nodes_touched * 32 + ideal.tris_touched * 40,
+            bound_ops_s=(ideal.nodes_overlapped * SLAB_FLOPS + ideal.tri_tests * MT_FLOPS) / F32_OPS_PER_S,
+            max_abs_err=0.0, library_ms=None,
+            nodes_per_ray=b1_walk.nodes_visited / live_b1, ideal_nodes_per_ray=ideal.nodes_overlapped / live_b1,
+            tris_per_ray=b1_walk.tri_tests / live_b1, ideal_tris_per_ray=ideal.tri_tests / live_b1,
+            live_rays=live_b1, nodes_needed=ideal.nodes_touched, tris_needed=ideal.tris_touched,
+        ),
+        dict(
+            kernel="bvh_any", at=where + ", shadow rays", shape=shape,
+            ms=time_ms(lambda: KB.bvh_any(*sh_args), samples=10, inner=3),
+            plain_ms=sh_plain_ms,
+            bound_bytes=ray_bytes(*sh_args[2:5], 1) + sh_walk.nodes_touched * 32 + sh_walk.tris_touched * 40,
+            bound_ops_s=(sh_walk.nodes_overlapped * SLAB_FLOPS + sh_walk.tri_tests * MT_FLOPS) / F32_OPS_PER_S,
+            max_abs_err=0.0, library_ms=None,
+            nodes_per_ray=sh_walk.nodes_visited / max(live_sh, 1),
+            ideal_nodes_per_ray=sh_walk.nodes_overlapped / max(live_sh, 1),
+            tris_per_ray=sh_walk.tri_tests / max(live_sh, 1),
+            ideal_tris_per_ray=sh_walk.tri_tests / max(live_sh, 1),
+            live_rays=live_sh, nodes_needed=sh_walk.nodes_touched, tris_needed=sh_walk.tris_touched,
+        ),
+    ]
+    return rows
+
+
+def phase_flat_scene(dev):
+    """box_field(grid=12), 25,732 triangles (the size range of the TPU's
+    _flat and _mxu_flat kernels), built flat and with the BVH: K2/K3 against
+    their plain versions at that size, K5/K6 against the plain traversal and
+    against K2/K3, and the two golden-config renders compared."""
+    import numpy as np
+    import torch
+
+    from strelka_tpu_torch import kernels as K
+    from strelka_tpu_torch.kernels import intersect as KI
+    from strelka_tpu_torch.render.device_scene import RAY_MASK_PRIMARY, RAY_MASK_SHADOW, build_device_scene
+    from strelka_tpu_torch.scene import testscenes as TS
+    from strelka_tpu_torch.utils.image import ssim
+
+    host = TS.box_field(grid=FLAT_GRID)
+    flat = build_device_scene(host, device=dev, use_bvh=False)
+    tree = build_device_scene(TS.box_field(grid=FLAT_GRID), device=dev)
+    if flat.bvh is not None or tree.bvh is None:
+        raise AssertionError("use_bvh=False must keep the scene flat and the default must build a BVH")
+    ntri = flat.v0.shape[0]
+    log(f"box_field(grid={FLAT_GRID}): {flat.num_triangles} triangles ({ntri} padded), BVH of "
+        f"{tree.bvh.num_nodes} nodes ({tree.bvh.builder} builder, {tree.bvh.build_seconds:.2f} s)")
+    params = launch_params(host, BOX.width, BOX.height, 0)
+
+    # ---- K2/K3 at 25,732 triangles, on the flat scene's own rays (2^19 lanes)
+    _, camera, bounce1, shadow, _, _ = main_path_rays(flat, params, dev, BOX)
+    n = camera["tmin"].shape[0]
+    where = f"box_field(grid={FLAT_GRID}) 2^19 lanes x {ntri} triangles"
+    _, err_cam = check_intersect(flat, camera, RAY_MASK_PRIMARY, "flat camera")
+    b1_args, err_b1, (closest_plain_ms, _) = check_intersect(flat, bounce1, RAY_MASK_PRIMARY, "flat bounce-1",
+                                                             time_plain=True)
+    sh_args = flat_args(flat, shadow, RAY_MASK_SHADOW)
+    occ_p, any_plain_ms = timed_once_ms(lambda: KI.any_plain(*sh_args))
+    if not torch.equal(held(lambda: KI.intersect_any(*sh_args)), occ_p):
+        raise AssertionError("K3 differs from its plain version on the flat scene's shadow rays")
+    tests_k2, tests_k3 = tests_needed(b1_args, any_hit=False), tests_needed(sh_args, any_hit=True)
+    log(f"ray-triangle tests needed at {ntri} triangles: K2 {tests_k2} on the bounce-1 rays, K3 {tests_k3} on "
+        f"the shadow rays ({int(occ_p.sum())} occluded)")
+    rows = [
+        dict(
+            kernel="intersect_closest", at=where + ", bounce-1 rays", shape=(n, ntri),
+            ms=time_ms(lambda: KI.intersect_closest(*b1_args), samples=5, inner=2, warmup=1),
+            plain_ms=closest_plain_ms,
+            bound_bytes=ray_bytes(*b1_args[2:5], 16) + ntri * 40,
+            bound_ops_s=tests_k2 * KI.MT_FLOPS / F32_OPS_PER_S,
+            max_abs_err=max(err_cam, err_b1), library_ms=None,
+        ),
+        dict(
+            kernel="intersect_any", at=where + ", shadow rays", shape=(n, ntri),
+            ms=time_ms(lambda: KI.intersect_any(*sh_args), samples=5, inner=2, warmup=1),
+            plain_ms=any_plain_ms,
+            bound_bytes=ray_bytes(*sh_args[2:5], 1) + ntri * 40,
+            bound_ops_s=tests_k3 * KI.MT_FLOPS / F32_OPS_PER_S,
+            max_abs_err=0.0, library_ms=None,
+        ),
+    ]
+    finish_bounds(rows)
+
+    # ---- K5/K6 on the BVH build of the same scene, against the plain
+    # traversal and against K2/K3 over its leaf-ordered triangles
+    _, camera, bounce1, shadow, _, _ = main_path_rays(tree, params, dev, BOX)
+    differ = 0.0
+    for rays, mask, name, any_hit in ((camera, RAY_MASK_PRIMARY, "grid-12 camera", False),
+                                      (bounce1, RAY_MASK_PRIMARY, "grid-12 bounce-1", False),
+                                      (shadow, RAY_MASK_SHADOW, "grid-12 shadow", True)):
+        check_bvh_vs_plain(tree, rays, mask, name, any_hit)
+        differ = max(differ, check_bvh_vs_bruteforce(tree, rays, mask, name))
+
+    # ---- the two golden-config renders
+    K.reset_counts()
+    img_flat = golden_render(TS.box_field(grid=FLAT_GRID), dev, use_bvh=False)
+    flat_counts = dict(K.launch_counts)
+    K.reset_counts()
+    img_tree = golden_render(TS.box_field(grid=FLAT_GRID), dev)
+    tree_counts = dict(K.launch_counts)
+    if not (flat_counts["intersect_closest"] and flat_counts["intersect_any"] and tree_counts["bvh_closest"]
+            and tree_counts["bvh_any"]) or flat_counts["bvh_closest"] or tree_counts["intersect_closest"]:
+        raise AssertionError(f"flat render must run K2/K3 and the BVH render K5/K6: {flat_counts}, {tree_counts}")
+    diff = np.abs(img_flat - img_tree)
+    s = float(ssim(img_flat, img_tree))
+    differing = int((diff.max(axis=-1) > 1e-4).sum())
+    log(f"box_field(grid={FLAT_GRID}) golden config, flat (K2/K3) against BVH (K5/K6) render: max abs difference "
+        f"{float(diff.max()):.3g}, {differing} of {diff.shape[0] * diff.shape[1]} pixels differ by more than 1e-4, "
+        f"SSIM {s:.6f} (bar 0.99)")
+    if s < 0.99:
+        raise AssertionError("the flat and the BVH render of box_field(grid=12) disagree")
+    result = dict(triangles=flat.num_triangles, padded_triangles=ntri, rays=n, kernels=rows,
+                  launches_golden_render={k: flat_counts[k] for k in ("intersect_closest", "intersect_any")},
+                  bvh_vs_bruteforce_lanes_differing_frac=differ,
+                  render_max_abs_diff=float(diff.max()), render_pixels_differing=differing, render_ssim=s)
+    return result
+
+
+def phase_box_kernels(scene, params):
+    """Every kernel of the box_field main path at every shape that path
+    gives it: K1 on its 2^19 sample indices, K5/K6 on 2^19 lanes a bounce
+    against 411,652 triangles, K4 on its two tables (the attr table at the
+    hits, the light table at the sampled light ids)."""
+    from strelka_tpu_torch.render.device_scene import RAY_MASK_PRIMARY, RAY_MASK_SHADOW
+
+    dev = scene.device
+    where = f"box_field(grid={BOX_GRID}) 2^19 lanes x {scene.v0.shape[0]} triangles"
+    sample_idx, camera, bounce1, shadow, prims, lid = main_path_rays(scene, params, dev, BOX)
+    rows = sobol_rows(sample_idx, BOX, "box_field")
+    check_bvh_vs_plain(scene, camera, RAY_MASK_PRIMARY, "box_field camera", False)
+    b1 = check_bvh_vs_plain(scene, bounce1, RAY_MASK_PRIMARY, "box_field bounce-1", False)
+    sh = check_bvh_vs_plain(scene, shadow, RAY_MASK_SHADOW, "box_field shadow", True)
+    differ = 0.0
+    for rays, mask, name in ((camera, RAY_MASK_PRIMARY, "box_field camera"),
+                             (bounce1, RAY_MASK_PRIMARY, "box_field bounce-1"),
+                             (shadow, RAY_MASK_SHADOW, "box_field shadow")):
+        differ = max(differ, check_bvh_vs_bruteforce(scene, rays, mask, name))
+    rows += bvh_rows(scene, (b1, sh), where)
+    rows.append(gather_row(scene.attr_table, prims, "box_field attr_table at the camera hits"))
+    rows.append(gather_row(scene.light_table, lid, "box_field light_table at the sampled light ids"))
+    finish_bounds(rows)
+    return rows, differ
+
+
+def print_kernel_lines(rows, main=None):
+    """One JSON line per (kernel, shape) row; `main` is the result of the main
+    path whose launches at that shape are given beside it."""
+    for r in rows:
+        line = {"kernel": r["kernel"], "at": r["at"], "replaces": REPLACES[r["kernel"]][0]}
+        line.update({k: v for k, v in r.items() if k not in ("kernel", "at", "bound_ops_s")})
+        if main is not None:
+            line["launches"] = shape_launches(main, r)
+        print(json.dumps(line), flush=True)
+
+
+def shape_launches(main, row) -> int:
+    """Launches of a row's kernel at its shape on a main path."""
+    return sum(e["launches"] for e in main["launch_shapes"]
+               if e["kernel"] == row["kernel"] and tuple(e["shape"]) == tuple(row["shape"]))
 
 
 def main() -> int:
@@ -426,13 +881,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from strelka_tpu_torch import kernels as K
     from strelka_tpu_torch.kernels import build
+    from strelka_tpu_torch.render.device_scene import build_device_scene
+    from strelka_tpu_torch.scene import testscenes as TS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
 
     # ---- 1. build
     t0 = time.perf_counter()
@@ -443,49 +900,64 @@ def main() -> int:
         if "registers" in line or "==" in line or "error" in line.lower():
             log("  " + line.strip())
 
+    # ---- 2. Cornell: kernels K1-K4, fidelity through the library API, main path
     host, scene = cornell_scene(dev)
-    params = launch_params(host, WIDTH, HEIGHT, 0)
+    rows = phase_kernels(scene, launch_params(host, CORNELL.width, CORNELL.height, 0))
+    finish_bounds(rows)
+    ssim_cornell = phase_golden(TS.cornell_box(light_intensity=5000.0, metal_box=True, glass_sphere=True), dev,
+                                "cornell_golden.png", CORNELL.kernels)
+    main_cornell = phase_main_path(scene, host, CORNELL)
+    log(f"[{time.perf_counter() - t_start:.0f} s] Cornell phases done")
 
-    # ---- 2. kernels against their plain versions
-    rows = phase_kernels(scene, params)
-    for name, r in rows.items():
-        bytes_s = r["bound_bytes"] / HBM_BYTES_PER_S
-        r["bound_ms"] = max(bytes_s, r["bound_ops_s"]) * 1e3
-        r["bound_by"] = "bytes" if bytes_s >= r["bound_ops_s"] else "operations"
+    # ---- 3. flat kernels above 1024 triangles
+    flat = phase_flat_scene(dev)
+    log(f"[{time.perf_counter() - t_start:.0f} s] box_field(grid={FLAT_GRID}) phase done")
 
-    # ---- 3. fidelity through the library API
-    K.reset_counts()
-    s = phase_golden(dev)
-    golden_counts = dict(K.launch_counts)
-    log(f"golden config {GOLDEN}: SSIM vs goldens/cornell_golden.png = {s:.6f}; launches {golden_counts}")
-    if s < 0.99:
-        raise AssertionError(f"SSIM {s} < 0.99")
-    if not all(golden_counts.values()) or any(K.plain_cuda_calls.values()):
-        raise AssertionError("the golden-config render did not run every kernel on the card")
+    # ---- 4. box_field on the BVH: kernels K5/K6, golden, main path
+    box_host = TS.box_field(grid=BOX_GRID)
+    box = build_device_scene(box_host, device=dev)
+    log(f"box_field(grid={BOX_GRID}): {box.num_triangles} triangles ({box.v0.shape[0]} padded), BVH of "
+        f"{box.bvh.num_nodes} nodes built by the {box.bvh.builder} builder in {box.bvh.build_seconds:.2f} s")
+    box_rows, box_differ = phase_box_kernels(box, launch_params(box_host, BOX.width, BOX.height, 0))
+    ssim_box = phase_golden(TS.box_field(grid=BOX_GRID), dev, "box_field_golden.png", BOX.kernels)
+    main_box = phase_main_path(box, box_host, BOX)
+    main_box.update(bvh_nodes=box.bvh.num_nodes, bvh_builder=box.bvh.builder,
+                    bvh_build_seconds=box.bvh.build_seconds)
+    log(f"[{time.perf_counter() - t_start:.0f} s] box_field(grid={BOX_GRID}) phases done")
 
-    # ---- 4. main path at full size
-    main = phase_main_path(scene, host)
-    log(f"cornell {WIDTH}x{HEIGHT} spp={SPP} depth={DEPTH}: {main['ms_per_launch']:.3f} ms/launch, "
-        f"{main['padded_mrays_per_s']:.1f} padded Mrays/s, {main['alive_mrays_per_s']:.1f} alive Mrays/s "
-        f"(alive fraction {main['alive_ray_frac']:.3f})")
-    log(f"launch counts over {main['render_launches']} render launches: {main['launch_counts']} "
-        f"(plain versions on CUDA: {main['plain_cuda_calls']})")
-    print(json.dumps({"main_path": main, "golden_ssim": s}), flush=True)
-    for name, r in rows.items():
-        print(json.dumps({"kernel": name, "replaces": REPLACES[name][0], "ms": r["ms"], "bound_ms": r["bound_ms"],
-                          "bound_by": r["bound_by"], "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
-                          "max_err": r["max_abs_err"],
-                          "launches_per_render_launch": main["launches_per_render_launch"][name]}), flush=True)
+    # ---- 5. results
+    print(json.dumps({"main_path": main_cornell, "golden_ssim": ssim_cornell}), flush=True)
+    print(json.dumps({"main_path": main_box, "golden_ssim": ssim_box,
+                      "bvh_vs_bruteforce_lanes_differing_frac": box_differ}), flush=True)
+    print(json.dumps({"flat_scene": {k: v for k, v in flat.items() if k != "kernels"}}), flush=True)
+    print_kernel_lines(rows, main_cornell)
+    print_kernel_lines(flat["kernels"])
+    print_kernel_lines(box_rows, main_box)
 
+    # one entry per kernel: its numbers at the first shape it was timed at
+    # (K1-K4 at Cornell's, K5/K6 at box_field's) and launches over both
+    # main-path runs; "shapes" lists every shape a main path or the flat
+    # scene gave it, each with its own numbers and its launches there
+    from strelka_tpu_torch.kernels import KERNEL_NAMES
+
+    numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    tagged = ([(r, main_cornell) for r in rows] + [(r, None) for r in flat["kernels"]]
+              + [(r, main_box) for r in box_rows])
     kernels = []
-    for name, r in rows.items():
-        kernels.append({
+    for name in KERNEL_NAMES:
+        mine = [(r, m) for r, m in tagged if r["kernel"] == name]
+        entry = {
             "name": name, "route": "cuda", "source": REPLACES[name][1], "replaces": REPLACES[name][0],
-            "launches": main["launch_counts"][name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
-        })
+            "launches": main_cornell["launch_counts"][name] + main_box["launch_counts"][name],
+            "launches_cornell": main_cornell["launch_counts"][name],
+            "launches_box_field": main_box["launch_counts"][name],
+        }
+        entry.update({k: mine[0][0][k] for k in numbers})
+        entry["shapes"] = [dict(at=r["at"], shape=list(r["shape"]), launches=shape_launches(m, r) if m else 0,
+                                **{k: r[k] for k in numbers}) for r, m in mine]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
+    log(f"total {time.perf_counter() - t_start:.0f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60)
     for line in smi.stdout.strip().splitlines():

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's Cornell main path on a CUDA card.
+"""Where the time goes in one of the port's main paths on a CUDA card.
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 scripts/torch_profile_cornell.py [--launches 2] [--out build/profile]
+    python3 scripts/torch_profile_cornell.py [--scene cornell|box_field] [--launches 2] [--out build/profile]
 
-Builds the Cornell box of chip_smoke.py's main path on the card (its scene,
-launch parameters and render_launch arguments: 512x512, 4 spp, depth 4),
-runs one warm-up render_launch, then traces --launches more under
-torch.profiler (CPU and CUDA activities). Prints one JSON line: wall time per
-launch, device kernel time per launch split into the four hand-written
-kernels and everything else (the plain PyTorch shading), the device's idle
-share over the traced window, and the CUDA kernel launches per render
-launch. Writes the top of the kernel table and a Chrome trace under --out.
+Builds a scene of chip_smoke.py's main paths on the card (its scene, launch
+parameters and render_launch arguments: cornell at 512x512, 4 spp, depth 4,
+or box_field(grid=48) on its BVH at 512x512, 2 spp, depth 4), runs one
+warm-up render_launch, then traces --launches more under torch.profiler
+(CPU and CUDA activities). Prints one JSON line: wall time per launch,
+device kernel time per launch split into the hand-written kernels and
+everything else (the plain PyTorch shading), the device's idle share over
+the traced window, the CUDA kernel launches per render launch, and the
+card's name and power limit. Writes the top of the kernel table and a
+Chrome trace under --out/<scene>.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -29,11 +32,16 @@ KERNELS = {
     "closest_kernel": "intersect_closest",
     "any_kernel": "intersect_any",
     "gather_rows_t_kernel": "gather_rows_t",
+    "bvh_kernel<false>": "bvh_closest",
+    "bvh_kernelILb0E": "bvh_closest",  # the same, where the profiler keeps the mangled name
+    "bvh_kernel<true>": "bvh_any",
+    "bvh_kernelILb1E": "bvh_any",
 }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", choices=("cornell", "box_field"), default="cornell")
     ap.add_argument("--launches", type=int, default=2)
     ap.add_argument("--out", default=os.path.join(REPO, "build", "profile"))
     args = ap.parse_args()
@@ -47,21 +55,29 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import chip_smoke as C
     from strelka_tpu_torch.ops import integrator as I
+    from strelka_tpu_torch.render.device_scene import build_device_scene
+    from strelka_tpu_torch.scene import testscenes as TS
 
-    host, scene = C.cornell_scene(torch.device("cuda"))
-    kw = C.main_path_kw()
-    state = I.make_frame_state(C.HEIGHT, C.WIDTH, scene.device)
-    state, _ = I.render_launch(scene, C.launch_params(host, C.WIDTH, C.HEIGHT, 0), state, **kw)  # warm-up, build
+    if args.scene == "cornell":
+        cfg = C.CORNELL
+        host, scene = C.cornell_scene(torch.device("cuda"))
+    else:
+        cfg = C.BOX
+        host = TS.box_field(grid=C.BOX_GRID)
+        scene = build_device_scene(host, device=torch.device("cuda"))
+    kw = C.main_path_kw(cfg)
+    state = I.make_frame_state(cfg.height, cfg.width, scene.device)
+    state, _ = I.render_launch(scene, C.launch_params(host, cfg.width, cfg.height, 0), state, **kw)  # warm-up, build
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(args.launches):
-            params = C.launch_params(host, C.WIDTH, C.HEIGHT, C.SPP * (i + 1))
+            params = C.launch_params(host, cfg.width, cfg.height, cfg.spp * (i + 1))
             state, _ = I.render_launch(scene, params, state, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    per_kernel = {name: 0.0 for name in KERNELS.values()}
+    per_kernel = {name: 0.0 for name in cfg.kernels}
     other_us, n_kernels = 0.0, 0
     spans = []
     for ev in prof.events():
@@ -72,7 +88,7 @@ def main() -> int:
         n_kernels += 1
         short = next((v for k, v in KERNELS.items() if k in ev.name), None)
         if short:
-            per_kernel[short] += dur
+            per_kernel[short] = per_kernel.get(short, 0.0) + dur
         else:
             other_us += dur
     busy_us = 0.0
@@ -90,9 +106,13 @@ def main() -> int:
     else:
         window_us = 0.0
     n = args.launches
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60)
     result = {
-        "config": f"cornell {C.WIDTH}x{C.HEIGHT} spp={C.SPP} depth={C.DEPTH}",
+        "config": f"{cfg.name} {cfg.width}x{cfg.height} spp={cfg.spp} depth={cfg.depth}",
+        "triangles": scene.num_triangles,
         "device": torch.cuda.get_device_name(0),
+        "card_and_power_limit": smi.stdout.strip(),
         "wall_ms_per_launch": wall / n * 1e3,
         "device_ms_per_launch": {k: v / n / 1e3 for k, v in per_kernel.items()},
         "device_other_ms_per_launch": other_us / n / 1e3,
@@ -100,10 +120,11 @@ def main() -> int:
         "device_idle_share": (1.0 - busy_us / window_us) if window_us > 0 else None,
         "traced_device_events": n_kernels,
     }
-    os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "kernels.txt"), "w") as f:
+    out = os.path.join(args.out, args.scene)
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "kernels.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
-    prof.export_chrome_trace(os.path.join(args.out, "trace.json"))
+    prof.export_chrome_trace(os.path.join(out, "trace.json"))
     print(json.dumps(result), flush=True)
     return 0
 

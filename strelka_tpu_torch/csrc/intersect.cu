@@ -33,18 +33,9 @@ constexpr int kThreads = 256;
 constexpr int kTriTile = 1024;
 constexpr float kMiss = 1e16f;
 
-struct Rays {
-    const float *ox, *oy, *oz, *dx, *dy, *dz, *tmin, *tmax;
-    const int* exclude;  // may be null
-};
+using Rays = StrelkaRays;
 
-struct Tris {
-    const float* v0;  // [T, 3]
-    const float* e1;  // [T, 3]
-    const float* e2;  // [T, 3]
-    const int* mask;  // [T]
-    int count;
-};
+using Tris = StrelkaTris;
 
 struct TriTile {
     float v[9][kTriTile];  // v0 xyz, e1 xyz, e2 xyz
@@ -66,25 +57,8 @@ __device__ inline void load_tile(TriTile& s, const Tris& tris, int base, int cnt
 // Möller–Trumbore in the operation order of _ray_tri_block.
 __device__ inline bool ray_tri(const TriTile& s, int j, float o0, float o1, float o2, float d0, float d1,
                                float d2, float tn, float tx, float& t, float& u, float& v) {
-    const float v0x = s.v[0][j], v0y = s.v[1][j], v0z = s.v[2][j];
-    const float e1x = s.v[3][j], e1y = s.v[4][j], e1z = s.v[5][j];
-    const float e2x = s.v[6][j], e2y = s.v[7][j], e2z = s.v[8][j];
-    // pvec = cross(d, e2)
-    const float p0 = d1 * e2z - d2 * e2y;
-    const float p1 = d2 * e2x - d0 * e2z;
-    const float p2 = d0 * e2y - d1 * e2x;
-    const float det = e1x * p0 + e1y * p1 + e1z * p2;
-    const bool det_ok = fabsf(det) > 1e-12f;
-    const float inv_det = det_ok ? 1.0f / det : 0.0f;
-    const float tv0 = o0 - v0x, tv1 = o1 - v0y, tv2 = o2 - v0z;
-    u = (tv0 * p0 + tv1 * p1 + tv2 * p2) * inv_det;
-    // qvec = cross(tv, e1)
-    const float q0 = tv1 * e1z - tv2 * e1y;
-    const float q1 = tv2 * e1x - tv0 * e1z;
-    const float q2 = tv0 * e1y - tv1 * e1x;
-    v = (d0 * q0 + d1 * q1 + d2 * q2) * inv_det;
-    t = (e2x * q0 + e2y * q1 + e2z * q2) * inv_det;
-    return det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tn && t < tx;
+    return strelka_ray_tri(s.v[0][j], s.v[1][j], s.v[2][j], s.v[3][j], s.v[4][j], s.v[5][j], s.v[6][j], s.v[7][j],
+                           s.v[8][j], o0, o1, o2, d0, d1, d2, tn, tx, t, u, v);
 }
 
 __global__ void __launch_bounds__(kThreads) closest_kernel(Rays rays, Tris tris, int ray_mask, long long n,
@@ -166,31 +140,6 @@ __global__ void __launch_bounds__(kThreads) any_kernel(Rays rays, Tris tris, int
     if (in_range) occ_out[i] = occ ? 1 : 0;
 }
 
-Rays make_rays(const void* ox, const void* oy, const void* oz, const void* dx, const void* dy, const void* dz,
-               const void* tmin, const void* tmax, const void* exclude) {
-    Rays r;
-    r.ox = static_cast<const float*>(ox);
-    r.oy = static_cast<const float*>(oy);
-    r.oz = static_cast<const float*>(oz);
-    r.dx = static_cast<const float*>(dx);
-    r.dy = static_cast<const float*>(dy);
-    r.dz = static_cast<const float*>(dz);
-    r.tmin = static_cast<const float*>(tmin);
-    r.tmax = static_cast<const float*>(tmax);
-    r.exclude = static_cast<const int*>(exclude);
-    return r;
-}
-
-Tris make_tris(const void* v0, const void* e1, const void* e2, const void* mask, int count) {
-    Tris t;
-    t.v0 = static_cast<const float*>(v0);
-    t.e1 = static_cast<const float*>(e1);
-    t.e2 = static_cast<const float*>(e2);
-    t.mask = static_cast<const int*>(mask);
-    t.count = count;
-    return t;
-}
-
 }  // namespace
 
 // Rays: 8 f32 [n] component arrays + exclude int32 [n] (or null).
@@ -202,7 +151,8 @@ extern "C" int strelka_intersect_closest(const void* ox, const void* oy, const v
                                          const void* mask, int ray_mask, long long n, int ntri, void* t_out,
                                          void* prim_out, void* u_out, void* v_out, void* stream) {
     closest_kernel<<<strelka_blocks(n, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        make_rays(ox, oy, oz, dx, dy, dz, tmin, tmax, exclude), make_tris(v0, e1, e2, mask, ntri), ray_mask, n,
+        strelka_make_rays(ox, oy, oz, dx, dy, dz, tmin, tmax, exclude), strelka_make_tris(v0, e1, e2, mask, ntri),
+        ray_mask, n,
         static_cast<float*>(t_out), static_cast<int*>(prim_out), static_cast<float*>(u_out),
         static_cast<float*>(v_out));
     STRELKA_RETURN_LAUNCH_STATUS();
@@ -215,7 +165,8 @@ extern "C" int strelka_intersect_any(const void* ox, const void* oy, const void*
                                      const void* mask, int ray_mask, long long n, int ntri, void* occ_out,
                                      void* stream) {
     any_kernel<<<strelka_blocks(n, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        make_rays(ox, oy, oz, dx, dy, dz, tmin, tmax, exclude), make_tris(v0, e1, e2, mask, ntri), ray_mask, n,
+        strelka_make_rays(ox, oy, oz, dx, dy, dz, tmin, tmax, exclude), strelka_make_tris(v0, e1, e2, mask, ntri),
+        ray_mask, n,
         static_cast<unsigned char*>(occ_out));
     STRELKA_RETURN_LAUNCH_STATUS();
 }

@@ -6,9 +6,9 @@ started together, and the objects link into `libstrelka_kernels.so`. The
 build directory is keyed by a hash of the sources and flags, so a changed
 source builds again and an unchanged one is loaded as it is.
 
-Flags: `sm_90a`, -O3, no fast math. The intersection source also gets
--fmad=false, so Möller–Trumbore rounds every product and sum on its own, as
-the CPU reference and the plain PyTorch version do.
+Flags: `sm_90a`, -O3, no fast math. The intersection sources also get
+-fmad=false, so the slab test and Möller–Trumbore round every product and
+sum on their own, as the CPU reference and the plain PyTorch versions do.
 
 Nothing here runs at import: `load()` builds on first use.
 """
@@ -34,6 +34,7 @@ SOURCES = {
     "sobol.cu": [],
     "gather.cu": [],
     "intersect.cu": ["-fmad=false"],
+    "bvh.cu": ["-fmad=false"],
 }
 HEADERS = ["common.cuh"]
 
@@ -45,6 +46,8 @@ SIGNATURES = {
     "strelka_random_dims": [_VP, _VP, _I64, ctypes.c_uint32, _I32, _I32, _VP],
     "strelka_intersect_closest": [_VP] * 13 + [_I32, _I64, _I32] + [_VP] * 5,
     "strelka_intersect_any": [_VP] * 13 + [_I32, _I64, _I32] + [_VP] * 2,
+    "strelka_bvh_closest": [_VP] * 10 + [_I32] + [_VP] * 4 + [_I32, _I64, _I32] + [_VP] * 5,
+    "strelka_bvh_any": [_VP] * 10 + [_I32] + [_VP] * 4 + [_I32, _I64, _I32] + [_VP] * 2,
     "strelka_gather_rows_t": [_VP, _VP, _VP, _I64, _I32, _I32, _VP],
     "strelka_error_string": [_I32],
 }

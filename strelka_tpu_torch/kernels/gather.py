@@ -41,5 +41,5 @@ def gather_rows_t(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), n, rows, cols, build.stream_ptr(table.device)
     )
     build.check(rc, "gather_rows_t")
-    K.launch_counts["gather_rows_t"] += 1
+    K.count_launch("gather_rows_t", (rows, cols, n))  # table [rows, cols], n indices
     return out

@@ -119,7 +119,8 @@ def any_plain(o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask: int):
     return occ
 
 
-def _check(o, d, tmin, tmax, exclude, v0, e1, e2, mask, name):
+def check_rays_tris(o, d, tmin, tmax, exclude, v0, e1, e2, mask, name):
+    """Raise on what the intersection kernels (K2/K3, K5/K6) do not take."""
     K.require_cuda(tmin, name)
     n = tmin.shape[0]
     dev = tmin.device
@@ -139,7 +140,8 @@ def _check(o, d, tmin, tmax, exclude, v0, e1, e2, mask, name):
         raise ValueError(f"{name}: too many triangles")
 
 
-def _ptrs(o, d, tmin, tmax, exclude, v0, e1, e2, mask):
+def ray_tri_ptrs(o, d, tmin, tmax, exclude, v0, e1, e2, mask):
+    """Device pointers: 8 ray components and exclude (None = null), then v0, e1, e2, mask."""
     return [a.data_ptr() for a in (*o, *d, tmin, tmax)] + [
         exclude.data_ptr() if exclude is not None else None,
         v0.data_ptr(), e1.data_ptr(), e2.data_ptr(), mask.data_ptr(),
@@ -150,7 +152,7 @@ def intersect_closest(o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask: int
     """K2 -> (t, prim, u, v): t = 1e16, prim = -1, u = v = 0 on a miss."""
     if tmin.device.type == "cpu":
         return closest_plain(o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask)
-    _check(o, d, tmin, tmax, exclude, v0, e1, e2, mask, "intersect_closest")
+    check_rays_tris(o, d, tmin, tmax, exclude, v0, e1, e2, mask, "intersect_closest")
     n = tmin.shape[0]
     dev = tmin.device
     t = torch.empty(n, dtype=torch.float32, device=dev)
@@ -160,11 +162,11 @@ def intersect_closest(o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask: int
     if n == 0:
         return t, prim, u, v
     rc = build.load().strelka_intersect_closest(
-        *_ptrs(o, d, tmin, tmax, exclude, v0, e1, e2, mask), int(ray_mask), n, v0.shape[0],
+        *ray_tri_ptrs(o, d, tmin, tmax, exclude, v0, e1, e2, mask), int(ray_mask), n, v0.shape[0],
         t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(), build.stream_ptr(dev),
     )
     build.check(rc, "intersect_closest")
-    K.launch_counts["intersect_closest"] += 1
+    K.count_launch("intersect_closest", (n, v0.shape[0]))  # rays, triangles
     return t, prim, u, v
 
 
@@ -172,15 +174,15 @@ def intersect_any(o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask: int):
     """K3 -> occluded [N] bool."""
     if tmin.device.type == "cpu":
         return any_plain(o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask)
-    _check(o, d, tmin, tmax, exclude, v0, e1, e2, mask, "intersect_any")
+    check_rays_tris(o, d, tmin, tmax, exclude, v0, e1, e2, mask, "intersect_any")
     n = tmin.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=tmin.device)
     if n == 0:
         return occ
     rc = build.load().strelka_intersect_any(
-        *_ptrs(o, d, tmin, tmax, exclude, v0, e1, e2, mask), int(ray_mask), n, v0.shape[0],
+        *ray_tri_ptrs(o, d, tmin, tmax, exclude, v0, e1, e2, mask), int(ray_mask), n, v0.shape[0],
         occ.data_ptr(), build.stream_ptr(tmin.device),
     )
     build.check(rc, "intersect_any")
-    K.launch_counts["intersect_any"] += 1
+    K.count_launch("intersect_any", (n, v0.shape[0]))  # rays, triangles
     return occ

@@ -162,5 +162,5 @@ def random_dims(sample_idx: torch.Tensor, depth: int, dims: tuple) -> torch.Tens
         build.stream_ptr(sample_idx.device),
     )
     build.check(rc, "random_dims")
-    K.launch_counts["sobol"] += 1
+    K.count_launch("sobol", (n, len(dims)))  # n sample indices, dimensions
     return out

@@ -1,0 +1,497 @@
+"""BVH: host-side binned-SAH build + the plain lockstep traversal.
+
+The PyTorch counterpart of strelka_tpu/ops/bvh.py. The build is host numpy
+(or the C++ twin in strelka_tpu_torch/native), the same algorithm and node
+format as the reference:
+
+  * a single-level BVH over the world-space triangle soup, 16-bin SAH,
+    leaves of at most MAX_LEAF triangles;
+  * triangles are reordered leaf-contiguous, so a leaf is a (start, count)
+    range and callers permute every per-triangle array by the build's
+    permutation;
+  * `thread_bvh` re-lays the nodes in DFS order with skip links: entering
+    node i continues at i + 1, a box miss or a finished leaf jumps to
+    skip[i], and skip[last] == n ends the walk. In this layout the left
+    child of i is i + 1 and the right child is skip[i + 1].
+
+`intersect_bvh_plain` is the plain version of kernels K5 and K6
+(kernels/bvh.py, csrc/bvh.cu): the reference's lockstep stackless walk,
+operation for operation in f32, over component-array rays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from strelka_tpu_torch import kernels as K
+from strelka_tpu_torch import log
+
+MAX_LEAF = 4
+MISS_T = 1e16
+# f32 operations of one slab test: per axis two subtractions, two products,
+# a min and a max (18), two maxes and a max against tmin for tnear, two mins
+# and a min against the best t for tfar (6).
+SLAB_FLOPS = 24
+_COUNT_BITS = 3  # packed node row: count <= MAX_LEAF fits; start < 2^28
+
+
+class BvhNodes(NamedTuple):
+    """The built tree (numpy, [n] per field); count == 0 marks an internal node."""
+
+    bb_min: np.ndarray  # [n,3] f32
+    bb_max: np.ndarray  # [n,3] f32
+    left: np.ndarray  # [n] i32
+    right: np.ndarray  # [n] i32
+    start: np.ndarray  # [n] i32
+    count: np.ndarray  # [n] i32
+
+
+class ThreadedBvh(NamedTuple):
+    """Stackless (skip-link) BVH in DFS order, numpy on the host."""
+
+    bb_min: np.ndarray  # [n,3] f32
+    bb_max: np.ndarray  # [n,3] f32
+    skip: np.ndarray  # [n] i32
+    start: np.ndarray  # [n] i32
+    count: np.ndarray  # [n] i32 (0 = internal)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceBvh:
+    """A ThreadedBvh on one device as the packed node rows of `pack_nodes`,
+    and how the tree came to be. Kernels K5/K6 and their plain version read
+    the same rows; the ThreadedBvh fields are views of them (start and
+    count are unpacked on each access)."""
+
+    nodes: torch.Tensor  # [n,8] i32: pack_nodes rows
+    builder: str = "carried"  # "native", "numpy", or "carried" (arrays from elsewhere)
+    build_seconds: float = 0.0
+
+    @property
+    def num_nodes(self) -> int:
+        return int(self.nodes.shape[0])
+
+    @property
+    def bb_min(self) -> torch.Tensor:  # [n,3] f32
+        return self.nodes[:, 0:3].view(torch.float32)
+
+    @property
+    def bb_max(self) -> torch.Tensor:  # [n,3] f32
+        return self.nodes[:, 3:6].view(torch.float32)
+
+    @property
+    def skip(self) -> torch.Tensor:  # [n] i32
+        return self.nodes[:, 6]
+
+    @property
+    def start(self) -> torch.Tensor:  # [n] i32
+        return self.nodes[:, 7] >> _COUNT_BITS
+
+    @property
+    def count(self) -> torch.Tensor:  # [n] i32 (0 = internal)
+        return self.nodes[:, 7] & ((1 << _COUNT_BITS) - 1)
+
+
+# ---------------------------------------------------------------------------
+# Host build
+# ---------------------------------------------------------------------------
+
+
+def _build(v0, e1, e2, max_leaf):
+    """(nodes, permutation, which builder ran: "native" or "numpy")."""
+    from strelka_tpu_torch.native import native_build_bvh
+
+    out = native_build_bvh(v0, e1, e2, max_leaf)
+    name = "native" if out is not None else "numpy"
+    log.info("BVH builder: {}", name)
+    if out is None:
+        out = _build_bvh_numpy(v0, e1, e2, max_leaf)
+    return out[0], out[1], name
+
+
+def build_bvh_sah(
+    v0: np.ndarray, e1: np.ndarray, e2: np.ndarray, max_leaf: int = MAX_LEAF
+) -> Tuple[BvhNodes, np.ndarray]:
+    """Build a binned-SAH BVH. Returns (nodes, permutation).
+
+    permutation[i] = original index of the triangle at reordered slot i;
+    callers must reorder ALL per-triangle arrays with it. The C++ builder
+    runs where a toolchain is present, else the numpy one (their trees
+    differ: f32 against f64 arithmetic); the log says which ran."""
+    return _build(v0, e1, e2, max_leaf)[:2]
+
+
+def _build_bvh_numpy(v0, e1, e2, max_leaf):
+    n = v0.shape[0]
+    p0 = v0.astype(np.float64)
+    p1 = p0 + e1
+    p2 = p0 + e2
+    tri_min = np.minimum(np.minimum(p0, p1), p2)
+    tri_max = np.maximum(np.maximum(p0, p1), p2)
+    centroid = (tri_min + tri_max) * 0.5
+
+    order = np.arange(n, dtype=np.int64)
+    # flat node storage grown as we go
+    bb_min, bb_max, left, right, start, count = [], [], [], [], [], []
+
+    def new_node():
+        bb_min.append(np.zeros(3))
+        bb_max.append(np.zeros(3))
+        left.append(0)
+        right.append(0)
+        start.append(0)
+        count.append(0)
+        return len(bb_min) - 1
+
+    NBINS = 16
+    # iterative stack of (node_id, lo, hi) over `order` slices
+    root = new_node()
+    stack = [(root, 0, n)]
+    while stack:
+        node_id, lo, hi = stack.pop()
+        idx = order[lo:hi]
+        nb_min = tri_min[idx].min(axis=0)
+        nb_max = tri_max[idx].max(axis=0)
+        bb_min[node_id] = nb_min
+        bb_max[node_id] = nb_max
+        num = hi - lo
+        if num <= max_leaf:
+            start[node_id] = lo
+            count[node_id] = num
+            continue
+        cmin = centroid[idx].min(axis=0)
+        cmax = centroid[idx].max(axis=0)
+        ext = cmax - cmin
+        axis = int(np.argmax(ext))
+        if ext[axis] < 1e-12:
+            # degenerate spread: median split
+            mid = lo + num // 2
+        else:
+            # binned SAH
+            scale = NBINS * (1.0 - 1e-6) / ext[axis]
+            bins = ((centroid[idx, axis] - cmin[axis]) * scale).astype(np.int32)
+            bins = np.clip(bins, 0, NBINS - 1)
+            cnt = np.bincount(bins, minlength=NBINS)
+            # per-bin bounds
+            binf_min = np.full((NBINS, 3), np.inf)
+            binf_max = np.full((NBINS, 3), -np.inf)
+            for b in range(NBINS):
+                sel = bins == b
+                if sel.any():
+                    binf_min[b] = tri_min[idx[sel]].min(axis=0)
+                    binf_max[b] = tri_max[idx[sel]].max(axis=0)
+            # sweep areas
+            lcnt = np.cumsum(cnt)[:-1]
+            rcnt = num - lcnt
+            lmin = np.minimum.accumulate(binf_min, axis=0)[:-1]
+            lmax = np.maximum.accumulate(binf_max, axis=0)[:-1]
+            rmin = np.minimum.accumulate(binf_min[::-1], axis=0)[::-1][1:]
+            rmax = np.maximum.accumulate(binf_max[::-1], axis=0)[::-1][1:]
+
+            def area(mn, mx):
+                d = np.maximum(mx - mn, 0.0)
+                return d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0]
+
+            cost = area(lmin, lmax) * lcnt + area(rmin, rmax) * rcnt
+            cost = np.where((lcnt == 0) | (rcnt == 0), np.inf, cost)
+            best = int(np.argmin(cost))
+            if not np.isfinite(cost[best]):
+                mid = lo + num // 2
+            else:
+                sel_left = bins <= best
+                # partition order[lo:hi]
+                order[lo:hi] = np.concatenate([idx[sel_left], idx[~sel_left]])
+                mid = lo + int(sel_left.sum())
+        if mid == lo or mid == hi:
+            mid = lo + num // 2
+            # re-sort by centroid for median split
+            idx = order[lo:hi]
+            key = np.argsort(centroid[idx, axis], kind="stable")
+            order[lo:hi] = idx[key]
+        l_id = new_node()
+        r_id = new_node()
+        left[node_id] = l_id
+        right[node_id] = r_id
+        stack.append((r_id, mid, hi))
+        stack.append((l_id, lo, mid))
+
+    nodes = BvhNodes(
+        bb_min=np.asarray(bb_min, np.float32),
+        bb_max=np.asarray(bb_max, np.float32),
+        left=np.asarray(left, np.int32),
+        right=np.asarray(right, np.int32),
+        start=np.asarray(start, np.int32),
+        count=np.asarray(count, np.int32),
+    )
+    return nodes, order.astype(np.int64)
+
+
+def thread_bvh(nodes: BvhNodes) -> ThreadedBvh:
+    """Reorder a built BVH into DFS order and compute skip links (host).
+
+    DFS position strictly increases during traversal (enter -> i+1,
+    skip/finish -> skip[i] > i), so a ray visits each node at most once and
+    the step count is bounded by num_nodes.
+    """
+    bb_min = np.asarray(nodes.bb_min)
+    bb_max = np.asarray(nodes.bb_max)
+    left = np.asarray(nodes.left)
+    right = np.asarray(nodes.right)
+    start = np.asarray(nodes.start)
+    count = np.asarray(nodes.count)
+    n = len(count)
+
+    # subtree sizes (iterative post-order)
+    size = np.ones(n, np.int64)
+    stack = [(0, False)]
+    while stack:
+        node, processed = stack.pop()
+        if processed:
+            if count[node] == 0:
+                size[node] = 1 + size[left[node]] + size[right[node]]
+            continue
+        stack.append((node, True))
+        if count[node] == 0:
+            stack.append((int(right[node]), False))
+            stack.append((int(left[node]), False))
+
+    # DFS emit with skip targets
+    new_bb_min = np.empty_like(bb_min)
+    new_bb_max = np.empty_like(bb_max)
+    new_skip = np.empty(n, np.int32)
+    new_start = np.empty(n, np.int32)
+    new_count = np.empty(n, np.int32)
+    pos = 0
+    stack2 = [(0, n)]  # (old node, skip target in NEW ids)
+    while stack2:
+        node, skip_target = stack2.pop()
+        my_pos = pos
+        pos += 1
+        new_bb_min[my_pos] = bb_min[node]
+        new_bb_max[my_pos] = bb_max[node]
+        new_skip[my_pos] = skip_target
+        new_start[my_pos] = start[node]
+        new_count[my_pos] = count[node]
+        if count[node] == 0:
+            l, r = int(left[node]), int(right[node])
+            right_pos = my_pos + 1 + int(size[l])
+            # children visited left-first: push right (deeper in stack) first
+            stack2.append((r, skip_target))
+            stack2.append((l, right_pos))
+    assert pos == n
+    return ThreadedBvh(
+        bb_min=new_bb_min.astype(np.float32),
+        bb_max=new_bb_max.astype(np.float32),
+        skip=new_skip,
+        start=new_start,
+        count=new_count,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Device layout
+# ---------------------------------------------------------------------------
+
+def pack_nodes(bvh: ThreadedBvh) -> np.ndarray:
+    """[n, 8] int32 rows of 32 bytes, two 16-byte loads a node in the
+    kernels: the f32 bits of bb_min xyz and bb_max xyz, skip, and
+    (start << 3) | count."""
+    count = np.asarray(bvh.count, np.int64)
+    start = np.asarray(bvh.start, np.int64)
+    if count.size and (count.max() >= 1 << _COUNT_BITS or start.max() >= 1 << (31 - _COUNT_BITS)):
+        raise ValueError("BVH leaf range does not fit the packed node row")
+    rows = np.empty((count.shape[0], 8), np.int32)
+    rows[:, 0:3] = np.ascontiguousarray(bvh.bb_min, np.float32).view(np.int32)
+    rows[:, 3:6] = np.ascontiguousarray(bvh.bb_max, np.float32).view(np.int32)
+    rows[:, 6] = np.asarray(bvh.skip, np.int32)
+    rows[:, 7] = ((start << _COUNT_BITS) | count).astype(np.int32)
+    return rows
+
+
+def device_bvh(bvh: ThreadedBvh, device, builder: str = "carried", build_seconds: float = 0.0) -> DeviceBvh:
+    """Upload a ThreadedBvh (any 5 arrays in its field order)."""
+    host = ThreadedBvh(
+        bb_min=np.ascontiguousarray(bvh[0], np.float32),
+        bb_max=np.ascontiguousarray(bvh[1], np.float32),
+        skip=np.ascontiguousarray(bvh[2], np.int32),
+        start=np.ascontiguousarray(bvh[3], np.int32),
+        count=np.ascontiguousarray(bvh[4], np.int32),
+    )
+    return DeviceBvh(nodes=torch.tensor(pack_nodes(host), device=device), builder=builder,
+                     build_seconds=build_seconds)
+
+
+def timed_build(v0, e1, e2):
+    """build_bvh_sah + thread_bvh -> (ThreadedBvh, perm, builder name, seconds)."""
+    t0 = time.perf_counter()
+    nodes, perm, builder = _build(v0, e1, e2, MAX_LEAF)
+    threaded = thread_bvh(nodes)
+    return threaded, perm, builder, time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# Plain traversal (the plain version of kernels K5 and K6)
+# ---------------------------------------------------------------------------
+
+
+class TraversalCounts(NamedTuple):
+    """What a traversal did, summed over its rays (Python ints)."""
+
+    nodes_visited: int  # slab tests made, in the walk's order
+    nodes_overlapped: int  # of those, boxes the ray's [tmin, best t] overlaps
+    tri_tests: int  # triangles of overlapped leaves that pass mask and exclude (any_hit: up to the first hit)
+    steps: int  # lockstep iterations until the last ray finished
+    nodes_touched: int  # distinct nodes some ray overlapped
+    tris_touched: int  # distinct triangles some ray tested
+
+
+def _slab_test(bmin, bmax, o, inv_d, tmin, tmax):
+    """Ray-AABB slab test on [M] component triples -> hit [M] bool."""
+    tlo, thi = [], []
+    for k in range(3):
+        t0 = (bmin[k] - o[k]) * inv_d[k]
+        t1 = (bmax[k] - o[k]) * inv_d[k]
+        tlo.append(torch.minimum(t0, t1))
+        thi.append(torch.maximum(t0, t1))
+    tnear = torch.maximum(torch.maximum(torch.maximum(tlo[0], tlo[1]), tlo[2]), tmin)
+    tfar = torch.minimum(torch.minimum(torch.minimum(thi[0], thi[1]), thi[2]), tmax)
+    return tnear <= tfar
+
+
+def _tri_test(o, d, v0, e1, e2, tmin, tmax):
+    """Single-triangle Möller–Trumbore per ray; o, d component triples [M],
+    v0/e1/e2 [M,3] -> (t, u, v, hit)."""
+
+    def cross(a, b):
+        return (a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2], a[0] * b[1] - a[1] * b[0])
+
+    def dot(a, b):
+        return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+    v0c, e1c, e2c = v0.unbind(1), e1.unbind(1), e2.unbind(1)
+    pvec = cross(d, e2c)
+    det = dot(e1c, pvec)
+    det_ok = torch.abs(det) > 1e-12
+    inv_det = torch.where(det_ok, 1.0 / det, 0.0)
+    tvec = (o[0] - v0c[0], o[1] - v0c[1], o[2] - v0c[2])
+    u = dot(tvec, pvec) * inv_det
+    qvec = cross(tvec, e1c)
+    v = dot(d, qvec) * inv_det
+    t = dot(e2c, qvec) * inv_det
+    hit = det_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > tmin) & (t < tmax)
+    return t, u, v, hit
+
+
+def intersect_bvh_plain(
+    o, d, tmin, tmax, exclude, bvh: DeviceBvh, v0, e1, e2, mask, ray_mask: int,
+    any_hit: bool = False, prime_t: Optional[torch.Tensor] = None, counts: bool = False, name: str = "",
+):
+    """Lockstep stackless traversal over the threaded BVH -> (t, prim, u, v).
+
+    The reference's `intersect_bvh` on component-array rays: o and d are
+    (x, y, z) triples of [N] f32, tmin/tmax [N] f32 (a lane with
+    tmax <= tmin is dead and never walks), exclude [N] int32 or None. prim
+    indexes the leaf-ordered triangle arrays, -1 on a miss (t = 1e16,
+    u = v = 0). any_hit retires a lane at its first accepted leaf.
+
+    Each step every walking lane tests its node's box against
+    [tmin, best t], tests the leaf's triangles in order with a strict
+    t < best t, and moves to node + 1 or skip[node]. A node is read as the
+    kernels read it, one packed row of bvh.nodes. Lanes are worked on as a
+    shrinking subset (bookkeeping only: no lane's arithmetic changes).
+
+    prime_t starts best t at min(prime_t, tmax) instead of at tmax (used to
+    count the nodes a ray must visit given its final t). counts=True appends a
+    TraversalCounts to the result."""
+    if name:
+        K.note_plain(name, tmin.device)
+    n = tmin.shape[0]
+    dev = tmin.device
+    n_nodes = bvh.num_nodes
+    last_tri = v0.shape[0] - 1
+    out_t = tmax * 1.0 if prime_t is None else torch.minimum(prime_t, tmax)
+    out_p = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    out_u = torch.zeros(n, dtype=torch.float32, device=dev)
+    out_v = torch.zeros(n, dtype=torch.float32, device=dev)
+    visited = overlapped = tri_tests = steps = 0
+    if counts:
+        node_flag = torch.zeros(n_nodes, dtype=torch.bool, device=dev)
+        tri_flag = torch.zeros(v0.shape[0], dtype=torch.bool, device=dev)
+
+    lanes = torch.nonzero(tmax > tmin).squeeze(1)  # lanes still walking
+    oc = [c[lanes] for c in o]
+    dc = [c[lanes] for c in d]
+    inv_d = [1.0 / torch.where(torch.abs(c) > 1e-20, c, 1e-20) for c in dc]
+    tmn = tmin[lanes]
+    ex = exclude[lanes] if exclude is not None else None
+    node = torch.zeros(lanes.shape[0], dtype=torch.int32, device=dev)
+    best_t, best_p, best_u, best_v = out_t[lanes], out_p[lanes], out_u[lanes], out_v[lanes]
+
+    for _ in range(n_nodes + 1):
+        m = lanes.shape[0]
+        if m == 0:
+            break
+        steps += 1
+        lane_active = node < n_nodes
+        nodec = torch.clamp(node, max=n_nodes - 1).to(torch.int64)
+        row = bvh.nodes[nodec]  # [m, 8]: bb_min, bb_max, skip, start << 3 | count
+        box = row[:, 0:6].view(torch.float32).unbind(1)
+        hit_box = _slab_test(box[0:3], box[3:6], oc, inv_d, tmn, best_t)
+        cnt = row[:, 7] & ((1 << _COUNT_BITS) - 1)
+        is_leaf = cnt > 0
+        proc_leaf = lane_active & is_leaf & hit_box
+        if counts:
+            visited += int(lane_active.sum())
+            overlapped += int((lane_active & hit_box).sum())
+            node_flag[nodec[lane_active & hit_box]] = True
+        at_leaf = torch.nonzero(proc_leaf).squeeze(1)
+        if at_leaf.shape[0] > 0:
+            lo = [c[at_leaf] for c in oc]
+            ld = [c[at_leaf] for c in dc]
+            l_tmin, l_cnt, l_start = tmn[at_leaf], cnt[at_leaf], row[at_leaf, 7] >> _COUNT_BITS
+            l_ex = ex[at_leaf] if ex is not None else None
+            lt, lp, lu, lv = best_t[at_leaf], best_p[at_leaf], best_u[at_leaf], best_v[at_leaf]
+            for k in range(MAX_LEAF):
+                prim = torch.clamp(l_start + k, max=last_tri)
+                pi = prim.to(torch.int64)
+                t, u, v, hit = _tri_test(lo, ld, v0[pi], e1[pi], e2[pi], l_tmin, lt)
+                cand = (k < l_cnt) & ((mask[pi] & ray_mask) != 0)
+                if l_ex is not None:
+                    cand = cand & (prim != l_ex)
+                if counts:
+                    tested = cand & (lp < 0) if any_hit else cand  # K6 leaves the leaf at its first hit
+                    tri_tests += int(tested.sum())
+                    tri_flag[pi[tested]] = True
+                hit = hit & cand
+                lp = torch.where(hit, prim, lp)
+                lu = torch.where(hit, u, lu)
+                lv = torch.where(hit, v, lv)
+                lt = torch.where(hit, t, lt)
+            best_t[at_leaf], best_p[at_leaf], best_u[at_leaf], best_v[at_leaf] = lt, lp, lu, lv
+        enter = lane_active & hit_box & ~is_leaf
+        nxt = torch.where(enter, nodec.to(torch.int32) + 1, row[:, 6])
+        node = torch.where(lane_active, nxt, node)
+        if any_hit:
+            node = torch.where(best_p >= 0, n_nodes, node).to(torch.int32)
+        walking = node < n_nodes
+        left_walking = int(walking.sum())
+        if left_walking * 2 <= m:  # shrink the working set; finished lanes write back
+            out_t[lanes], out_p[lanes], out_u[lanes], out_v[lanes] = best_t, best_p, best_u, best_v
+            keep = torch.nonzero(walking).squeeze(1)
+            lanes = lanes[keep]
+            oc, dc, inv_d = ([c[keep] for c in cs] for cs in (oc, dc, inv_d))
+            tmn, node = tmn[keep], node[keep]
+            ex = ex[keep] if ex is not None else None
+            best_t, best_p, best_u, best_v = best_t[keep], best_p[keep], best_u[keep], best_v[keep]
+    out_t[lanes], out_p[lanes], out_u[lanes], out_v[lanes] = best_t, best_p, best_u, best_v
+    out_t = torch.where(out_p >= 0, out_t, MISS_T)
+    result = (out_t, out_p, out_u, out_v)
+    if counts:
+        return result + (TraversalCounts(visited, overlapped, tri_tests, steps, int(node_flag.sum()),
+                                         int(tri_flag.sum())),)
+    return result

@@ -5,13 +5,14 @@ OptixRender_radiance_closest_hit.cu:456-606).
 
 All W*H*spp rays of a launch advance together through the bounce loop;
 branch divergence becomes masked selects. Each bounce runs one Sobol draw
-(kernel K1), one closest-hit sweep (K2, radiance rays, mask PRIMARY), one
-attribute-row gather (K4) and one any-hit sweep (K3, NEE shadow rays, mask
-SHADOW); the shading in between is plain PyTorch on component-major Vec3.
+(kernel K1), one closest-hit sweep (radiance rays, mask PRIMARY: K5 over
+the scene's BVH, K2 over a flat scene), one attribute-row gather (K4) and
+one any-hit sweep (NEE shadow rays, mask SHADOW: K6 or K3); the shading in
+between is plain PyTorch on component-major Vec3.
 
-This slice follows the JAX package's CPU path for flat scenes without
-textures or curves: row-major sample order, barycentrics from the
-intersector, no wavefront sort. Reference quirks kept for image parity:
+The port follows the JAX package's CPU path for scenes without textures or
+curves: row-major sample order, barycentrics from the intersector, prim
+ids in the scene's triangle order (BVH leaf order), no wavefront sort. Reference quirks kept for image parity:
   * NEE radiance includes cos(N,L) AND the MDL-style evaluate() also folds
     cos in — the cosine is squared in next-event contributions (cu:306+586).
   * BSDF-hit emitter MIS uses the uniform-area rect pdf regardless of the

@@ -1,9 +1,12 @@
-"""Ray-scene intersection for flat scenes + the exact ray-origin offset.
+"""Ray-scene intersection + the exact ray-origin offset.
 
-The PyTorch counterpart of strelka_tpu/ops/intersect.py, flat path only:
-`intersect_closest` runs kernel K2 and `intersect_any` kernel K3 on CUDA
-tensors, their plain versions (the brute-force sweeps of the JAX CPU path)
-on CPU tensors. Rays are component-major Vec3 (ops/vec.py).
+The PyTorch counterpart of strelka_tpu/ops/intersect.py. The dispatch is
+the reference's: a scene with a BVH goes to the traversal (kernels K5 and
+K6 on CUDA tensors, the plain lockstep walk on CPU tensors), a flat scene
+to the sweep over all triangles (kernels K2 and K3, or their plain
+versions, the brute-force sweeps of the JAX CPU path). Rays are
+component-major Vec3 (ops/vec.py); prim ids are in the scene's triangle
+order, which is the BVH's leaf order where there is one.
 
 Also hosts offset_ray, the exact port of the Ray Tracing Gems self-
 intersection offset (OptixRender_radiance_closest_hit.cu:218-233).
@@ -15,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from strelka_tpu_torch.kernels import bvh as KB
 from strelka_tpu_torch.kernels import intersect as KI
 from strelka_tpu_torch.ops.vec import Vec3
 
@@ -48,23 +52,26 @@ def _rays(origins: Vec3, directions: Vec3, tmax, active):
 
 def intersect_closest(scene, origins: Vec3, directions: Vec3, tmin, tmax, ray_mask: int,
                       active=None, exclude=None) -> Hit:
-    """Closest hit against the scene's triangles (kernel K2 on the card).
+    """Closest hit against the scene's triangles (kernel K5 or K2 on the card).
 
     exclude: [N] int32 primitive each ray originated from (-1 = none); it is
     rejected by id (self-intersection guard on top of offset_ray)."""
     o, d, tmax = _rays(origins, directions, tmax, active)
     ex = exclude.contiguous() if exclude is not None else None
-    t, prim, u, v = KI.intersect_closest(
-        o, d, tmin.contiguous(), tmax, ex, scene.v0, scene.e1, scene.e2, scene.geom_mask, ray_mask
-    )
-    return Hit(t=t, prim=prim, u=u, v=v)
+    tris = (scene.v0, scene.e1, scene.e2, scene.geom_mask)
+    bvh = getattr(scene, "bvh", None)
+    if bvh is not None:
+        return Hit(*KB.bvh_closest(o, d, tmin.contiguous(), tmax, ex, bvh, *tris, ray_mask))
+    return Hit(*KI.intersect_closest(o, d, tmin.contiguous(), tmax, ex, *tris, ray_mask))
 
 
 def intersect_any(scene, origins: Vec3, directions: Vec3, tmin, tmax, ray_mask: int,
                   active=None, exclude=None) -> torch.Tensor:
-    """Occlusion -> [N] bool (kernel K3 on the card)."""
+    """Occlusion -> [N] bool (kernel K6 or K3 on the card)."""
     o, d, tmax = _rays(origins, directions, tmax, active)
     ex = exclude.contiguous() if exclude is not None else None
-    return KI.intersect_any(
-        o, d, tmin.contiguous(), tmax, ex, scene.v0, scene.e1, scene.e2, scene.geom_mask, ray_mask
-    )
+    tris = (scene.v0, scene.e1, scene.e2, scene.geom_mask)
+    bvh = getattr(scene, "bvh", None)
+    if bvh is not None:
+        return KB.bvh_any(o, d, tmin.contiguous(), tmax, ex, bvh, *tris, ray_mask)
+    return KI.intersect_any(o, d, tmin.contiguous(), tmax, ex, *tris, ray_mask)

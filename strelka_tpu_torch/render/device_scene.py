@@ -1,20 +1,23 @@
 """Device scene tables: host Scene -> the tensors the integrator reads.
 
-The PyTorch counterpart of strelka_tpu/render/device_scene.py, flat path
-only. Instances are flattened into a world-space triangle soup (the same
-numpy code as the JAX package), padded to a multiple of 128, and packed
-into the tables the kernels and the shade epilogue read:
+The PyTorch counterpart of strelka_tpu/render/device_scene.py. Instances
+are flattened into a world-space triangle soup (the same numpy code as the
+JAX package), reordered leaf-contiguous where a BVH is built, padded to a
+multiple of 128, and packed into the tables the kernels and the shade
+epilogue read:
 
-  v0, e1, e2     [T, 3] f32   Möller–Trumbore inputs (kernels K2/K3)
+  v0, e1, e2     [T, 3] f32   Möller–Trumbore inputs (kernels K2/K3, K5/K6)
   geom_mask      [T]    i32   triangle / light-proxy geometry masks
   attr_table     [T, 68] f32  per-prim attributes joined with its material
                               row (24:48) and hit-light row (48:68) (K4)
   mat_table      [M, 24] f32
   light_table    [L, 20] f32
+  bvh            DeviceBvh    threaded BVH (ops/bvh.py), or None (flat scene)
 
-Triangle order is the JAX CPU build's (no Morton sort, which is a TPU
-layout). Scenes the later slices cover raise NotImplementedError: above
-1024 triangles (the CPU build's BVH), curves, hair materials.
+Triangle order is the JAX CPU build's: BVH leaf order above 1024 triangles
+(`use_bvh=None`), the scene's own order below or with `use_bvh=False` (no
+Morton sort, which is a TPU layout). Scenes the later slices cover raise
+NotImplementedError: curves, hair materials.
 
 `device_scene_from_arrays` / `frame_state_from_arrays` carry the JAX
 package's state across: they take its DeviceScene or FrameState as a dict
@@ -31,6 +34,7 @@ import torch
 
 from strelka_tpu_torch import log
 from strelka_tpu_torch.materials import BsdfType, MaterialManager
+from strelka_tpu_torch.ops.bvh import DeviceBvh, ThreadedBvh, device_bvh, timed_build
 from strelka_tpu_torch.scene.scene import InstanceType, Scene
 from strelka_tpu_torch.utils.device import resolve_device
 
@@ -53,7 +57,7 @@ ATTR_MAT_ROW = 24  # 24:48 joined per-prim material row
 ATTR_LIGHT_ROW = 48  # 48:68 joined emissive-hit light row
 ATTR_JOINED = 68
 _OCT_Q = 4094.0
-FLAT_MAX_TRIS = 1024  # above this the CPU reference builds a BVH (ROADMAP A.8)
+FLAT_MAX_TRIS = 1024  # above this the CPU reference builds a BVH (use_bvh=None)
 PAD_MULTIPLE = 128  # triangle count padding of the JAX build
 
 TABLES = ("v0", "e1", "e2", "geom_mask", "attr_table", "mat_table", "light_table")
@@ -72,6 +76,7 @@ class DeviceScene:
     light_table: torch.Tensor  # [L, 20] f32
     num_lights: int
     num_triangles: int
+    bvh: Optional[DeviceBvh] = None  # triangles are in its leaf order
 
     @property
     def device(self) -> torch.device:
@@ -204,17 +209,30 @@ def build_device_scene(
     scene: Scene,
     material_manager: Optional[MaterialManager] = None,
     device=None,
+    use_bvh: Optional[bool] = None,
 ) -> DeviceScene:
-    """Host scene -> DeviceScene on `device` (default: the CUDA card)."""
+    """Host scene -> DeviceScene on `device` (default: the CUDA card).
+
+    use_bvh None = auto: a BVH above FLAT_MAX_TRIS triangles, as the
+    reference's CPU build. False keeps a scene of any size flat (kernels
+    K2/K3 sweep every triangle), True builds the BVH for any size."""
     device = resolve_device(device)
     if _has_curves(scene):
         raise NotImplementedError("curves: later slice, ROADMAP A.9")
     cat = flatten_scene_geometry(scene)
     num_tri = int(cat["p"].shape[0])
-    if num_tri > FLAT_MAX_TRIS:
-        raise NotImplementedError(
-            f"{num_tri} triangles: scenes above {FLAT_MAX_TRIS} need the BVH, later slice, ROADMAP A.8"
-        )
+    if use_bvh is None:
+        use_bvh = num_tri > FLAT_MAX_TRIS
+    bvh_arrays = {}
+    if use_bvh and num_tri > 0:
+        p = cat["p"]
+        threaded, perm, builder, seconds = timed_build(p[:, 0], p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+        # every per-triangle array goes into leaf order: prim ids are leaf-order ids
+        for k in cat:
+            cat[k] = cat[k][perm]
+        bvh_arrays = {"bvh": threaded, "bvh_builder": builder, "bvh_build_seconds": seconds}
+        log.info("BVH built: {} nodes over {} triangles ({} builder, {:.2f} s)",
+                 len(threaded.count), num_tri, builder, seconds)
     padded = _round_up(num_tri, PAD_MULTIPLE)
     # padding triangles are degenerate (zero-area at origin) with mask 0
     p = _pad_to(cat["p"], padded)
@@ -263,6 +281,7 @@ def build_device_scene(
         "light_table": light_np,
         "num_lights": len(scene.lights),
         "num_triangles": num_tri,
+        **bvh_arrays,
     }
     return device_scene_from_arrays(arrays, device)
 
@@ -275,10 +294,14 @@ def device_scene_from_arrays(arrays: dict, device) -> DeviceScene:
     """DeviceScene from numpy arrays by field name.
 
     Takes the tables of this module's build, or a JAX DeviceScene converted
-    field by field (`{name: np.asarray(getattr(scene, name))}`). Fields of
-    later slices (bvh, curves, cones, textures) must be absent or None."""
+    field by field (`{name: np.asarray(getattr(scene, name))}`). `bvh`, if
+    present, is the scene's ThreadedBvh as five numpy arrays in field order
+    (a tuple, or a dict by field name); the triangle tables are then in its
+    leaf order already (`bvh_builder` and `bvh_build_seconds` say how this
+    module's build made it). Fields of later slices (curves, cones, textures)
+    must be absent or None."""
     device = torch.device(device)
-    for key, item in (("bvh", "A.8"), ("curves", "A.9"), ("cones", "A.9"), ("textures", "A.7")):
+    for key, item in (("curves", "A.9"), ("cones", "A.9"), ("textures", "A.7")):
         if key in arrays and not _is_none(arrays[key]):
             raise NotImplementedError(f"{key}: later slice, ROADMAP {item}")
     at = np.asarray(arrays["attr_table"], np.float32)
@@ -288,7 +311,16 @@ def device_scene_from_arrays(arrays: dict, device) -> DeviceScene:
     def f32(name):
         return torch.tensor(np.ascontiguousarray(arrays[name], np.float32), device=device)
 
+    bvh = arrays.get("bvh")
+    if _is_none(bvh):
+        bvh = None
+    else:
+        if isinstance(bvh, dict):
+            bvh = tuple(bvh[name] for name in ThreadedBvh._fields)
+        bvh = device_bvh(tuple(np.asarray(a) for a in bvh), device, builder=arrays.get("bvh_builder", "carried"),
+                         build_seconds=float(arrays.get("bvh_build_seconds", 0.0)))
     return DeviceScene(
+        bvh=bvh,
         v0=f32("v0"),
         e1=f32("e1"),
         e2=f32("e2"),

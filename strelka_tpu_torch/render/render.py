@@ -6,8 +6,7 @@ progressive accumulation (:895-934), launch-budget computation (:989-1004),
 the launch itself (ops.integrator.render_launch) and tonemap dispatch
 (:1045-1049). PyTorch runs eagerly, so there is no launch cache.
 
-Not in this slice: multi-device sharding, upscaling (enableUpscale raises),
-checkpoints.
+Not ported yet: multi-device sharding, upscaling (enableUpscale raises).
 """
 
 from __future__ import annotations
@@ -86,16 +85,20 @@ class TorchRender(Render):
     """The PyTorch wavefront path tracer; its kernels run on the CUDA card.
 
     device: None means the card (raises without one); "cpu" runs the plain
-    PyTorch versions of the kernels."""
+    PyTorch versions of the kernels. The use_bvh attribute goes to
+    build_device_scene when the scene is next built: None builds a BVH above
+    1024 triangles, False keeps any scene flat."""
 
     def __init__(self, device=None) -> None:
         super().__init__()
         self.device = resolve_device(device)
+        self.use_bvh: Optional[bool] = None
         self._device_scene = None
         self._state: Optional[I.FrameState] = None
         self._state_dims: Tuple[int, int] = (0, 0)
         self._prev_view: Optional[np.ndarray] = None
         self._prev_settings: Optional[tuple] = None
+        self._resume = False  # a checkpoint was loaded: the next frame keeps its sample count
         self.material_manager = MaterialManager()
 
     def init(self) -> None:
@@ -118,9 +121,11 @@ class TorchRender(Render):
 
         # frame-0 / dirty scene: rebuild device tables (GAS/SBT analog)
         if self._device_scene is None or scene.dirty:
-            self._device_scene = build_device_scene(scene, self.material_manager, device=self.device)
+            self._device_scene = build_device_scene(scene, self.material_manager, device=self.device,
+                                                    use_bvh=self.use_bvh)
             scene.dirty = False
-            ctx.subframe_index = 0
+            if not self._resume:
+                ctx.subframe_index = 0
 
         # resize -> reset (updatePathtracerParams, OptixRender.cpp:827-872)
         if self._state is None or self._state_dims != (height, width):
@@ -132,9 +137,10 @@ class TorchRender(Render):
         camera = scene.get_camera(0)
         camera.update_aspect_ratio(width / height)
         view = camera.matrices.view
-        if self._prev_view is None or not np.allclose(view, self._prev_view):
+        if not self._resume and (self._prev_view is None or not np.allclose(view, self._prev_view)):
             ctx.subframe_index = 0
         self._prev_view = view.copy()
+        self._resume = False
 
         # settings change resets accumulation (OptixRender.cpp:910-934)
         snap = self._settings_snapshot(settings)
@@ -206,6 +212,27 @@ class TorchRender(Render):
                 )
         output.set_device(image)
         ctx.frame_number += 1
+
+    # ---- checkpoint/resume of the progressive accumulator (render/checkpoint.py)
+
+    def save_checkpoint(self, path: str) -> None:
+        """Persist the progressive accumulator (checkpoint/resume parity)."""
+        from strelka_tpu_torch.render.checkpoint import save_checkpoint
+
+        if self._state is None:
+            raise RuntimeError("nothing rendered yet")
+        save_checkpoint(path, self._state, self._ctx.subframe_index)
+
+    def load_checkpoint(self, path: str) -> None:
+        from strelka_tpu_torch.render.checkpoint import load_checkpoint
+
+        state, subframe = load_checkpoint(path, self.device)
+        self._state = state
+        self._state_dims = tuple(state.accum.shape[1:])
+        self._ctx.subframe_index = subframe
+        # prime the change detectors so the next frame CONTINUES accumulating
+        self._prev_settings = None
+        self._resume = True
 
 
 class RenderFactory:

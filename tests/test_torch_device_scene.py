@@ -1,7 +1,10 @@
 """Port device-scene tables against the JAX CPU build, bit for bit.
 
 The tables are host numpy packing (no arithmetic beyond the JAX build's own
-numpy), so every table must be BIT-EQUAL.
+numpy), so every table must be BIT-EQUAL. Above 1024 triangles both builds
+reorder the triangles into the leaf order of their BVH builder (the same
+C++ source compiled with the same flags on this host, or the same numpy
+code), so the tables and the threaded BVH are bit-equal too.
 """
 
 import dataclasses
@@ -31,7 +34,7 @@ def scenes():
 
 
 def _assert_bits_equal(a, b):
-    a, b = np.asarray(a), np.asarray(b)
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)  # a BVH field may be a strided view of the node rows
     assert a.shape == b.shape and a.dtype == b.dtype
     np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
 
@@ -87,10 +90,85 @@ def test_frame_state_round_trip():
 
 
 def test_later_slice_scenes_raise():
-    with pytest.raises(NotImplementedError, match="A.8"):
-        build_device_scene(TTS.box_field(grid=10), device="cpu")
     with pytest.raises(NotImplementedError, match="A.9"):
         build_device_scene(TTS.hair_patch(n_curves=4), device="cpu")
+    # a scene above 1024 triangles does not raise: it gets a BVH
+    assert build_device_scene(TTS.box_field(grid=3), device="cpu").bvh is not None
+
+
+_BVH_FIELDS = ("bb_min", "bb_max", "skip", "start", "count")
+
+
+@pytest.fixture(scope="module")
+def box_scenes():
+    return jax_build(JTS.box_field(grid=6)), build_device_scene(TTS.box_field(grid=6), device="cpu")
+
+
+@pytest.mark.parametrize("table", TABLES)
+def test_box_field_table_bit_equal(box_scenes, table):
+    """6,436 triangles: every per-triangle table is in the BVH's leaf order."""
+    jds, tds = box_scenes
+    _assert_bits_equal(getattr(jds, table), getattr(tds, table).numpy())
+
+
+@pytest.mark.parametrize("field", _BVH_FIELDS)
+def test_box_field_bvh_bit_equal(box_scenes, field):
+    jds, tds = box_scenes
+    assert jds.bvh is not None and tds.bvh is not None
+    _assert_bits_equal(getattr(jds.bvh, field), getattr(tds.bvh, field).numpy())
+
+
+def test_box_field_counts_and_leaf_order(box_scenes):
+    jds, tds = box_scenes
+    assert (tds.num_lights, tds.num_triangles) == (jds.num_lights, jds.num_triangles) == (2, 6436)
+    assert tds.v0.shape == (6528, 3) and tds.bvh.nodes.shape == (tds.bvh.num_nodes, 8)
+    assert tds.bvh.builder in ("native", "numpy")
+    # every real triangle lies inside the box of the leaf that holds it
+    start, count = tds.bvh.start.numpy(), tds.bvh.count.numpy()
+    leaves = np.nonzero(count > 0)[0]
+    assert count[leaves].sum() == tds.num_triangles and count.max() <= 4
+    leaf_of = np.repeat(leaves, count[leaves])
+    order = np.concatenate([np.arange(start[i], start[i] + count[i]) for i in leaves])
+    v0, e1, e2 = (t.numpy()[order] for t in (tds.v0, tds.e1, tds.e2))
+    lo, hi = tds.bvh.bb_min.numpy()[leaf_of], tds.bvh.bb_max.numpy()[leaf_of]
+    for p in (v0, v0 + e1, v0 + e2):
+        assert (p >= lo - 1e-4).all() and (p <= hi + 1e-4).all()
+    # the attr table moved with the triangles: its first columns are v0
+    np.testing.assert_array_equal(tds.attr_table.numpy()[:, 0:3], tds.v0.numpy())
+
+
+def test_use_bvh_false_keeps_the_scene_flat():
+    jds = jax_build(JTS.box_field(grid=6), use_bvh=False)
+    tds = build_device_scene(TTS.box_field(grid=6), device="cpu", use_bvh=False)
+    assert tds.bvh is None and jds.bvh is None
+    for table in TABLES:
+        _assert_bits_equal(getattr(jds, table), getattr(tds, table).numpy())
+
+
+def test_use_bvh_true_builds_a_tree_for_a_small_scene():
+    jds = jax_build(JTS.cornell_box(**_CORNELL), use_bvh=True)
+    tds = build_device_scene(TTS.cornell_box(**_CORNELL), device="cpu", use_bvh=True)
+    for field in _BVH_FIELDS:
+        _assert_bits_equal(getattr(jds.bvh, field), getattr(tds.bvh, field).numpy())
+    for table in TABLES:
+        _assert_bits_equal(getattr(jds, table), getattr(tds, table).numpy())
+
+
+@pytest.mark.parametrize("as_dict", [False, True])
+def test_device_scene_from_jax_arrays_with_bvh(box_scenes, as_dict):
+    """A JAX scene with a BVH carried across: tables and tree arrive bit-equal."""
+    jds, tds = box_scenes
+    arrays = {f.name: np.asarray(getattr(jds, f.name)) for f in dataclasses.fields(jds)
+              if not isinstance(getattr(jds, f.name), tuple) or f.name in ("world_lo", "world_hi")}
+    bvh = tuple(np.asarray(x) for x in jds.bvh)
+    arrays["bvh"] = dict(zip(_BVH_FIELDS, bvh)) if as_dict else bvh
+    ported = device_scene_from_arrays(arrays, "cpu")
+    for table in TABLES:
+        _assert_bits_equal(getattr(jds, table), getattr(ported, table).numpy())
+    for field in _BVH_FIELDS:
+        _assert_bits_equal(getattr(jds.bvh, field), getattr(ported.bvh, field).numpy())
+    assert ported.bvh.builder == "carried"
+    assert torch.equal(ported.bvh.nodes, tds.bvh.nodes)
 
 
 def test_default_device_without_cuda_raises(monkeypatch):

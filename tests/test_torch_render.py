@@ -1,4 +1,4 @@
-"""The port's Cornell main path against the JAX package and the golden image.
+"""The port's main paths (Cornell, box_field) against the JAX package and the golden image.
 
 (a) render_launch at 16x16, 1 spp, depth 4 against the JAX render_launch on
     the same scene and parameters: at least 99% of pixels within rtol 1e-3
@@ -8,7 +8,13 @@
     SSIM >= 0.99 against goldens/cornell_golden.png (an f32 CPU render of
     the JAX package); (c) its buffer holds no NaN.
 (d) Entry points default to the CUDA card and raise without one.
+(e) render_launch of box_field(grid=6) (6,436 triangles, on a BVH) at 16x16
+    against the JAX render_launch, at (a)'s tolerance, on the JAX scene
+    carried across with device_scene_from_arrays (tables and tree), so the
+    comparison does not depend on the two BVH builders agreeing.
 """
+
+import dataclasses
 
 import os
 
@@ -24,7 +30,7 @@ from strelka_tpu.scene import testscenes as JTS
 from strelka_tpu_torch import kernels as K
 from strelka_tpu_torch.ops import integrator as TI
 from strelka_tpu_torch.render.buffer import BufferDesc, BufferFormat
-from strelka_tpu_torch.render.device_scene import build_device_scene
+from strelka_tpu_torch.render.device_scene import build_device_scene, device_scene_from_arrays
 from strelka_tpu_torch.render.render import RenderFactory, RenderType, TorchRender
 from strelka_tpu_torch.scene import testscenes as TTS
 from strelka_tpu_torch.settings import SharedContext, make_default_settings
@@ -36,9 +42,29 @@ _GOLDEN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 GOLDEN_CONFIG = (64, 64, 4, 4)  # bench.GOLDEN_CONFIGS["cornell"]: w, h, spp per launch, launches
 
 
+def _carried_across(jds):
+    """The JAX DeviceScene as the port's, field by field through numpy."""
+    arrays = {f.name: np.asarray(getattr(jds, f.name)) for f in dataclasses.fields(jds)
+              if not isinstance(getattr(jds, f.name), tuple)}
+    if jds.bvh is not None:
+        arrays["bvh"] = tuple(np.asarray(x) for x in jds.bvh)
+    return device_scene_from_arrays(arrays, "cpu")
+
+
 def test_render_launch_matches_jax():
+    _compare_render_launch(JTS.cornell_box(**_CORNELL), lambda jds: build_device_scene(
+        TTS.cornell_box(**_CORNELL), device="cpu"))
+
+
+def test_render_launch_box_field_matches_jax():
+    K.reset_counts()
+    tds = _compare_render_launch(JTS.box_field(grid=6), _carried_across)
+    assert tds.bvh is not None and tds.num_triangles == 6436
+    assert not any(K.launch_counts.values())  # CPU tensors ran the plain traversal
+
+
+def _compare_render_launch(host, port_scene):
     w = h = 16
-    host = JTS.cornell_box(**_CORNELL)
     cam = host.get_camera(0)
     cam.update_aspect_ratio(1.0)
     c2v = np.asarray(cam.clip_to_view(), np.float32)
@@ -49,11 +75,12 @@ def test_render_launch_matches_jax():
 
     jp = JI.LaunchParams(jnp.int32(0), jnp.asarray(c2v), jnp.asarray(v2w), jnp.asarray(exposure), jnp.zeros(3))
     launch = jax.jit(lambda scene, params, state: JI.render_launch(scene, params, state, **kw))
-    jstate, jimg = launch(jax_build(host), jp, JI.make_frame_state(h, w))
+    jds = jax_build(host)
+    jstate, jimg = launch(jds, jp, JI.make_frame_state(h, w))
     ref = np.asarray(jimg)
 
     tp = TI.LaunchParams(0, c2v, v2w, exposure, np.zeros(3, np.float32))
-    tds = build_device_scene(TTS.cornell_box(**_CORNELL), device="cpu")
+    tds = port_scene(jds)
     # one torch thread: with several, torch 2.13's CPU sqrt can be wrong on
     # its first call in a fresh worker thread (ROADMAP.md section C)
     threads = torch.get_num_threads()
@@ -72,6 +99,7 @@ def test_render_launch_matches_jax():
     for name in ("diffuse_counter", "specular_counter"):
         agree = getattr(tstate, name).numpy() == np.asarray(getattr(jstate, name))
         assert agree.mean() >= 0.99
+    return tds
 
 
 @pytest.fixture(scope="module")

@@ -104,3 +104,15 @@ def test_uniform_hash_bit_equal(depth):
     ref = np.asarray(JS.uniform_hash(jnp.asarray(idx), depth))
     out = TS.uniform_hash(_t(idx), depth).numpy()
     np.testing.assert_array_equal(_bits(out), _bits(ref))
+
+
+def test_count_launch_counts_by_name_and_by_shape():
+    """A wrapper's one call after a launch feeds both counters; reset_counts clears both."""
+    K.reset_counts()
+    K.count_launch("sobol", (8, 5))
+    K.count_launch("sobol", (8, 5))
+    K.count_launch("sobol", (8, 2))
+    assert K.launch_counts["sobol"] == 3
+    assert K.launch_shapes == {("sobol", (8, 5)): 2, ("sobol", (8, 2)): 1}
+    K.reset_counts()
+    assert K.launch_counts["sobol"] == 0 and not K.launch_shapes
