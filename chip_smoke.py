@@ -30,7 +30,26 @@ Phases (any failure raises and the script exits non-zero):
      depth 4 (1 warm-up + 4 timed launches), counts reset and read as above;
      after each main path, every (kernel, shape) it launched must be one
      that was held against its plain version before;
-  5. print the kernels' JSON line, the card's name and power limit, and
+  5. hair_patch(n_curves=256), 1,280 cubic B-spline segments as 10,240 round
+     cones over a ground quad (kernels K1-K4, K7, K8): K7 and K8 against the
+     plain dense sweep (t, cone, y and occlusion equal on every lane) and
+     against their own cull=False mode on the scene's camera, bounce-1 and
+     shadow rays
+     (384x384x2 = 294,912 lanes each), K1-K4 at this scene's shapes; the
+     golden config (64x64, 4 spp x 16 launches) against
+     goldens/hair_patch_golden.png; the main path at 384x384, 2 spp, depth 4
+     (1 warm-up + 4 timed launches);
+  6. hair_patch(n_curves=20000) ("hair_long"), 100,000 segments as 800,000
+     cones in 391 superblocks, where kernel K9 gives K7/K8 each ray tile's
+     superblocks nearest first: K9 against its plain version (W and min_tn
+     bit for bit, and the open flag with the reference's K = 16 nearest
+     superblocks swept) on every lane; K7/K8 in that order against
+     cull=False and against their ascending sweep on every lane and against
+     the plain sweep on a fixed subset of 2^14 lanes, the sub-blocks and cones
+     a ray tests beside what it needs (counted in plain PyTorch); the main
+     path at 384x384, 2 spp, depth 4 (1 warm-up + 2 timed launches), no
+     golden;
+  7. print the kernels' JSON line, the card's name and power limit, and
      last the {"ok": true, ...} line.
 
 It exits non-zero without a result where there is no CUDA device or no
@@ -65,6 +84,12 @@ class Config(NamedTuple):
 # main-path configurations (the cornell and box_field rows of bench.py:231-232)
 CORNELL = Config("cornell", 512, 512, 4, 4, 16, ("sobol", "intersect_closest", "intersect_any", "gather_rows_t"))
 BOX = Config("box_field", 512, 512, 2, 4, 4, ("sobol", "bvh_closest", "bvh_any", "gather_rows_t"))
+_HAIR_KERNELS = ("sobol", "intersect_closest", "intersect_any", "gather_rows_t", "cone_closest", "cone_any")
+HAIR = Config("hair_patch", 384, 384, 2, 4, 4, _HAIR_KERNELS)  # bench.py:238
+HAIR_LONG = Config("hair_long", 384, 384, 2, 4, 2, _HAIR_KERNELS + ("open_w",))  # bench.py:239
+HAIR_CURVES = {"hair_patch": 256, "hair_long": 20000}  # bench.build_host_scene
+HAIR_GOLDEN = (64, 64, 4, 16)  # bench.GOLDEN_CONFIGS["hair_patch"]
+PLAIN_SUBSET = 1 << 14  # lanes of hair_long held against the plain dense sweep
 BOX_GRID = 48  # bench.build_host_scene("box_field"): 411,652 triangles
 FLAT_GRID = 12  # 25,732 triangles: the range of the TPU's _flat/_mxu_flat kernels
 MAX_SAMPLE_COUNT = 100000  # as bench.py's render_launch
@@ -91,7 +116,11 @@ REPLACES = {
     "gather_rows_t": ("strelka_tpu/ops/pallas_gather.py:53", "strelka_tpu_torch/csrc/gather.cu"),
     "bvh_closest": ("strelka_tpu/ops/pallas_intersect.py:2247", "strelka_tpu_torch/csrc/bvh.cu"),
     "bvh_any": ("strelka_tpu/ops/pallas_intersect.py:2322", "strelka_tpu_torch/csrc/bvh.cu"),
+    "cone_closest": ("strelka_tpu/ops/curves.py:895", "strelka_tpu_torch/csrc/cones.cu"),
+    "cone_any": ("strelka_tpu/ops/curves.py:895", "strelka_tpu_torch/csrc/cones.cu"),
+    "open_w": ("strelka_tpu/ops/pallas_intersect.py:1002", "strelka_tpu_torch/csrc/open_w.cu"),
 }
+OPEN_K = 16  # superblocks a tile has swept when the open flag is asked (the reference's CONE_RESIDUAL_K)
 
 
 # (kernel, shape) pairs held against the plain version so far: a main path
@@ -200,7 +229,8 @@ def main_path_kw(cfg: Config) -> dict:
 
 def main_path_rays(scene, params, device, cfg: Config):
     """Sample indices, camera rays, bounce-1 rays, the bounce-0 NEE shadow
-    rays, the camera hits' prims and the sampled light ids of the first
+    rays, the camera hits' prims, the sampled light ids and (a scene with
+    curves) the material ids of the camera rays' curve hits, of the first
     launch of a main path (the shapes the kernels see there), taken as
     trace_paths makes them."""
     import torch
@@ -229,13 +259,21 @@ def main_path_rays(scene, params, device, cfg: Config):
     inside = torch.zeros(m, dtype=torch.bool, device=device)
     position, frame, light_id, rows = I._gather_surface(scene, hit, inside)
     mat = I._material_from_rows(rows[ATTR_MAT_ROW:ATTR_LIGHT_ROW])
+    is_curve = torch.zeros(m, dtype=torch.bool, device=device)
+    seg_mat = None
+    if scene.has_curves:
+        chit = I.closest_curve_hit(scene, origin, direction, tmin, tmax, None)
+        is_curve = (chit.seg >= 0) & (chit.t < hit.t)
+        position, frame, mat = I.curve_surface(scene, chit, is_curve, origin, direction, inside, position, frame, mat)
+        seg_mat = torch.clamp(scene.curves.material_id[torch.clamp(chit.seg, min=0).to(torch.int64)], min=0)
     smp = B.bsdf_sample(mat, frame, -direction, (dims[0], dims[1], dims[2], dims[3]),
-                        torch.ones_like(mat.ior), mat.ior)
+                        torch.ones_like(mat.ior), mat.ior, enable_hair=scene.has_curves or scene.has_hair)
     transmission = (smp.event_type & B.BSDF_EVENT_TRANSMISSION) != 0
     org1 = offset_ray_vec(position, V.where(transmission, -frame.geom_normal, frame.geom_normal))
-    alive1 = (hit.prim >= 0) & (light_id < 0) & (smp.event_type != B.BSDF_EVENT_ABSORB)
+    alive1 = ((hit.prim >= 0) & (light_id < 0) | is_curve) & (smp.event_type != B.BSDF_EVENT_ABSORB)
+    exclude1 = torch.where(is_curve, -1, hit.prim)  # a curve hit excludes no triangle
     camera = dict(o=origin, d=direction, tmin=tmin, tmax=tmax, exclude=torch.full_like(hit.prim, -1))
-    bounce1 = dict(o=org1, d=smp.k2, tmin=tmin, tmax=torch.where(alive1, 1e16, 0.0), exclude=hit.prim)
+    bounce1 = dict(o=org1, d=smp.k2, tmin=tmin, tmax=torch.where(alive1, 1e16, 0.0), exclude=exclude1)
     # bounce-0 next-event rays (trace_paths' NEE block, uniform rect sampling)
     nee_able = alive1 & ((smp.event_type & (B.BSDF_EVENT_DIFFUSE | B.BSDF_EVENT_GLOSSY)) != 0)
     lid = torch.clamp((scene.num_lights * dims[int(S.SampleDimension.eLightId) % 5]).to(torch.int32), 0,
@@ -245,8 +283,8 @@ def main_path_rays(scene, params, device, cfg: Config):
                          dims[int(S.SampleDimension.eLightPointY) % 5], position, 0)
     geom_ok = (V.dot(frame.normal, ls.L) > 0.0) & (-V.dot(ls.L, ls.normal) > 0.0) & V.all_nonzero(lp.color)
     shadow = dict(o=offset_ray_vec(position, frame.geom_normal), d=ls.L, tmin=tmin,
-                  tmax=torch.where(nee_able & geom_ok, ls.dist_to_light, 0.0), exclude=hit.prim)
-    return sample_idx, camera, bounce1, shadow, hit.prim, lid
+                  tmax=torch.where(nee_able & geom_ok, ls.dist_to_light, 0.0), exclude=exclude1)
+    return sample_idx, camera, bounce1, shadow, hit.prim, lid, seg_mat
 
 
 def _contig(rays):
@@ -404,7 +442,7 @@ def phase_kernels(scene, params):
     from strelka_tpu_torch.render.device_scene import RAY_MASK_PRIMARY, RAY_MASK_SHADOW
 
     dev = scene.device
-    sample_idx, camera, bounce1, _, prims, _ = main_path_rays(scene, params, dev, CORNELL)
+    sample_idx, camera, bounce1, _, prims, _, _ = main_path_rays(scene, params, dev, CORNELL)
     n = sample_idx.shape[0]
     where = "cornell 2^20 lanes x 640 triangles"
 
@@ -488,15 +526,15 @@ def finish_bounds(rows):
         r["bound_by"] = "bytes" if bytes_s >= r["bound_ops_s"] else "operations"
 
 
-def golden_render(host, device, use_bvh=None):
-    """The golden config (64x64, 4 spp x 4 launches) through TorchRender -> [H, W, 3] in [0, 1]."""
+def golden_render(host, device, use_bvh=None, config=GOLDEN):
+    """A golden config (w, h, spp, launches) through TorchRender -> [H, W, 3] in [0, 1]."""
     import numpy as np
 
     from strelka_tpu_torch.render.buffer import BufferDesc, BufferFormat
     from strelka_tpu_torch.render.render import RenderFactory, RenderType
     from strelka_tpu_torch.settings import SharedContext, make_default_settings
 
-    w, h, spp, launches = GOLDEN
+    w, h, spp, launches = config
     s = make_default_settings(w, h)
     s.set("render/pt/sppTotal", spp * launches)
     s.set("render/pt/spp", spp)
@@ -514,18 +552,18 @@ def golden_render(host, device, use_bvh=None):
     return np.clip(img, 0.0, 1.0)
 
 
-def phase_golden(host, device, golden_png: str, kernels: tuple) -> float:
+def phase_golden(host, device, golden_png: str, kernels: tuple, config=GOLDEN) -> float:
     """Golden-config render on the card: SSIM >= 0.99 against the golden,
     every kernel of the path launched, no plain version run on CUDA."""
     from strelka_tpu_torch import kernels as K
     from strelka_tpu_torch.utils.image import read_png, ssim
 
     K.reset_counts()
-    img = golden_render(host, device)
+    img = golden_render(host, device, config=config)
     counts = dict(K.launch_counts)
     golden = read_png(os.path.join(REPO, "goldens", golden_png))[..., :3]
     s = float(ssim(img, golden))
-    log(f"golden config {GOLDEN}: SSIM vs goldens/{golden_png} = {s:.6f}; launches {counts}")
+    log(f"golden config {config}: SSIM vs goldens/{golden_png} = {s:.6f}; launches {counts}")
     if s < 0.99:
         raise AssertionError(f"SSIM {s} < 0.99 against goldens/{golden_png}")
     if not all(counts[k] for k in kernels) or any(K.plain_cuda_calls.values()):
@@ -581,6 +619,7 @@ def phase_main_path(scene, host, cfg: Config):
         scene=cfg.name,
         config=f"{w}x{h} spp={cfg.spp} depth={cfg.depth}",
         triangles=scene.num_triangles,
+        cones=scene.num_cones,
         ms_per_launch=dt * 1e3,
         padded_mrays_per_s=padded / dt / 1e6,
         alive_mrays_per_s=alive / dt / 1e6,
@@ -756,7 +795,7 @@ def phase_flat_scene(dev):
     params = launch_params(host, BOX.width, BOX.height, 0)
 
     # ---- K2/K3 at 25,732 triangles, on the flat scene's own rays (2^19 lanes)
-    _, camera, bounce1, shadow, _, _ = main_path_rays(flat, params, dev, BOX)
+    _, camera, bounce1, shadow, _, _, _ = main_path_rays(flat, params, dev, BOX)
     n = camera["tmin"].shape[0]
     where = f"box_field(grid={FLAT_GRID}) 2^19 lanes x {ntri} triangles"
     _, err_cam = check_intersect(flat, camera, RAY_MASK_PRIMARY, "flat camera")
@@ -791,7 +830,7 @@ def phase_flat_scene(dev):
 
     # ---- K5/K6 on the BVH build of the same scene, against the plain
     # traversal and against K2/K3 over its leaf-ordered triangles
-    _, camera, bounce1, shadow, _, _ = main_path_rays(tree, params, dev, BOX)
+    _, camera, bounce1, shadow, _, _, _ = main_path_rays(tree, params, dev, BOX)
     differ = 0.0
     for rays, mask, name, any_hit in ((camera, RAY_MASK_PRIMARY, "grid-12 camera", False),
                                       (bounce1, RAY_MASK_PRIMARY, "grid-12 bounce-1", False),
@@ -833,7 +872,7 @@ def phase_box_kernels(scene, params):
 
     dev = scene.device
     where = f"box_field(grid={BOX_GRID}) 2^19 lanes x {scene.v0.shape[0]} triangles"
-    sample_idx, camera, bounce1, shadow, prims, lid = main_path_rays(scene, params, dev, BOX)
+    sample_idx, camera, bounce1, shadow, prims, lid, _ = main_path_rays(scene, params, dev, BOX)
     rows = sobol_rows(sample_idx, BOX, "box_field")
     check_bvh_vs_plain(scene, camera, RAY_MASK_PRIMARY, "box_field camera", False)
     b1 = check_bvh_vs_plain(scene, bounce1, RAY_MASK_PRIMARY, "box_field bounce-1", False)
@@ -848,6 +887,272 @@ def phase_box_kernels(scene, params):
     rows.append(gather_row(scene.light_table, lid, "box_field light_table at the sampled light ids"))
     finish_bounds(rows)
     return rows, differ
+
+
+# ---------------------------------------------------------------------------
+# Curve scenes: kernels K7 and K8
+# ---------------------------------------------------------------------------
+
+
+def cone_args(scene, rays):
+    """K7/K8's arguments for one ray set against a scene's packed cones."""
+    o, d = _contig(rays)
+    return o, d, rays["tmin"].contiguous(), rays["tmax"].contiguous(), scene.packed_cones
+
+
+def check_open_w(pc, o, d, tmin, tmax, t_closest, name):
+    """K9 against its plain version on one ray set, at the tile the cone
+    sweeps use: W equal and min_tn bit for bit without the open flag (the
+    main path's call), and the open flag too with each tile's OPEN_K nearest
+    superblocks taken as swept and the closest sweep's t as the bound (the
+    reference's use after phase 1). Returns (plain ms, mean superblocks a
+    tile passes)."""
+    import torch
+
+    from strelka_tpu_torch.kernels import open_w as KO
+    from strelka_tpu_torch.ops import curves as C
+
+    tile = C.CONE_ORDER_TILE
+    bits = lambda a, b: a.view(torch.int32) != b.view(torch.int32)  # noqa: E731
+    open_k, w_k, tn_k = held(lambda: KO.open_w(o, d, tmin, tmax, pc.sbounds, tile=tile))
+    (open_p, w_p, tn_p), plain_ms = timed_once_ms(lambda: KO.open_w_plain(o, d, tmin, tmax, pc.sbounds, tile=tile))
+    off = int((w_k != w_p).sum()) + int(bits(tn_k, tn_p).sum()) + int(open_k.sum()) + int(open_p.sum())
+    _, r2t, d2 = C.tile_sweep_order_k(o, pc.sbounds, tile, OPEN_K)
+    bound = torch.minimum(t_closest, tmax)
+    open_k2, w_k2, tn_k2 = held(lambda: KO.open_w(o, d, tmin, bound, pc.sbounds, d2, r2t, tile=tile))
+    open_p2, w_p2, tn_p2 = KO.open_w_plain(o, d, tmin, bound, pc.sbounds, d2, r2t, tile=tile)
+    off2 = int((open_k2 != open_p2).sum()) + int((w_k2 != w_p2).sum()) + int(bits(tn_k2, tn_p2).sum())
+    passed = float(w_k.sum()) / w_k.shape[0]
+    log(f"K9 on {name} rays ({tmin.shape[0]} in {w_k.shape[0]} tiles of {tile} x {w_k.shape[1]} superblocks): a tile "
+        f"passes {passed:.1f} superblocks; W, min_tn differ from the plain version on {off} entries; with the "
+        f"{OPEN_K} nearest swept and the closest t as bound {int(open_k2.sum())} rays are open, open, W, min_tn "
+        f"differ on {off2} entries (bar: 0 and 0, min_tn bit for bit); plain {plain_ms:.1f} ms")
+    if off or off2:
+        raise AssertionError(f"K9 on {name} rays disagrees with its plain version")
+    return plain_ms, passed
+
+
+def check_cones(scene, rays, name, subset=None):
+    """K7 and K8 on one ray set, swept as the main path sweeps them (in the
+    order kernel K9 gives, where the scene's dispatch asks for one), against
+    their own cull=False mode and their ascending culled sweep on every lane
+    and against the plain dense sweep (on every lane, or on the lanes
+    `subset` where the dense sweep over the scene's cones would take
+    minutes): t bit for bit, cone index and y equal, occlusion equal. One
+    plain sweep serves both: the plain K8 is its hit set. Returns a dict:
+    args, order, K7's t, K7's and K8's [2, N] stats, plain ms and lanes, the
+    largest |difference| in t or y against the plain version, and K9's."""
+    import torch
+
+    from strelka_tpu_torch.kernels import cones as KC
+    from strelka_tpu_torch.ops.intersect import cone_sweep_order
+
+    args = cone_args(scene, rays)
+    o, d, tmin, tmax, pc = args
+    n = tmin.shape[0]
+    if subset is None:
+        sub_args, lanes = args, n
+    else:
+        sub_args = (tuple(c[subset].contiguous() for c in o), tuple(c[subset].contiguous() for c in d),
+                    tmin[subset].contiguous(), tmax[subset].contiguous(), pc)
+        lanes = int(subset.shape[0])
+    pick = (lambda a: a) if subset is None else (lambda a: a[subset])
+    block = 256 if subset is None else 4096  # the result does not depend on it
+    order = cone_sweep_order(pc, o, d, tmin, tmax)
+    t, c, y, stats7 = held(lambda: KC.cone_closest(*args, stats=True, order=order))
+    occ, stats8 = held(lambda: KC.cone_any(*args, stats=True, order=order))
+    t_b, c_b, y_b = KC.cone_closest(*args, cull=False)
+    occ_b = KC.cone_any(*args, cull=False)
+    (t_p, c_p, y_p), plain_ms = timed_once_ms(lambda: KC.closest_plain(*sub_args, block=block))
+    bits = lambda a, b: a.view(torch.int32) != b.view(torch.int32)  # noqa: E731
+    off_cull = int((bits(t, t_b) | (c != c_b) | (y != y_b)).sum())
+    off_plain = int((bits(pick(t), t_p) | (pick(c) != c_p) | (pick(y) != y_p)).sum())
+    occ_off_cull, occ_off_plain = int((occ != occ_b).sum()), int((pick(occ) != (c_p >= 0)).sum())
+    off_asc = 0
+    if order is not None:
+        t_a, c_a, y_a = KC.cone_closest(*args)
+        off_asc = int((bits(t, t_a) | (c != c_a) | (y != y_a)).sum()) + int((occ != KC.cone_any(*args)).sum())
+    _, ties, _ = closest_mismatch(pick(t), pick(c), t_p, c_p)
+    same = pick(c) == c_p
+    err = max(float(torch.abs(pick(a) - b)[same].max()) if bool(same.any()) else 0.0 for a, b in ((t, t_p), (y, y_p)))
+    how = "ascending" if order is None else f"K9's order per {order.tile} rays"
+    log(f"K7 on {name} rays ({n}, {how}): {int((c >= 0).sum())} hits; t, cone, y differ from cull=False on {off_cull} "
+        f"lanes and from the plain sweep on {off_plain} of {lanes} lanes ({ties} of them ties, max abs difference in "
+        f"t or y on equal cones {err:.3g}; bar: 0 and 0 lanes, t bit for bit); plain sweep {plain_ms:.0f} ms")
+    log(f"K8 on {name} rays ({n}, {how}): {int(occ.sum())} occluded; differs from cull=False on {occ_off_cull} lanes "
+        f"and from the plain sweep's hit set on {occ_off_plain} of {lanes} lanes (bar: 0 and 0)" +
+        ("" if order is None else f"; K7 and K8 differ from their ascending sweeps on {off_asc} lanes (bar: 0)"))
+    if off_cull or off_plain or occ_off_cull or occ_off_plain or off_asc:
+        raise AssertionError(f"K7 or K8 on {name} rays disagrees with its cull=False mode, its ascending sweep or "
+                             f"its plain version")
+    open_w = None if order is None else check_open_w(pc, o, d, tmin, tmax, t, name)
+    return dict(args=args, order=order, t=t, stats7=stats7, stats8=stats8, plain_ms=plain_ms, lanes=lanes, err=err,
+                open_w=open_w)
+
+
+def cone_rows(scene, b1, sh, where: str):
+    """K7/K8 rows: times on the bounce-1 (K7) and shadow (K8) rays and the
+    bound from what these rays need, counted in plain PyTorch and not by the
+    kernels. K7: the cones with ra >= 0 of the sub-blocks whose box the ray's
+    final interval [tmin, t] enters (ops/curves.py:sub_blocks_entered with
+    the final t). K8: the cones with ra >= 0 a ray tests up to its first
+    occluder, going through the sub-blocks it enters and their cones in
+    ascending order (ops/curves.py:any_hit_need). Operations: CONE_FLOPS a
+    test. Bytes: the rays as `ray_bytes` does, each such sub-block's cones
+    (32 bytes each: a, b, ra, rb) and box (32 bytes) once, and the sweep
+    order's rows where there is one. The kernels' own counters give the
+    swept and tested columns only. Where K9 orders the sweep, its row
+    follows (bounce-1 rays), and `ascending_ms` is the same kernel without
+    the order."""
+    import torch
+
+    from strelka_tpu_torch.kernels import cones as KC
+    from strelka_tpu_torch.kernels import open_w as KO
+    from strelka_tpu_torch.ops import curves as C
+
+    pc = scene.packed_cones
+    n = b1["args"][2].shape[0]
+    tblk = pc.geom.shape[0] // pc.bounds.shape[1]
+    rows = []
+    for kernel, chk, stats, fn, out_bytes, which in (
+            ("cone_closest", b1, b1["stats7"], KC.cone_closest, 12, "bounce-1"),
+            ("cone_any", sh, sh["stats8"], KC.cone_any, 1, "shadow")):
+        args, order = chk["args"], chk["order"]
+        o, d, tmin, tmax, _ = args
+        live = max(int((tmax > tmin).sum()), 1)
+        swept, tested = int(stats[0].sum()), int(stats[1].sum())
+        if kernel == "cone_closest":
+            need = C.sub_blocks_entered(pc.geom, pc.bounds, o, d, tmin, torch.minimum(chk["t"], tmax))
+        else:
+            need = C.any_hit_need(pc.geom, pc.bounds, o, d, tmin, tmax)
+        blocks_needed, cones_needed, boxes = int(need[0].sum()), int(need[1].sum()), int(need[2].sum())
+        log(f"{kernel} on the {which} rays ({live} live of {n}): sweeps {swept / live:.2f} sub-blocks and tests "
+            f"{tested / live:.1f} cones a live ray (the kernel's counters); needs {blocks_needed / live:.2f} "
+            f"sub-blocks and {cones_needed / live:.1f} cones (counted in plain PyTorch); {boxes} of "
+            f"{pc.bounds.shape[1]} sub-blocks touched")
+        order_bytes = 0 if order is None else int(order.count.sum()) * 4 + order.count.shape[0] * 4
+        row = dict(
+            kernel=kernel, at=f"{where}, {which} rays", shape=KC.launch_shape(n, pc, order),
+            ms=time_ms(lambda: fn(*args, order=order), samples=5, inner=2, warmup=1),
+            plain_ms=chk["plain_ms"], plain_lanes=chk["lanes"],
+            bound_bytes=ray_bytes(tmin, tmax, None, out_bytes) + boxes * (tblk * 32 + 32) + order_bytes,
+            bound_ops_s=cones_needed * C.CONE_FLOPS / F32_OPS_PER_S,
+            max_abs_err=chk["err"] if kernel == "cone_closest" else 0.0, library_ms=None,
+            sub_blocks_per_ray=swept / live, needed_sub_blocks_per_ray=blocks_needed / live,
+            cones_per_ray=tested / live, needed_cones_per_ray=cones_needed / live, live_rays=live,
+            sub_blocks_touched=boxes,
+        )
+        if order is not None:
+            row["ascending_ms"] = time_ms(lambda: fn(*args), samples=5, inner=2, warmup=1)
+        rows.append(row)
+    if b1["order"] is not None:
+        o, d, tmin, tmax, _ = b1["args"]
+        tile, nsb = b1["order"].tile, pc.sbounds.shape[1]
+        n_tiles = -(-n // tile)
+        live = int((tmax > tmin).sum())
+        plain_ms, passed = b1["open_w"]
+        rows.append(dict(
+            kernel="open_w", at=f"{where}, bounce-1 rays in tiles of {tile}", shape=(n, nsb, tile, 0),
+            ms=time_ms(lambda: KO.open_w(o, d, tmin, tmax, pc.sbounds, tile=tile)),
+            order_ms=time_ms(lambda: KO.sweep_order(o, d, tmin, tmax, pc.sbounds, tile)),
+            plain_ms=plain_ms,
+            bound_bytes=ray_bytes(tmin, tmax, None, 1) + nsb * 24 + n_tiles * nsb * 5,
+            bound_ops_s=live * nsb * KO.SLAB_FLOPS / F32_OPS_PER_S,
+            max_abs_err=0.0, library_ms=None, superblocks_passed_per_tile=passed,
+        ))
+    return rows
+
+
+def phase_hair_kernels(scene, params, cfg: Config, subset_lanes=None):
+    """Every kernel of a hair main path at every shape that path gives it:
+    K1 on its 294,912 sample indices, K2/K3 on the ground quad (2 triangles
+    padded to 128), K4 on the attr table at the camera hits and on the
+    material table at the curve hits' material ids, K7/K8 on the cones and,
+    where the scene's dispatch orders their sweep, K9 on the superblock boxes."""
+    import torch
+
+    from strelka_tpu_torch.kernels import intersect as KI
+    from strelka_tpu_torch.render.device_scene import RAY_MASK_PRIMARY, RAY_MASK_SHADOW
+
+    dev = scene.device
+    sample_idx, camera, bounce1, shadow, prims, _, seg_mat = main_path_rays(scene, params, dev, cfg)
+    n = sample_idx.shape[0]
+    ntri, ncones = scene.v0.shape[0], scene.cone_geom.shape[0]
+    where = f"{cfg.name} {n} lanes x {ncones} cones"
+    rows = sobol_rows(sample_idx, cfg, cfg.name)
+
+    # ---- K2/K3 on the ground quad
+    _, err_cam = check_intersect(scene, camera, RAY_MASK_PRIMARY, f"{cfg.name} camera")
+    b1_args, err_b1, (closest_plain_ms, _) = check_intersect(scene, bounce1, RAY_MASK_PRIMARY, f"{cfg.name} bounce-1",
+                                                             time_plain=True)
+    sh_args = flat_args(scene, shadow, RAY_MASK_SHADOW)
+    occ_p, any_plain_ms = timed_once_ms(lambda: KI.any_plain(*sh_args))
+    if not torch.equal(held(lambda: KI.intersect_any(*sh_args)), occ_p):
+        raise AssertionError(f"K3 differs from its plain version on the {cfg.name} shadow rays")
+    flat_where = f"{cfg.name} {n} lanes x {ntri} triangles"
+    rows.append(dict(
+        kernel="intersect_closest", at=flat_where + ", bounce-1 rays", shape=(n, ntri),
+        ms=time_ms(lambda: KI.intersect_closest(*b1_args)), plain_ms=closest_plain_ms,
+        bound_bytes=ray_bytes(*b1_args[2:5], 16) + ntri * 40,
+        bound_ops_s=tests_needed(b1_args, any_hit=False) * KI.MT_FLOPS / F32_OPS_PER_S,
+        max_abs_err=max(err_cam, err_b1), library_ms=None,
+    ))
+    rows.append(dict(
+        kernel="intersect_any", at=flat_where + ", shadow rays", shape=(n, ntri),
+        ms=time_ms(lambda: KI.intersect_any(*sh_args)), plain_ms=any_plain_ms,
+        bound_bytes=ray_bytes(*sh_args[2:5], 1) + ntri * 40,
+        bound_ops_s=tests_needed(sh_args, any_hit=True) * KI.MT_FLOPS / F32_OPS_PER_S,
+        max_abs_err=0.0, library_ms=None,
+    ))
+
+    # ---- K7/K8 on the cones
+    subset = None
+    if subset_lanes is not None:
+        subset = torch.arange(0, n, n // subset_lanes, device=dev)[:subset_lanes]
+    check_cones(scene, camera, f"{cfg.name} camera", subset)
+    b1 = check_cones(scene, bounce1, f"{cfg.name} bounce-1", subset)
+    sh = check_cones(scene, shadow, f"{cfg.name} shadow", subset)
+    rows += cone_rows(scene, b1, sh, where)
+
+    # ---- K4 on this scene's tables
+    rows.append(gather_row(scene.attr_table, prims, f"{cfg.name} attr_table at the camera hits"))
+    rows.append(gather_row(scene.mat_table, seg_mat, f"{cfg.name} mat_table at the curve hits' material ids"))
+    finish_bounds(rows)
+    return rows
+
+
+def hair_scene(cfg: Config, dev):
+    from strelka_tpu_torch.render.device_scene import build_device_scene
+    from strelka_tpu_torch.scene import testscenes as TS
+
+    t0 = time.perf_counter()
+    host = TS.hair_patch(n_curves=HAIR_CURVES[cfg.name])
+    scene = build_device_scene(host, device=dev)
+    log(f"{cfg.name}: hair_patch(n_curves={HAIR_CURVES[cfg.name]}), {scene.num_curve_segments} segments (padded), "
+        f"{scene.num_cones} cones ({scene.cone_geom.shape[0]} padded) in {scene.cone_bounds.shape[1]} "
+        f"sub-blocks and {scene.cone_sbounds.shape[1]} superblocks, {scene.num_triangles} triangles; host scene and "
+        f"device tables built in {time.perf_counter() - t0:.1f} s")
+    return host, scene
+
+
+def phase_hair(dev, t_start):
+    """Phases 5 and 6 -> (hair_patch rows, main path, golden SSIM, hair_long rows, main path)."""
+    from strelka_tpu_torch.scene import testscenes as TS
+
+    host, scene = hair_scene(HAIR, dev)
+    rows = phase_hair_kernels(scene, launch_params(host, HAIR.width, HAIR.height, 0), HAIR)
+    ssim_hair = phase_golden(TS.hair_patch(n_curves=HAIR_CURVES["hair_patch"]), dev, "hair_patch_golden.png",
+                             HAIR.kernels, HAIR_GOLDEN)
+    main_hair = phase_main_path(scene, host, HAIR)
+    log(f"[{time.perf_counter() - t_start:.0f} s] hair_patch phases done")
+    del scene
+    long_host, long_scene = hair_scene(HAIR_LONG, dev)
+    long_rows = phase_hair_kernels(long_scene, launch_params(long_host, HAIR_LONG.width, HAIR_LONG.height, 0),
+                                   HAIR_LONG, subset_lanes=PLAIN_SUBSET)
+    main_long = phase_main_path(long_scene, long_host, HAIR_LONG)
+    log(f"hair_long image mean {main_long['image_mean']:.6f} (finite; no golden exists, so no SSIM)")
+    log(f"[{time.perf_counter() - t_start:.0f} s] hair_long phases done")
+    return rows, main_hair, ssim_hair, long_rows, main_long
 
 
 def print_kernel_lines(rows, main=None):
@@ -868,6 +1173,9 @@ def shape_launches(main, row) -> int:
 
 
 def main() -> int:
+    if sys.argv[1:]:
+        print("usage: python3 chip_smoke.py", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -925,7 +1233,11 @@ def main() -> int:
                     bvh_build_seconds=box.bvh.build_seconds)
     log(f"[{time.perf_counter() - t_start:.0f} s] box_field(grid={BOX_GRID}) phases done")
 
-    # ---- 5. results
+    # ---- 5, 6. the hair scenes: kernels K7/K8, golden, main paths
+    del box
+    hair_rows, main_hair, ssim_hair, long_rows, main_long = phase_hair(dev, t_start)
+
+    # ---- 7. results
     print(json.dumps({"main_path": main_cornell, "golden_ssim": ssim_cornell}), flush=True)
     print(json.dumps({"main_path": main_box, "golden_ssim": ssim_box,
                       "bvh_vs_bruteforce_lanes_differing_frac": box_differ}), flush=True)
@@ -933,28 +1245,36 @@ def main() -> int:
     print_kernel_lines(rows, main_cornell)
     print_kernel_lines(flat["kernels"])
     print_kernel_lines(box_rows, main_box)
+    print(json.dumps({"main_path": main_hair, "golden_ssim": ssim_hair}), flush=True)
+    print(json.dumps({"main_path": main_long}), flush=True)
+    print_kernel_lines(hair_rows, main_hair)
+    print_kernel_lines(long_rows, main_long)
 
     # one entry per kernel: its numbers at the first shape it was timed at
-    # (K1-K4 at Cornell's, K5/K6 at box_field's) and launches over both
-    # main-path runs; "shapes" lists every shape a main path or the flat
+    # (K1-K4 at Cornell's, K5/K6 at box_field's, K7/K8 at hair_patch's, K9 at hair_long's) and
+    # launches over the four main-path runs; "shapes" lists every shape a main path or the flat
     # scene gave it, each with its own numbers and its launches there
     from strelka_tpu_torch.kernels import KERNEL_NAMES
 
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     tagged = ([(r, main_cornell) for r in rows] + [(r, None) for r in flat["kernels"]]
-              + [(r, main_box) for r in box_rows])
+              + [(r, main_box) for r in box_rows] + [(r, main_hair) for r in hair_rows]
+              + [(r, main_long) for r in long_rows])
+    mains = (main_cornell, main_box, main_hair, main_long)
     kernels = []
     for name in KERNEL_NAMES:
         mine = [(r, m) for r, m in tagged if r["kernel"] == name]
         entry = {
             "name": name, "route": "cuda", "source": REPLACES[name][1], "replaces": REPLACES[name][0],
-            "launches": main_cornell["launch_counts"][name] + main_box["launch_counts"][name],
-            "launches_cornell": main_cornell["launch_counts"][name],
-            "launches_box_field": main_box["launch_counts"][name],
+            "launches": sum(m["launch_counts"][name] for m in mains),
+            **{f"launches_{m['scene']}": m["launch_counts"][name] for m in mains},
         }
         entry.update({k: mine[0][0][k] for k in numbers})
+        # plain_lanes: the lanes the plain version ran on, where they are fewer than the kernel's
         entry["shapes"] = [dict(at=r["at"], shape=list(r["shape"]), launches=shape_launches(m, r) if m else 0,
-                                **{k: r[k] for k in numbers}) for r, m in mine]
+                                **{k: r[k] for k in numbers},
+                                **{k: r[k] for k in ("plain_lanes",) if r.get(k, r["shape"][0]) != r["shape"][0]})
+                           for r, m in mine]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"total {time.perf_counter() - t_start:.0f} s")

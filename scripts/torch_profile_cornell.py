@@ -3,11 +3,14 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 scripts/torch_profile_cornell.py [--scene cornell|box_field] [--launches 2] [--out build/profile]
+    python3 scripts/torch_profile_cornell.py [--scene cornell|box_field|hair_patch|hair_long] [--launches 2]
+                                             [--out build/profile]
 
 Builds a scene of chip_smoke.py's main paths on the card (its scene, launch
 parameters and render_launch arguments: cornell at 512x512, 4 spp, depth 4,
-or box_field(grid=48) on its BVH at 512x512, 2 spp, depth 4), runs one
+box_field(grid=48) on its BVH at 512x512, 2 spp, depth 4, or
+hair_patch(n_curves=256) / hair_patch(n_curves=20000) at 384x384, 2 spp,
+depth 4), runs one
 warm-up render_launch, then traces --launches more under torch.profiler
 (CPU and CUDA activities). Prints one JSON line: wall time per launch,
 device kernel time per launch split into the hand-written kernels and
@@ -36,12 +39,17 @@ KERNELS = {
     "bvh_kernelILb0E": "bvh_closest",  # the same, where the profiler keeps the mangled name
     "bvh_kernel<true>": "bvh_any",
     "bvh_kernelILb1E": "bvh_any",
+    "cone_kernel<false>": "cone_closest",
+    "cone_kernelILb0E": "cone_closest",
+    "cone_kernel<true>": "cone_any",
+    "cone_kernelILb1E": "cone_any",
+    "open_w_kernel": "open_w",
 }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("cornell", "box_field"), default="cornell")
+    ap.add_argument("--scene", choices=("cornell", "box_field", "hair_patch", "hair_long"), default="cornell")
     ap.add_argument("--launches", type=int, default=2)
     ap.add_argument("--out", default=os.path.join(REPO, "build", "profile"))
     args = ap.parse_args()
@@ -61,9 +69,13 @@ def main() -> int:
     if args.scene == "cornell":
         cfg = C.CORNELL
         host, scene = C.cornell_scene(torch.device("cuda"))
-    else:
+    elif args.scene == "box_field":
         cfg = C.BOX
         host = TS.box_field(grid=C.BOX_GRID)
+        scene = build_device_scene(host, device=torch.device("cuda"))
+    else:
+        cfg = C.HAIR if args.scene == "hair_patch" else C.HAIR_LONG
+        host = TS.hair_patch(n_curves=C.HAIR_CURVES[cfg.name])
         scene = build_device_scene(host, device=torch.device("cuda"))
     kw = C.main_path_kw(cfg)
     state = I.make_frame_state(cfg.height, cfg.width, scene.device)
@@ -111,6 +123,7 @@ def main() -> int:
     result = {
         "config": f"{cfg.name} {cfg.width}x{cfg.height} spp={cfg.spp} depth={cfg.depth}",
         "triangles": scene.num_triangles,
+        "cones": scene.num_cones,
         "device": torch.cuda.get_device_name(0),
         "card_and_power_limit": smi.stdout.strip(),
         "wall_ms_per_launch": wall / n * 1e3,

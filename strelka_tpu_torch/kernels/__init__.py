@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
-One module per kernel family (sobol, intersect, bvh, gather). Each wrapper sends a CPU
+One module per kernel family (sobol, intersect, bvh, gather, cones, open_w). Each wrapper sends a CPU
 tensor to the plain version and a CUDA tensor to its kernel; there is no
 fallback from one to the other. Sources are in ../csrc, built by build.py.
 
@@ -15,7 +15,8 @@ makes (the main path never does). All are reset with `reset_counts()`.
 
 from __future__ import annotations
 
-KERNEL_NAMES = ("sobol", "intersect_closest", "intersect_any", "gather_rows_t", "bvh_closest", "bvh_any")
+KERNEL_NAMES = ("sobol", "intersect_closest", "intersect_any", "gather_rows_t", "bvh_closest", "bvh_any",
+                "cone_closest", "cone_any", "open_w")
 
 launch_counts = {name: 0 for name in KERNEL_NAMES}
 launch_shapes: dict = {}  # (name, shape tuple) -> launches

@@ -7,8 +7,8 @@ build directory is keyed by a hash of the sources and flags, so a changed
 source builds again and an unchanged one is loaded as it is.
 
 Flags: `sm_90a`, -O3, no fast math. The intersection sources also get
--fmad=false, so the slab test and Möller–Trumbore round every product and
-sum on their own, as the CPU reference and the plain PyTorch versions do.
+-fmad=false, so the slab tests, Möller–Trumbore and the round-cone closed
+form round every product and sum on their own, as the CPU reference and the plain PyTorch versions do.
 
 Nothing here runs at import: `load()` builds on first use.
 """
@@ -35,6 +35,8 @@ SOURCES = {
     "gather.cu": [],
     "intersect.cu": ["-fmad=false"],
     "bvh.cu": ["-fmad=false"],
+    "cones.cu": ["-fmad=false"],
+    "open_w.cu": ["-fmad=false"],
 }
 HEADERS = ["common.cuh"]
 
@@ -49,6 +51,12 @@ SIGNATURES = {
     "strelka_bvh_closest": [_VP] * 10 + [_I32] + [_VP] * 4 + [_I32, _I64, _I32] + [_VP] * 5,
     "strelka_bvh_any": [_VP] * 10 + [_I32] + [_VP] * 4 + [_I32, _I64, _I32] + [_VP] * 2,
     "strelka_gather_rows_t": [_VP, _VP, _VP, _I64, _I32, _I32, _VP],
+    # 8 ray components, cone geometry, boxes, superblock boxes; m_pad, nb, super, cull; order, count, its tile; n;
+    # outputs, stats, stream
+    "strelka_cone_closest": [_VP] * 11 + [_I32, _I32, _I32, _I32, _VP, _VP, _I32, _I64] + [_VP] * 5,
+    "strelka_cone_any": [_VP] * 11 + [_I32, _I32, _I32, _I32, _VP, _VP, _I32, _I64] + [_VP] * 3,
+    # 8 ray components, superblock boxes, nsb, d2, r2t, tile, n; open, W, min_tn, stream
+    "strelka_open_w": [_VP] * 9 + [_I32, _VP, _VP, _I32, _I64] + [_VP] * 4,
     "strelka_error_string": [_I32],
 }
 

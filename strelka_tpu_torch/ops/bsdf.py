@@ -14,8 +14,10 @@ Contract parity with mi::neuraylib (target_code_types.h):
   * pure-specular sampling returns pdf == 0 (MDL convention).
 
 Models: DIFFUSE (default.mdl), OMNI_PBR (GGX VNDF metal/rough + diffuse
-base), OMNI_GLASS (smooth dielectric with transmission tint). The hair
-lobes are a later slice (ROADMAP A.9): enable_hair=True raises.
+base), OMNI_GLASS (smooth dielectric with transmission tint), HAIR (the
+Chiang fibre model of ops/hair.py, evaluated only with enable_hair=True:
+scenes without hair materials skip the fibre lobes). The reference's
+Kajiya-Kay alternative behind STRELKA_HAIR_KK is not ported.
 """
 
 from __future__ import annotations
@@ -80,11 +82,6 @@ class BsdfEval(NamedTuple):
     bsdf_diffuse: Vec3  # includes cos
     bsdf_glossy: Vec3  # includes cos
     pdf: torch.Tensor  # [N]
-
-
-def _no_hair(enable_hair: bool) -> None:
-    if enable_hair:
-        raise NotImplementedError("hair lobes: later slice, ROADMAP A.9")
 
 
 def _zeros(like: torch.Tensor) -> Vec3:
@@ -214,8 +211,9 @@ def _pbr_eval_local(params: SurfaceParams, k1l: Vec3, k2l: Vec3):
 
 def bsdf_evaluate(params: SurfaceParams, frame: ShadingFrame, k1: Vec3, k2: Vec3,
                   enable_hair: bool = False) -> BsdfEval:
-    """mdlcode_evaluate equivalent: f*cos split diffuse/glossy + pdf."""
-    _no_hair(enable_hair)
+    """mdlcode_evaluate equivalent: f*cos split diffuse/glossy + pdf.
+
+    enable_hair: scenes without hair materials skip the fibre lobes."""
     k1l = _to_local(frame, k1)
     k2l = _to_local(frame, k2)
     cos2 = torch.clamp(k2l.z, min=0.0)
@@ -230,6 +228,14 @@ def bsdf_evaluate(params: SurfaceParams, frame: ShadingFrame, k1: Vec3, k2: Vec3
     bsdf_diffuse = V.where(is_d, d_diff, V.where(is_p, p_diff, zero))
     bsdf_glossy = V.where(is_p, p_spec_v, zero)
     pdf = torch.where(is_d, d_pdf, torch.where(is_p, p_pdf, 0.0))
+    if enable_hair:
+        from strelka_tpu_torch.ops import hair as HAIR
+
+        is_h = t == BsdfType.HAIR
+        h_spec, h_diff, h_pdf = HAIR.hair_eval(params, frame, k1, k2)
+        bsdf_diffuse = V.where(is_h, h_diff, bsdf_diffuse)
+        bsdf_glossy = V.where(is_h, h_spec, bsdf_glossy)
+        pdf = torch.where(is_h, h_pdf, pdf)
     return BsdfEval(bsdf_diffuse, bsdf_glossy, pdf)
 
 
@@ -240,7 +246,6 @@ def bsdf_sample(params: SurfaceParams, frame: ShadingFrame, k1: Vec3, xi, ior1, 
     k1: outgoing (towards camera/previous vertex). xi: 4 [N] uniforms.
     ior1/ior2: [N] incident/transmitted IOR.
     """
-    _no_hair(enable_hair)
     k1l = _to_local(frame, k1)
     cos1 = k1l.z
     u1, u2, u3 = xi[0], xi[1], xi[2]
@@ -310,7 +315,23 @@ def bsdf_sample(params: SurfaceParams, frame: ShadingFrame, k1: Vec3, xi, ior1, 
     event = torch.where(is_d, diff_event, torch.where(is_p, pbr_event, glass_event))
     valid = torch.where(is_d, diff_valid, torch.where(is_p, pbr_valid, glass_valid))
 
+    hair_k2_world = None
+    if enable_hair:
+        from strelka_tpu_torch.ops import hair as HAIR
+
+        is_h = t == BsdfType.HAIR
+        # hair directions live on the full sphere: the world-space result
+        # bypasses the local -> world remap below
+        hair_k2_world, hp, hair_over_pdf, hair_valid = HAIR.hair_sample(params, frame, k1, xi)
+        hair_event = torch.full_like(params.bsdf_type, BSDF_EVENT_GLOSSY_REFLECTION, dtype=torch.int32)
+        pdf = torch.where(is_h, hp, pdf)
+        over_pdf = V.where(is_h, hair_over_pdf, over_pdf)
+        event = torch.where(is_h, hair_event, event)
+        valid = torch.where(is_h, hair_valid, valid)
+
     event = torch.where(valid, event, BSDF_EVENT_ABSORB).to(torch.int32)
     over_pdf = V.where(valid, over_pdf, _zeros(cos1))
     k2 = _to_world(frame, k2l)
+    if hair_k2_world is not None:
+        k2 = V.where(t == BsdfType.HAIR, hair_k2_world, k2)
     return BsdfSample(k2=V.normalize(k2), pdf=pdf, bsdf_over_pdf=over_pdf, event_type=event)

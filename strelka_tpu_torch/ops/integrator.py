@@ -8,11 +8,17 @@ branch divergence becomes masked selects. Each bounce runs one Sobol draw
 (kernel K1), one closest-hit sweep (radiance rays, mask PRIMARY: K5 over
 the scene's BVH, K2 over a flat scene), one attribute-row gather (K4) and
 one any-hit sweep (NEE shadow rays, mask SHADOW: K6 or K3); the shading in
-between is plain PyTorch on component-major Vec3.
+between is plain PyTorch on component-major Vec3. A scene with curves adds,
+per bounce, the closest round-cone sweep (K7), the Newton refinement of its
+winner to the exact swept envelope (ops/curve_refine.py), the curve's
+shading frame and material row (a second K4 gather, of mat_table) and the
+cone shadow sweep (K8), and turns on the fibre lobes of ops/hair.py.
 
-The port follows the JAX package's CPU path for scenes without textures or
-curves: row-major sample order, barycentrics from the intersector, prim
-ids in the scene's triangle order (BVH leaf order), no wavefront sort. Reference quirks kept for image parity:
+The port follows the JAX package's CPU path for scenes without textures:
+row-major sample order, barycentrics from the intersector, prim ids in the
+scene's triangle order (BVH leaf order), the curve parameter u from the
+winning cone's axial root, no wavefront sort. Reference quirks kept for
+image parity:
   * NEE radiance includes cos(N,L) AND the MDL-style evaluate() also folds
     cos in — the cosine is squared in next-event contributions (cu:306+586).
   * BSDF-hit emitter MIS uses the uniform-area rect pdf regardless of the
@@ -34,7 +40,16 @@ from strelka_tpu_torch.ops import bsdf as B
 from strelka_tpu_torch.ops import light_sampling as LS
 from strelka_tpu_torch.ops import sampler as S
 from strelka_tpu_torch.ops import vec as V
-from strelka_tpu_torch.ops.intersect import Hit, intersect_any, intersect_closest, offset_ray_vec
+from strelka_tpu_torch.ops.curve_refine import refine_scene_curve_hit
+from strelka_tpu_torch.ops.curves import CurveHit, curve_shading_frame_vec
+from strelka_tpu_torch.ops.intersect import (
+    Hit,
+    intersect_any,
+    intersect_closest,
+    intersect_curves_any,
+    intersect_curves_closest,
+    offset_ray_vec,
+)
 from strelka_tpu_torch.ops.vec import Vec3
 from strelka_tpu_torch.render.device_scene import (
     ATTR_JOINED,
@@ -164,6 +179,48 @@ def _material_from_rows(rows) -> B.SurfaceParams:
     )
 
 
+def _gather_material_by_id(scene: DeviceScene, mid) -> B.SurfaceParams:
+    """SurfaceParams of material ids: one fat row gather (K4) of mat_table."""
+    return _material_from_rows(V.gather_rows_t(scene.mat_table, mid))
+
+
+def _select_material(mask, a: B.SurfaceParams, b: B.SurfaceParams) -> B.SurfaceParams:
+    return B.SurfaceParams(*(
+        V.where(mask, x, y) if isinstance(x, Vec3) else torch.where(mask, x, y) for x, y in zip(a, b)
+    ))
+
+
+def closest_curve_hit(scene: DeviceScene, origin: Vec3, direction: Vec3, tmin, tmax, active) -> CurveHit:
+    """The closest curve hit of each ray: the round-cone sweep (K7), then,
+    if the scene was built for it, the exact swept-B-spline refinement of
+    the sweep's winner; ghosts admitted by the inflated radii become misses."""
+    chit = intersect_curves_closest(scene, origin, direction, tmin, tmax, active=active)
+    if scene.curve_refine:
+        rt, ru, keep = refine_scene_curve_hit(scene.curves, origin, direction, chit.t, chit.seg, chit.u)
+        chit = CurveHit(t=torch.where(keep, rt, 1e30), seg=torch.where(keep, chit.seg, -1),
+                        u=torch.where(keep, ru, 0.0))
+    return chit
+
+
+def curve_surface(scene: DeviceScene, chit: CurveHit, is_curve, origin: Vec3, direction: Vec3, inside,
+                  position: Vec3, frame: B.ShadingFrame, mat: B.SurfaceParams):
+    """fillCurveGeomData (cu:423-454): on the lanes that hit a curve, the hit
+    point, the curve's frame (spine-offset normal, spline tangent) and its
+    material row (a K4 gather of mat_table) take the triangle's place."""
+    pos_curve = origin + direction * chit.t
+    cn, ct, _ = curve_shading_frame_vec(scene.curves, chit.seg, chit.u, pos_curve)
+    cn = cn * torch.where(inside, -1.0, 1.0)
+    frame = B.ShadingFrame(
+        normal=V.where(is_curve, cn, frame.normal),
+        tangent_u=V.where(is_curve, ct, frame.tangent_u),
+        tangent_v=V.where(is_curve, V.cross(cn, ct), frame.tangent_v),
+        geom_normal=V.where(is_curve, cn, frame.geom_normal),
+    )
+    seg_mat = torch.clamp(scene.curves.material_id[torch.clamp(chit.seg, min=0).to(torch.int64)], min=0)
+    mat = _select_material(is_curve, _gather_material_by_id(scene, seg_mat), mat)
+    return V.where(is_curve, pos_curve, position), frame, mat
+
+
 def _light_from_rows(rows) -> LS.LightParams:
     """LightParams from 20 light rows (a light_table gather, a broadcast row
     or the light columns joined into the attr table)."""
@@ -202,7 +259,9 @@ def trace_paths(
     """One path per entry -> (radiance Vec3, first_event [N], stats).
 
     stats (collect_stats) counts the lanes alive at each closest sweep and
-    the shadow rays actually cast, summed over bounces (0-d tensors)."""
+    the shadow rays actually cast, summed over bounces (0-d tensors); a
+    scene with curves sweeps its cones with the same live lanes, counted
+    apart as cone_closest_rays and cone_shadow_rays."""
     if scene.attr_table.shape[1] < ATTR_JOINED:
         raise ValueError("the integrator reads the joined attr table")
     n = sample_idx.shape[0]
@@ -222,6 +281,8 @@ def trace_paths(
     tmax_big = torch.full((n,), 1e16, dtype=torch.float32, device=dev)
     stat_closest = torch.zeros((), dtype=torch.float32, device=dev)
     stat_shadow = torch.zeros((), dtype=torch.float32, device=dev)
+    has_curves = scene.has_curves
+    enable_hair = has_curves or scene.has_hair
 
     for depth in range(max_depth):
         # the 5 folded Sobol dimensions of this bounce in one draw (K1);
@@ -236,7 +297,13 @@ def trace_paths(
             scene, origin, direction, tmin_mat, tmax_big, RAY_MASK_PRIMARY,
             active=alive, exclude=prev_prim,
         )
-        missed = alive & (hit.prim < 0)
+        # curve (hair) primitives: the round-cone sweep, the closest of
+        # triangle and curve wins
+        is_curve = torch.zeros(n, dtype=torch.bool, device=dev)
+        if has_curves:
+            chit = closest_curve_hit(scene, origin, direction, tmin_mat, tmax_big, alive)
+            is_curve = alive & (chit.seg >= 0) & (chit.t < hit.t)
+        missed = alive & (hit.prim < 0) & ~is_curve
 
         # __miss__ms (cu:250-257)
         radiance = V.where(missed, radiance + throughput * Vec3(bg[0], bg[1], bg[2]), radiance)
@@ -244,7 +311,7 @@ def trace_paths(
 
         position, frame, raw_light_id, attr_rows = _gather_surface(scene, hit, inside)
         prim_light_id = torch.where(hit.prim >= 0, raw_light_id, -1)
-        hit_light = alive & ~missed & (prim_light_id >= 0)
+        hit_light = alive & ~missed & (prim_light_id >= 0) & ~is_curve
         hit_surface = alive & ~missed & ~hit_light
 
         # ---- __closesthit__light (cu:315-341)
@@ -263,6 +330,9 @@ def trace_paths(
 
         # ---- __closesthit__radiance (surface shading)
         mat = _material_from_rows(attr_rows[ATTR_MAT_ROW:ATTR_LIGHT_ROW])
+        if has_curves:
+            position, frame, mat = curve_surface(scene, chit, is_curve, origin, direction, inside, position, frame,
+                                                 mat)
 
         if debug == 1:
             normals_col = (frame.normal + 1.0) * 0.5
@@ -282,7 +352,7 @@ def trace_paths(
         ior2 = torch.where(inside, 1.0, mat.ior)
         xi = (rnd(Dim.eBSDF0), rnd(Dim.eBSDF1), rnd(Dim.eBSDF2), rnd(Dim.eBSDF3))
         k1 = -direction
-        smp = B.bsdf_sample(mat, frame, k1, xi, ior1, ior2)
+        smp = B.bsdf_sample(mat, frame, k1, xi, ior1, ior2, enable_hair=enable_hair)
 
         # ---- stochastic alpha cutout (opacity < 1): pass straight through
         # as a specular-transmission event without flipping the medium
@@ -321,13 +391,17 @@ def trace_paths(
             cos_nl = V.dot(frame.normal, to_light)
             geom_ok = (cos_nl > 0.0) & (-V.dot(to_light, ls.normal) > 0.0) & li_all_nonzero
             shadow_org = offset_ray_vec(position, frame.geom_normal)
+            shadow_excl = torch.where(is_curve, -1, hit.prim)  # a curve hit excludes no triangle
             if collect_stats:
                 stat_shadow = stat_shadow + (nee_able & geom_ok).to(torch.float32).sum()
+            shadow_tmin = torch.full((n,), shadow_ray_tmin, dtype=torch.float32, device=dev)
             occluded = intersect_any(
-                scene, shadow_org, to_light,
-                torch.full((n,), shadow_ray_tmin, dtype=torch.float32, device=dev),
-                ls.dist_to_light, RAY_MASK_SHADOW, active=nee_able & geom_ok, exclude=hit.prim,
+                scene, shadow_org, to_light, shadow_tmin,
+                ls.dist_to_light, RAY_MASK_SHADOW, active=nee_able & geom_ok, exclude=shadow_excl,
             )
+            if has_curves:
+                occluded = occluded | intersect_curves_any(
+                    scene, shadow_org, to_light, shadow_tmin, ls.dist_to_light, active=nee_able & geom_ok)
             visibility = torch.where(geom_ok & ~occluded, 1.0, 0.0)
             nee_w = visibility * torch.clamp(cos_nl, 0.0, 1.0)
             nee_radiance = lp.color * nee_w
@@ -337,7 +411,7 @@ def trace_paths(
             nan1 = nee_able & (V.any_nan(nee_radiance) | torch.isnan(light_pdf))
 
             next_event_valid = ((cos_nl > 0.0) != inside) & (light_pdf != 0.0) & nee_able
-            ev = B.bsdf_evaluate(mat, frame, k1, to_light)
+            ev = B.bsdf_evaluate(mat, frame, k1, to_light, enable_hair=enable_hair)
             nan2 = nee_able & (V.any_nan(ev.bsdf_diffuse) | V.any_nan(ev.bsdf_glossy))
             contribute = next_event_valid & (ev.pdf > 0.0) & ~nan1 & ~nan2
             inv_lpdf = 1.0 / torch.clamp(light_pdf, min=1e-20)
@@ -356,7 +430,7 @@ def trace_paths(
         new_origin = offset_ray_vec(position, offset_n)
         origin = V.where(shade, new_origin, origin)
         direction = V.where(shade, smp.k2, direction)
-        prev_prim = torch.where(shade, hit.prim, prev_prim)
+        prev_prim = torch.where(shade, torch.where(is_curve, -1, hit.prim), prev_prim)
         # cutout pass-through and thin-walled transmission stay in the same
         # medium; only real refraction through a closed interface flips it
         flips = shade & transmission & ~cut & ~mat.thin_walled
@@ -374,7 +448,12 @@ def trace_paths(
             alive = alive & ~kill_rr
         alive = alive & (V.dot(throughput, throughput) >= 1e-5)
 
-    stats = {"closest_rays": stat_closest, "shadow_rays": stat_shadow} if collect_stats else None
+    stats = None
+    if collect_stats:
+        zero = torch.zeros_like(stat_closest)
+        stats = {"closest_rays": stat_closest, "shadow_rays": stat_shadow,
+                 "cone_closest_rays": stat_closest if has_curves else zero,
+                 "cone_shadow_rays": stat_shadow if has_curves else zero}
     return radiance, first_event, stats
 
 

@@ -13,11 +13,22 @@ epilogue read:
   mat_table      [M, 24] f32
   light_table    [L, 20] f32
   bvh            DeviceBvh    threaded BVH (ops/bvh.py), or None (flat scene)
+  curves         DeviceCurves world-space cubic B-spline segments, or None
+  cone_geom      [M_pad, 8] f32  the segments as round cones (a.xyz, ra,
+                              b.xyz, rb), Morton-sorted, padded with ra = -1:
+                              the one cone table, read by kernels K7/K8 and
+                              by their plain version
+  cone_attr      [3, M_pad] f32  u0, u1 and the segment of each cone
+  cone_bounds    [8, nb], cone_sbounds [8, nsb]  sub-block / superblock boxes
 
 Triangle order is the JAX CPU build's: BVH leaf order above 1024 triangles
 (`use_bvh=None`), the scene's own order below or with `use_bvh=False` (no
-Morton sort, which is a TPU layout). Scenes the later slices cover raise
-NotImplementedError: curves, hair materials.
+Morton sort, which is a TPU layout). Curves are the exception: the JAX CPU
+build keeps the cones unsorted and sweeps them all, but the port's cone
+kernels cull by box, so it stores the cones Morton-sorted with the packed
+rows and sub-block boxes of the JAX package's TPU build (`pack_cones`; the
+device holds the rows cone-major, each value once). Textured materials are a
+later slice.
 
 `device_scene_from_arrays` / `frame_state_from_arrays` carry the JAX
 package's state across: they take its DeviceScene or FrameState as a dict
@@ -27,13 +38,15 @@ of numpy arrays and build the port's equivalent on a given device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from strelka_tpu_torch import log
 from strelka_tpu_torch.materials import BsdfType, MaterialManager
+from strelka_tpu_torch.kernels.cones import PackedCones
+from strelka_tpu_torch.ops import curves as C
 from strelka_tpu_torch.ops.bvh import DeviceBvh, ThreadedBvh, device_bvh, timed_build
 from strelka_tpu_torch.scene.scene import InstanceType, Scene
 from strelka_tpu_torch.utils.device import resolve_device
@@ -63,6 +76,21 @@ PAD_MULTIPLE = 128  # triangle count padding of the JAX build
 TABLES = ("v0", "e1", "e2", "geom_mask", "attr_table", "mat_table", "light_table")
 
 
+class DeviceCurves(NamedTuple):
+    """Cubic B-spline segments, world space, SoA, padded to a multiple of
+    128 with zero segments that no cone refers to."""
+
+    p0: torch.Tensor  # [S, 3] control points
+    p1: torch.Tensor
+    p2: torch.Tensor
+    p3: torch.Tensor
+    w0: torch.Tensor  # [S] radii at control points
+    w1: torch.Tensor
+    w2: torch.Tensor
+    w3: torch.Tensor
+    material_id: torch.Tensor  # [S] i32
+
+
 @dataclasses.dataclass(frozen=True)
 class DeviceScene:
     """Flattened world-space scene on one device."""
@@ -77,10 +105,30 @@ class DeviceScene:
     num_lights: int
     num_triangles: int
     bvh: Optional[DeviceBvh] = None  # triangles are in its leaf order
+    curves: Optional[DeviceCurves] = None
+    num_cones: int = 0  # round cones before padding
+    cone_geom: Optional[torch.Tensor] = None  # [M_pad, 8] f32 (a.xyz, ra, b.xyz, rb), Morton-sorted
+    cone_attr: Optional[torch.Tensor] = None  # [3, M_pad] f32 (u0, u1, segment)
+    cone_bounds: Optional[torch.Tensor] = None  # [8, nb] f32 sub-block boxes
+    cone_sbounds: Optional[torch.Tensor] = None  # [8, nb / CONE_SUPER] f32 superblock boxes
+    curve_refine: bool = True  # cone radii are inflated; hits are refined to the exact envelope
+    has_hair: bool = False  # any material row is a hair material
 
     @property
     def device(self) -> torch.device:
         return self.v0.device
+
+    @property
+    def packed_cones(self) -> PackedCones:
+        return PackedCones(self.cone_geom, self.cone_bounds, self.cone_sbounds)
+
+    @property
+    def has_curves(self) -> bool:
+        return self.cone_geom is not None
+
+    @property
+    def num_curve_segments(self) -> int:
+        return 0 if self.curves is None else int(self.curves.p0.shape[0])
 
 
 def _oct_encode24(v: np.ndarray) -> np.ndarray:
@@ -201,8 +249,48 @@ def _mat_table(tbl) -> np.ndarray:
     ).astype(np.float32)
 
 
-def _has_curves(scene: Scene) -> bool:
-    return any(inst.type == InstanceType.eCurve for inst in scene.instances)
+CURVE_FIELDS = ("p0", "p1", "p2", "p3", "w0", "w1", "w2", "w3", "material_id")
+
+
+def flatten_scene_curves(scene: Scene) -> Optional[dict]:
+    """World-space cubic B-spline segments from curve instances: a sliding
+    window of 4 control points per segment."""
+    segs = {k: [] for k in CURVE_FIELDS}
+    for inst in scene.instances:
+        if inst.type != InstanceType.eCurve:
+            continue
+        curve = scene.curves[inst.geom_id]
+        pts_all = np.concatenate(scene.curve_points) if scene.curve_points else np.zeros((0, 3), np.float32)
+        wid_all = np.concatenate(scene.curve_widths) if scene.curve_widths else np.zeros(0, np.float32)
+        cnt_all = (
+            np.concatenate(scene.curve_vertex_counts) if scene.curve_vertex_counts else np.zeros(0, np.uint32)
+        )
+        counts = cnt_all[curve.vertex_counts_start : curve.vertex_counts_start + curve.vertex_counts_count]
+        m = inst.transform
+        base = curve.points_start
+        wbase = curve.widths_start
+        # uniform scale factor for widths
+        s = float(np.cbrt(abs(np.linalg.det(m[:3, :3])))) or 1.0
+        for c in counts:
+            c = int(c)
+            pts = (pts_all[base : base + c].astype(np.float64) @ m[:3, :3].T + m[:3, 3]).astype(np.float32)
+            if wbase >= 0 and curve.widths_count > 0:
+                ws = wid_all[wbase : wbase + c] * s
+                wbase += c
+            else:
+                ws = np.full(c, 0.1 * s, np.float32)
+            ws = np.asarray(ws, np.float32)
+            base += c
+            if c < 4:
+                continue
+            window = np.arange(c - 3)[:, None] + np.arange(4)[None, :]  # [segments, 4]
+            for j in range(4):
+                segs[f"p{j}"].append(pts[window[:, j]])
+                segs[f"w{j}"].append(ws[window[:, j]])
+            segs["material_id"].append(np.full(c - 3, max(inst.material_id, 0), np.int32))
+    if not segs["p0"]:
+        return None
+    return {k: np.concatenate(v) for k, v in segs.items()}
 
 
 def build_device_scene(
@@ -210,15 +298,18 @@ def build_device_scene(
     material_manager: Optional[MaterialManager] = None,
     device=None,
     use_bvh: Optional[bool] = None,
+    curve_subdiv: int = C.CURVE_SUBDIV,
+    curve_refine: bool = True,
 ) -> DeviceScene:
     """Host scene -> DeviceScene on `device` (default: the CUDA card).
 
     use_bvh None = auto: a BVH above FLAT_MAX_TRIS triangles, as the
     reference's CPU build. False keeps a scene of any size flat (kernels
-    K2/K3 sweep every triangle), True builds the BVH for any size."""
+    K2/K3 sweep every triangle), True builds the BVH for any size.
+    curve_subdiv: round cones per cubic segment. curve_refine: refine curve
+    hits to the exact swept envelope (the cone radii are then inflated to
+    cover it). Both are the reference's defaults and both change the image."""
     device = resolve_device(device)
-    if _has_curves(scene):
-        raise NotImplementedError("curves: later slice, ROADMAP A.9")
     cat = flatten_scene_geometry(scene)
     num_tri = int(cat["p"].shape[0])
     if use_bvh is None:
@@ -245,8 +336,6 @@ def build_device_scene(
     mm = material_manager or MaterialManager()
     compiled = mm.compile_scene_materials(scene.materials)
     table, mat_remap = mm.generate_target_code_deduped(compiled)
-    if (np.asarray(table.bsdf_type) == BsdfType.HAIR).any():
-        raise NotImplementedError("hair materials: later slice, ROADMAP A.9")
     cat["material_id"] = mat_remap[np.clip(cat["material_id"], 0, len(mat_remap) - 1)]
     material_id = _pad_to(cat["material_id"], padded)
 
@@ -267,6 +356,22 @@ def build_device_scene(
     lj = np.clip(light_id.astype(np.int64), 0, light_np.shape[0] - 1)
     attr = np.concatenate([attr, mat_np[mj], light_np[lj]], axis=1)
 
+    curve_arrays = {}
+    curves_np = flatten_scene_curves(scene)
+    if curves_np is not None:
+        curves_np["material_id"] = mat_remap[np.clip(curves_np["material_id"], 0, len(mat_remap) - 1)]
+        ns = int(curves_np["p0"].shape[0])
+        nsp = _round_up(ns, PAD_MULTIPLE)
+        # the cones come from the segments as they are; the segment table is
+        # padded, its padding marked by the sign of the (zero) radii
+        cones_np = C.flatten_curves_np(curves_np, subdiv=curve_subdiv, refine=curve_refine)
+        curves_np = {k: _pad_to(v, nsp) for k, v in curves_np.items()}
+        neg = np.where(np.arange(nsp) < ns, 1.0, -1.0).astype(np.float32)
+        for j in range(4):
+            curves_np[f"w{j}"] = curves_np[f"w{j}"] * neg
+        curve_arrays = {"curves": curves_np, "cones": cones_np, "curve_refine": curve_refine}
+        log.info("Device scene: {} curve segments ({} padded), {} round cones", ns, nsp, cones_np.a.shape[0])
+
     log.info(
         "Device scene: {} triangles ({} padded), {} lights, {} materials on {}",
         num_tri, padded, len(scene.lights), len(compiled), device,
@@ -282,6 +387,7 @@ def build_device_scene(
         "num_lights": len(scene.lights),
         "num_triangles": num_tri,
         **bvh_arrays,
+        **curve_arrays,
     }
     return device_scene_from_arrays(arrays, device)
 
@@ -298,12 +404,18 @@ def device_scene_from_arrays(arrays: dict, device) -> DeviceScene:
     present, is the scene's ThreadedBvh as five numpy arrays in field order
     (a tuple, or a dict by field name); the triangle tables are then in its
     leaf order already (`bvh_builder` and `bvh_build_seconds` say how this
-    module's build made it). Fields of later slices (curves, cones, textures)
-    must be absent or None."""
+    module's build made it). `curves` (DeviceCurves) and `cones` (FlatCones)
+    are dicts by field name or tuples in field order. With `cones_packed`
+    and `cone_bounds` (the JAX package's TPU build) the cones are taken as
+    sorted and packed already; without them (its CPU build, and this
+    module's) they are Morton-sorted and packed here. Either way the device
+    gets the packed rows cone-major (`cone_geom`, `cone_attr`). `curve_refine`
+    (default True, the reference's) says that the cones' radii are inflated
+    and the hits are to be refined. `textures` (a later slice) must be
+    absent or None."""
     device = torch.device(device)
-    for key, item in (("curves", "A.9"), ("cones", "A.9"), ("textures", "A.7")):
-        if key in arrays and not _is_none(arrays[key]):
-            raise NotImplementedError(f"{key}: later slice, ROADMAP {item}")
+    if "textures" in arrays and not _is_none(arrays["textures"]):
+        raise NotImplementedError("textures: later slice, ROADMAP A.7")
     at = np.asarray(arrays["attr_table"], np.float32)
     if at.shape[1] != ATTR_JOINED:
         raise ValueError(f"attr_table has {at.shape[1]} columns, expected the joined {ATTR_JOINED}")
@@ -319,8 +431,11 @@ def device_scene_from_arrays(arrays: dict, device) -> DeviceScene:
             bvh = tuple(bvh[name] for name in ThreadedBvh._fields)
         bvh = device_bvh(tuple(np.asarray(a) for a in bvh), device, builder=arrays.get("bvh_builder", "carried"),
                          build_seconds=float(arrays.get("bvh_build_seconds", 0.0)))
+    mat_table = np.asarray(arrays["mat_table"], np.float32)
     return DeviceScene(
         bvh=bvh,
+        has_hair=bool((mat_table[:, 0] == float(BsdfType.HAIR)).any()),
+        **_curve_fields(arrays, device),
         v0=f32("v0"),
         e1=f32("e1"),
         e2=f32("e2"),
@@ -330,6 +445,41 @@ def device_scene_from_arrays(arrays: dict, device) -> DeviceScene:
         light_table=f32("light_table"),
         num_lights=int(arrays["num_lights"]),
         num_triangles=int(arrays["num_triangles"]),
+    )
+
+
+def _fields(value, names) -> list:
+    """A NamedTuple's fields as numpy arrays, from a dict by name or a tuple in order."""
+    if isinstance(value, dict):
+        return [np.asarray(value[name]) for name in names]
+    return [np.asarray(a) for a in value]
+
+
+def _curve_fields(arrays: dict, device) -> dict:
+    """The curve fields of a DeviceScene from `curves`, `cones` and, where
+    given, `cones_packed` and `cone_bounds`."""
+    if _is_none(arrays.get("curves")) or _is_none(arrays.get("cones")):
+        return {}
+    curves = _fields(arrays["curves"], CURVE_FIELDS)
+    cones = C.FlatCones(*_fields(arrays["cones"], C.FlatCones._fields))
+    if _is_none(arrays.get("cones_packed")):
+        perm = C.morton_sort_cones(cones)
+        cones = C.FlatCones(*[f[perm] for f in cones])
+        rows, bounds = C.pack_cones(cones)
+    else:
+        rows, bounds = np.asarray(arrays["cones_packed"], np.float32), np.asarray(arrays["cone_bounds"], np.float32)
+
+    def to(a, dtype):
+        return torch.tensor(np.ascontiguousarray(a, dtype), device=device)
+
+    return dict(
+        curves=DeviceCurves(*[to(a, np.float32) for a in curves[:8]], to(curves[8], np.int32)),
+        num_cones=int(cones.a.shape[0]),
+        cone_geom=to(C.cone_major_rows(rows), np.float32),
+        cone_attr=to(C.cone_attr_rows(rows), np.float32),
+        cone_bounds=to(bounds, np.float32),
+        cone_sbounds=to(C.cone_super_bounds(bounds), np.float32),
+        curve_refine=bool(arrays.get("curve_refine", True)),
     )
 
 

@@ -90,8 +90,12 @@ def test_frame_state_round_trip():
 
 
 def test_later_slice_scenes_raise():
-    with pytest.raises(NotImplementedError, match="A.9"):
-        build_device_scene(TTS.hair_patch(n_curves=4), device="cpu")
+    # textures are the slice still to come; curves and hair materials build
+    ds = build_device_scene(TTS.hair_patch(n_curves=4), device="cpu")
+    assert ds.has_curves and ds.num_cones == 160 and ds.has_hair
+    arrays = {f.name: getattr(ds, f.name) for f in dataclasses.fields(ds)}
+    with pytest.raises(NotImplementedError, match="A.7"):
+        device_scene_from_arrays({**arrays, "textures": np.zeros((4, 4, 4), np.float32)}, "cpu")
     # a scene above 1024 triangles does not raise: it gets a BVH
     assert build_device_scene(TTS.box_field(grid=3), device="cpu").bvh is not None
 

@@ -4,11 +4,11 @@ The oracles of tests/test_radiometric_oracle.py and tests/test_physics.py
 that need only ported modules, with their tolerances unchanged: rendered
 frames against closed-form radiometry (white furnace, unit-albedo furnace,
 inverse-square sphere light), BSDF sample/eval consistency and energy
-bounds (diffuse, OmniPBR, OmniGlass), light-sampling pdfs against
-Monte-Carlo and closed forms, the accumulate recurrence and the tonemapper
-formulas. The ground truth is analytic, so a bug mirrored from the JAX
-package into the port cannot satisfy them. The hair cases wait for the
-hair BSDF.
+bounds (diffuse, OmniPBR, OmniGlass, and the Chiang hair model: sample/eval
+consistency, energy bound, white furnace, double highlight), light-sampling
+pdfs against Monte-Carlo and closed forms, the accumulate recurrence and the
+tonemapper formulas. The ground truth is analytic, so a bug mirrored from
+the JAX package into the port cannot satisfy them.
 
 Frames are smaller than in the reference's tests (32x32 and 24x24 against
 48x48, 128 against 256 spp for the sphere light): the port's CPU path is
@@ -25,6 +25,7 @@ import torch
 
 from strelka_tpu_torch.materials import BsdfType
 from strelka_tpu_torch.ops import bsdf as B
+from strelka_tpu_torch.ops import hair as H
 from strelka_tpu_torch.ops import integrator as TI
 from strelka_tpu_torch.ops import light_sampling as LS
 from strelka_tpu_torch.ops import tonemap as TM
@@ -222,6 +223,89 @@ def test_glass_energy_and_direction():
     sin_i = np.sqrt(np.clip(1 - _rows(k1)[trans][:, 2] ** 2, 0, 1))
     sin_t = np.sqrt(np.clip(1 - k2[trans][:, 2] ** 2, 0, 1))
     np.testing.assert_allclose(sin_t, sin_i / 1.5, atol=1e-3)
+
+
+def test_hair_sample_eval_consistency():
+    """HAIR fibre lobes: eval pdf == sample pdf, f/pdf == over_pdf."""
+    n = 4096
+    rng = np.random.default_rng(7)
+    frame, params, k1 = _frame(n), _params(n, BsdfType.HAIR, roughness=np.full(n, 0.35)), _k1(n, rng)
+    smp = B.bsdf_sample(params, frame, k1, _xi(n, rng), torch.ones(n), torch.full((n,), 1.5), enable_hair=True)
+    ev = B.bsdf_evaluate(params, frame, k1, smp.k2, enable_hair=True)
+    ok = (smp.event_type.numpy() != B.BSDF_EVENT_ABSORB) & (smp.pdf.numpy() > 1e-5)
+    assert ok.mean() > 0.8
+    np.testing.assert_allclose(ev.pdf.numpy()[ok], smp.pdf.numpy()[ok], rtol=1e-3)
+    ratio = _rows(ev.bsdf_diffuse + ev.bsdf_glossy)[ok] / smp.pdf.numpy()[ok][:, None]
+    np.testing.assert_allclose(ratio, _rows(smp.bsdf_over_pdf)[ok], rtol=2e-3, atol=1e-4)
+    assert float(ev.bsdf_glossy.x.numpy()[ok].max()) > 0.0
+    assert (smp.event_type.numpy()[ok] == B.BSDF_EVENT_GLOSSY_REFLECTION).all()
+
+
+def test_hair_energy_bounded():
+    """Hemisphere integral of f*cos stays <= ~1 (no energy explosion)."""
+    n = 1 << 16
+    rng = np.random.default_rng(8)
+    frame = _frame(n)
+    params = _params(n, BsdfType.HAIR, diffuse_color=np.tile([1.0, 1.0, 1.0], (n, 1)), roughness=np.full(n, 0.4),
+                     specular_level=np.full(n, 0.5))
+    view = np.array([0.4, 0.2, np.sqrt(1 - 0.2)])
+    k1 = _v3(np.tile(view / np.linalg.norm(view), (n, 1)))
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[:, 2] = np.abs(d[:, 2])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    ev = B.bsdf_evaluate(params, frame, k1, _v3(d), enable_hair=True)
+    integral = _rows(ev.bsdf_diffuse + ev.bsdf_glossy).mean(axis=0) * 2 * np.pi  # uniform hemisphere pdf = 1/(2pi)
+    assert (integral < 1.6).all(), f"hair lobes leak energy: {integral}"
+
+
+def test_hair_chiang_white_furnace():
+    """Chiang R/TT/TRT+residual: full-sphere integral of f == 1 at zero
+    absorption (the A_p sum telescopes to 1 by construction), and < 1 with
+    absorption. Importance weights stay bounded (f/pdf <= ~1)."""
+    n = 1 << 18
+    rng = np.random.default_rng(11)
+    frame = _frame(n)
+    k1 = _v3(np.tile(np.array([0.3, 0.2, 0.93]) / np.linalg.norm([0.3, 0.2, 0.93]), (n, 1)))
+    z = 1.0 - 2.0 * rng.random(n)
+    phi = 2 * np.pi * rng.random(n)
+    r = np.sqrt(np.maximum(1 - z * z, 0))
+    wi = _v3(np.stack([r * np.cos(phi), r * np.sin(phi), z], 1).astype(np.float32))
+    for color, lo, hi in (
+        ([1.0, 1.0, 1.0], 0.93, 1.05),  # white furnace: == 1 (MC tolerance)
+        ([0.6, 0.3, 0.1], 0.25, 0.99),  # absorbing: strictly below 1
+    ):
+        params = _params(n, BsdfType.HAIR, diffuse_color=np.tile(color, (n, 1)), roughness=np.full(n, 0.45))
+        f_r, f_rest, pdf = H.hair_eval(params, frame, k1, wi)
+        integral = _rows(f_r + f_rest).mean(axis=0) * 4 * np.pi
+        assert (integral > lo).all() and (integral < hi).all(), integral
+        if color[0] != color[2]:
+            assert integral[0] > integral[1] > integral[2], integral  # absorption follows the colour channels
+        pdf_int = float(pdf.numpy().mean() * 4 * np.pi)
+        assert abs(pdf_int - 1.0) < 0.07, pdf_int
+    params = _params(n, BsdfType.HAIR, diffuse_color=np.tile([1.0, 1.0, 1.0], (n, 1)), roughness=np.full(n, 0.45))
+    _k2, pdf, over, valid = H.hair_sample(params, frame, k1, tuple(_t(rng.random(n)) for _ in range(4)))
+    w = _rows(over)[valid.numpy()]
+    assert w.max() < 1.1, w.max()
+    assert abs(w.mean() - 1.0) < 0.05  # white hair: unbiased unit albedo
+
+
+def test_hair_chiang_double_highlight():
+    """Cuticle tilt separates the R and TRT longitudinal peaks: the
+    white (R) and colored (TRT) lobes peak at different theta_i."""
+    n = 721
+    frame = _frame(n)
+    to = np.radians(20.0)  # wo at theta_o = 20 deg from the azimuthal plane, phi_o = 0
+    k1 = _v3(np.tile([np.sin(to), 0.0, np.cos(to)], (n, 1)))
+    th = np.radians(np.linspace(-90, 90, n)).astype(np.float32)  # wi sweeps theta in the phi_i = 0 half-plane
+    wi = _v3(np.stack([np.sin(th), np.zeros(n, np.float32), np.cos(th)], 1))
+    params = _params(n, BsdfType.HAIR, diffuse_color=np.tile([0.8, 0.4, 0.1], (n, 1)), roughness=np.full(n, 0.25))
+    f_r, f_rest, _ = H.hair_eval(params, frame, k1, wi)
+    i_r, i_trt = int(f_r.x.numpy().argmax()), int(f_rest.x.numpy().argmax())
+    # both peaks near the specular cone (theta_i ~ -theta_o) but shifted in
+    # OPPOSITE directions by the tilt (R by -2a, TRT by +4a)
+    assert abs(th[i_r] + to) < np.radians(12.0)
+    assert abs(th[i_trt] + to) < np.radians(16.0)
+    assert abs(np.degrees(th[i_trt] - th[i_r])) > 2.0, "tilt must separate the two highlights"
 
 
 def test_cosine_hemisphere_stats():

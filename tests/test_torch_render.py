@@ -1,4 +1,4 @@
-"""The port's main paths (Cornell, box_field) against the JAX package and the golden image.
+"""The port's main paths (Cornell, box_field, hair_patch) against the JAX package and the golden images.
 
 (a) render_launch at 16x16, 1 spp, depth 4 against the JAX render_launch on
     the same scene and parameters: at least 99% of pixels within rtol 1e-3
@@ -12,6 +12,16 @@
     against the JAX render_launch, at (a)'s tolerance, on the JAX scene
     carried across with device_scene_from_arrays (tables and tree), so the
     comparison does not depend on the two BVH builders agreeing.
+(f) render_launch of hair_patch(n_curves=16) (80 cubic segments, 640 round
+    cones over a ground quad, the hair BSDF) at 16x16 against the JAX
+    render_launch, at (a)'s tolerance, on the JAX scene carried across: the
+    JAX CPU build sweeps the cones unsorted, the port Morton-sorts and packs
+    them, so the two sweeps meet the cones in another order.
+(g) TorchRender(device="cpu") at bench.GOLDEN_CONFIGS["hair_patch"] (64x64,
+    4 spp x 16 launches, 10,240 cones) reaches SSIM >= 0.99 against
+    goldens/hair_patch_golden.png. The plain dense sweep takes about 8
+    minutes on an 8-core CPU for this config, so the test is marked `slow`;
+    the card holds the same golden in chip_smoke.py.
 """
 
 import dataclasses
@@ -33,6 +43,7 @@ from strelka_tpu_torch.render.buffer import BufferDesc, BufferFormat
 from strelka_tpu_torch.render.device_scene import build_device_scene, device_scene_from_arrays
 from strelka_tpu_torch.render.render import RenderFactory, RenderType, TorchRender
 from strelka_tpu_torch.scene import testscenes as TTS
+from strelka_tpu_torch.scene.scene import InstanceType
 from strelka_tpu_torch.settings import SharedContext, make_default_settings
 from strelka_tpu_torch.utils.image import read_png, ssim
 
@@ -46,8 +57,9 @@ def _carried_across(jds):
     """The JAX DeviceScene as the port's, field by field through numpy."""
     arrays = {f.name: np.asarray(getattr(jds, f.name)) for f in dataclasses.fields(jds)
               if not isinstance(getattr(jds, f.name), tuple)}
-    if jds.bvh is not None:
-        arrays["bvh"] = tuple(np.asarray(x) for x in jds.bvh)
+    for name in ("bvh", "curves", "cones"):  # NamedTuples of arrays
+        if getattr(jds, name) is not None:
+            arrays[name] = tuple(np.asarray(x) for x in getattr(jds, name))
     return device_scene_from_arrays(arrays, "cpu")
 
 
@@ -61,6 +73,13 @@ def test_render_launch_box_field_matches_jax():
     tds = _compare_render_launch(JTS.box_field(grid=6), _carried_across)
     assert tds.bvh is not None and tds.num_triangles == 6436
     assert not any(K.launch_counts.values())  # CPU tensors ran the plain traversal
+
+
+def test_render_launch_hair_patch_matches_jax():
+    K.reset_counts()
+    tds = _compare_render_launch(JTS.hair_patch(n_curves=16), _carried_across)
+    assert tds.cone_geom.shape == (2048, 8) and tds.num_curve_segments == 128 and tds.has_hair
+    assert not any(K.launch_counts.values())  # CPU tensors ran the plain sweeps
 
 
 def _compare_render_launch(host, port_scene):
@@ -123,6 +142,52 @@ def test_golden_ssim(golden_render):
     _, _, img = golden_render
     golden = read_png(_GOLDEN)[..., :3]
     assert ssim(np.clip(img[..., :3], 0.0, 1.0), golden) >= 0.99
+
+
+@pytest.mark.slow
+def test_hair_patch_golden_ssim():
+    w, h, spp, launches = 64, 64, 4, 16  # bench.GOLDEN_CONFIGS["hair_patch"]
+    s = make_default_settings(w, h)
+    s.set("render/pt/sppTotal", spp * launches)
+    s.set("render/pt/spp", spp)
+    r = TorchRender(device="cpu")
+    r.set_scene(TTS.hair_patch(n_curves=256))
+    r.set_shared_context(SharedContext(s))
+    buf = r.create_buffer(BufferDesc(w, h, BufferFormat.FLOAT4))
+    for _ in range(launches):
+        r.render(buf)
+    golden = read_png(os.path.join(os.path.dirname(_GOLDEN), "hair_patch_golden.png"))[..., :3]
+    assert ssim(np.clip(buf.map()[..., :3], 0.0, 1.0), golden) >= 0.99
+
+
+def test_hair_patch_renders_on_cpu():
+    """TorchRender(device="cpu") on hair_patch(n_curves=16), 32x32, 2 spp x 2:
+    finite, and the strands show (pixels that differ from a render of the
+    bare ground under the same light)."""
+    def render(scene):
+        s = make_default_settings(32, 32)
+        s.set("render/pt/sppTotal", 4)
+        s.set("render/pt/spp", 2)
+        r = TorchRender(device="cpu")
+        r.set_scene(scene)
+        r.set_shared_context(SharedContext(s))
+        buf = r.create_buffer(BufferDesc(32, 32, BufferFormat.FLOAT4))
+        r.render(buf)
+        r.render(buf)
+        return buf.map()[..., :3].copy()
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        hair = render(TTS.hair_patch(n_curves=16))
+        bare = TTS.hair_patch(n_curves=16)
+        bare.instances = [i for i in bare.instances if i.type != InstanceType.eCurve]
+        ground = render(bare)
+    finally:
+        torch.set_num_threads(threads)
+    assert np.isfinite(hair).all() and hair.shape == (32, 32, 3)
+    changed = np.abs(hair - ground).max(axis=-1) > 0.02
+    assert 10 <= changed.sum() <= 600  # 16 thin strands and their shadows, not the whole frame
 
 
 def test_golden_render_finite_and_on_cpu(golden_render):

@@ -165,15 +165,6 @@ def test_bsdf_evaluate_matches(bsdf_type):
     _close(out, ref)
 
 
-def test_hair_lobes_raise():
-    rng = np.random.default_rng(0)
-    _, tf, _ = _frames(rng)
-    _, tm, _ = _materials(rng, 0)
-    _, tk = _vecs(_unit(rng))
-    with pytest.raises(NotImplementedError, match="A.9"):
-        TB.bsdf_evaluate(tm, tf, tk, tk, enable_hair=True)
-
-
 def _light_rows(rng):
     """[20, N] light rows of all four types (rect, disc, sphere, distant)."""
     rows = np.zeros((20, N), np.float32)
