@@ -31,24 +31,26 @@ Phases (any failure raises and the script exits non-zero):
      after each main path, every (kernel, shape) it launched must be one
      that was held against its plain version before;
   5. hair_patch(n_curves=256), 1,280 cubic B-spline segments as 10,240 round
-     cones over a ground quad (kernels K1-K4, K7, K8): K7 and K8 against the
-     plain dense sweep (t, cone, y and occlusion equal on every lane) and
-     against their own cull=False mode on the scene's camera, bounce-1 and
-     shadow rays
-     (384x384x2 = 294,912 lanes each), K1-K4 at this scene's shapes; the
-     golden config (64x64, 4 spp x 16 launches) against
+     cones over a ground quad (kernels K1-K4, K7, K8): K7 (each ray's boxes
+     near to far) and K8 against the plain dense sweep (t, cone, y and
+     occlusion equal on every lane), against their own cull=False mode and
+     K7 against its list walk, and K7's count of sub-blocks swept against the
+     plain count of its walk, on the scene's camera, bounce-1 and shadow rays
+     (384x384x2 = 294,912 lanes each); the lane slots of the cone loop that
+     test a cone, beside those of fixed lanes; K1-K4 at this scene's shapes;
+     the golden config (64x64, 4 spp x 16 launches) against
      goldens/hair_patch_golden.png; the main path at 384x384, 2 spp, depth 4
      (1 warm-up + 4 timed launches);
   6. hair_patch(n_curves=20000) ("hair_long"), 100,000 segments as 800,000
-     cones in 391 superblocks, where kernel K9 gives K7/K8 each ray tile's
-     superblocks nearest first: K9 against its plain version (W and min_tn
-     bit for bit, and the open flag with the reference's K = 16 nearest
-     superblocks swept) on every lane; K7/K8 in that order against
-     cull=False and against their ascending sweep on every lane and against
-     the plain sweep on a fixed subset of 2^14 lanes, the sub-blocks and cones
-     a ray tests beside what it needs (counted in plain PyTorch); the main
-     path at 384x384, 2 spp, depth 4 (1 warm-up + 2 timed launches), no
-     golden;
+     cones in 391 superblocks, where kernel K9 gives each ray tile its list of
+     superblocks (K7's candidates, K8's order): K9 against its plain version
+     (W and min_tn bit for bit, and the open flag with the reference's K = 16
+     nearest superblocks swept) on every lane; K7/K8 against cull=False, the
+     list walk and their ascending sweep on every lane and against the plain
+     sweep and the plain count of K7's walk on a fixed subset of 2^14 lanes,
+     the sub-blocks and cones a ray tests beside what it needs (counted in
+     plain PyTorch); the main path at 384x384, 2 spp, depth 4 (1 warm-up + 2
+     timed launches), no golden;
   7. print the kernels' JSON line, the card's name and power limit, and
      last the {"ok": true, ...} line.
 
@@ -933,61 +935,86 @@ def check_open_w(pc, o, d, tmin, tmax, t_closest, name):
 
 
 def check_cones(scene, rays, name, subset=None):
-    """K7 and K8 on one ray set, swept as the main path sweeps them (in the
-    order kernel K9 gives, where the scene's dispatch asks for one), against
-    their own cull=False mode and their ascending culled sweep on every lane
-    and against the plain dense sweep (on every lane, or on the lanes
-    `subset` where the dense sweep over the scene's cones would take
-    minutes): t bit for bit, cone index and y equal, occlusion equal. One
-    plain sweep serves both: the plain K8 is its hit set. Returns a dict:
-    args, order, K7's t, K7's and K8's [2, N] stats, plain ms and lanes, the
-    largest |difference| in t or y against the plain version, and K9's."""
+    """K7 and K8 on one ray set, swept as the main path sweeps them (K7 each
+    ray's boxes near to far, K8 the list walk; where the scene's dispatch asks
+    for one, both over kernel K9's list per ray tile), against their own
+    cull=False mode, K7's list walk in the same order and the ascending list
+    walk on every lane, and against the plain dense sweep (on every lane, or
+    on the lanes `subset` where the dense sweep over the scene's cones would
+    take minutes): t bit for bit, cone index and y equal, occlusion equal.
+    One plain sweep serves both: the plain K8 is its hit set. K7's own count
+    of sub-blocks swept must equal the plain count of the near-to-far walk
+    (ops/curves.py:near_to_far_sweep) on the same lanes.
+    Returns a dict: args, order, K7's t, the ConeStats of K7, of K7's list
+    walk and of K8, plain ms and lanes, the largest |difference| in t or y
+    against the plain version, and K9's."""
     import torch
 
     from strelka_tpu_torch.kernels import cones as KC
+    from strelka_tpu_torch.ops import curves as C
     from strelka_tpu_torch.ops.intersect import cone_sweep_order
 
     args = cone_args(scene, rays)
     o, d, tmin, tmax, pc = args
     n = tmin.shape[0]
-    if subset is None:
-        sub_args, lanes = args, n
-    else:
-        sub_args = (tuple(c[subset].contiguous() for c in o), tuple(c[subset].contiguous() for c in d),
-                    tmin[subset].contiguous(), tmax[subset].contiguous(), pc)
-        lanes = int(subset.shape[0])
-    pick = (lambda a: a) if subset is None else (lambda a: a[subset])
+    lanes = torch.arange(n, device=tmin.device) if subset is None else subset
+    sub = lambda a: a[lanes].contiguous()  # noqa: E731
+    sub_args = (tuple(sub(c) for c in o), tuple(sub(c) for c in d), sub(tmin), sub(tmax), pc)
     block = 256 if subset is None else 4096  # the result does not depend on it
     order = cone_sweep_order(pc, o, d, tmin, tmax)
-    t, c, y, stats7 = held(lambda: KC.cone_closest(*args, stats=True, order=order))
-    occ, stats8 = held(lambda: KC.cone_any(*args, stats=True, order=order))
+    t, c, y, st7 = held(lambda: KC.cone_closest(*args, stats=True, order=order))
+    occ, st8 = held(lambda: KC.cone_any(*args, stats=True, order=order))
     t_b, c_b, y_b = KC.cone_closest(*args, cull=False)
     occ_b = KC.cone_any(*args, cull=False)
+    t_l, c_l, y_l, st7_list = KC.cone_closest(*args, stats=True, order=order, near_to_far=False)
     (t_p, c_p, y_p), plain_ms = timed_once_ms(lambda: KC.closest_plain(*sub_args, block=block))
     bits = lambda a, b: a.view(torch.int32) != b.view(torch.int32)  # noqa: E731
-    off_cull = int((bits(t, t_b) | (c != c_b) | (y != y_b)).sum())
-    off_plain = int((bits(pick(t), t_p) | (pick(c) != c_p) | (pick(y) != y_p)).sum())
-    occ_off_cull, occ_off_plain = int((occ != occ_b).sum()), int((pick(occ) != (c_p >= 0)).sum())
+    differ = lambda a, b, ca, cb, ya, yb: int((bits(a, b) | (ca != cb) | (ya != yb)).sum())  # noqa: E731
+    off_cull = differ(t, t_b, c, c_b, y, y_b)
+    off_list = differ(t, t_l, c, c_l, y, y_l)
+    off_plain = differ(t[lanes], t_p, c[lanes], c_p, y[lanes], y_p)
+    occ_off_cull, occ_off_plain = int((occ != occ_b).sum()), int((occ[lanes] != (c_p >= 0)).sum())
     off_asc = 0
     if order is not None:
-        t_a, c_a, y_a = KC.cone_closest(*args)
-        off_asc = int((bits(t, t_a) | (c != c_a) | (y != y_a)).sum()) + int((occ != KC.cone_any(*args)).sum())
-    _, ties, _ = closest_mismatch(pick(t), pick(c), t_p, c_p)
-    same = pick(c) == c_p
-    err = max(float(torch.abs(pick(a) - b)[same].max()) if bool(same.any()) else 0.0 for a, b in ((t, t_p), (y, y_p)))
-    how = "ascending" if order is None else f"K9's order per {order.tile} rays"
+        t_a, c_a, y_a = KC.cone_closest(*args, near_to_far=False)
+        off_asc = differ(t, t_a, c, c_a, y, y_a) + int((occ != KC.cone_any(*args)).sum())
+    # the near-to-far walk's sub-blocks, counted in plain PyTorch from each lane's candidates
+    cand = count = None
+    if order is not None:
+        tiles = lanes // order.tile
+        cand, count = order.order[tiles], order.count[tiles]
+    swept_p, best_p = C.near_to_far_sweep(pc.geom, pc.bounds, pc.sbounds, *sub_args[:4], cand, count)
+    off_count = int((st7.per_ray[0][lanes] != swept_p).sum()) + int(bits(t[lanes], best_p).sum())
+    _, ties, _ = closest_mismatch(t[lanes], c[lanes], t_p, c_p)
+    same = c[lanes] == c_p
+    err = max(float(torch.abs(a[lanes] - b)[same].max()) if bool(same.any()) else 0.0 for a, b in ((t, t_p), (y, y_p)))
+    how = "near to far per ray" + ("" if order is None else f" over K9's list per {order.tile} rays")
+    nl = int(lanes.shape[0])
     log(f"K7 on {name} rays ({n}, {how}): {int((c >= 0).sum())} hits; t, cone, y differ from cull=False on {off_cull} "
-        f"lanes and from the plain sweep on {off_plain} of {lanes} lanes ({ties} of them ties, max abs difference in "
-        f"t or y on equal cones {err:.3g}; bar: 0 and 0 lanes, t bit for bit); plain sweep {plain_ms:.0f} ms")
-    log(f"K8 on {name} rays ({n}, {how}): {int(occ.sum())} occluded; differs from cull=False on {occ_off_cull} lanes "
-        f"and from the plain sweep's hit set on {occ_off_plain} of {lanes} lanes (bar: 0 and 0)" +
+        f"lanes, from the list walk in the same order on {off_list} and from the plain sweep on {off_plain} of {nl} "
+        f"lanes ({ties} of them ties, max abs difference in t or y on equal cones {err:.3g}; bar: 0, 0 and 0 lanes, t "
+        f"bit for bit); sub-blocks swept and t differ from the plain count of the walk on {off_count} of {nl} lanes "
+        f"(bar: 0); plain sweep {plain_ms:.0f} ms")
+    log(f"K8 on {name} rays ({n}): {int(occ.sum())} occluded; differs from cull=False on {occ_off_cull} lanes "
+        f"and from the plain sweep's hit set on {occ_off_plain} of {nl} lanes (bar: 0 and 0)" +
         ("" if order is None else f"; K7 and K8 differ from their ascending sweeps on {off_asc} lanes (bar: 0)"))
-    if off_cull or off_plain or occ_off_cull or occ_off_plain or off_asc:
-        raise AssertionError(f"K7 or K8 on {name} rays disagrees with its cull=False mode, its ascending sweep or "
-                             f"its plain version")
+    if off_cull or off_list or off_plain or occ_off_cull or occ_off_plain or off_asc or off_count:
+        raise AssertionError(f"K7 or K8 on {name} rays disagrees with its cull=False mode, its list walk, its "
+                             f"ascending sweep, its plain version or the plain count of its walk")
     open_w = None if order is None else check_open_w(pc, o, d, tmin, tmax, t, name)
-    return dict(args=args, order=order, t=t, stats7=stats7, stats8=stats8, plain_ms=plain_ms, lanes=lanes, err=err,
-                open_w=open_w)
+    return dict(args=args, order=order, t=t, stats7=st7, stats7_list=st7_list, stats8=st8, plain_ms=plain_ms,
+                lanes=nl, err=err, open_w=open_w)
+
+
+def one_ray_a_thread_slots(steps) -> int:
+    """Lane slots a cone loop with fixed lanes issues for these per-ray cone
+    steps: one ray a thread, 32 consecutive rays a warp, and a warp steps
+    through as many cones as its busiest lane."""
+    import torch
+
+    pad = -steps.shape[0] % 32
+    s = torch.cat([steps, steps.new_zeros(pad)]).reshape(-1, 32).to(torch.int64)
+    return int(s.max(dim=1).values.sum()) * 32
 
 
 def cone_rows(scene, b1, sh, where: str):
@@ -1001,9 +1028,15 @@ def cone_rows(scene, b1, sh, where: str):
     test. Bytes: the rays as `ray_bytes` does, each such sub-block's cones
     (32 bytes each: a, b, ra, rb) and box (32 bytes) once, and the sweep
     order's rows where there is one. The kernels' own counters give the
-    swept and tested columns only. Where K9 orders the sweep, its row
-    follows (bounce-1 rays), and `ascending_ms` is the same kernel without
-    the order."""
+    swept, tested and lane-slot columns only: `lane_efficiency` is the share
+    of the cone loop's lane slots that tested a cone; `fixed_lane_efficiency`
+    the same for a design with fixed lanes (one ray a thread for its whole
+    sweep, no refill, the list walk), from the list walk's per-ray steps in
+    the same order (`one_ray_a_thread_slots`), and
+    `list_walk_sub_blocks_per_ray` that walk's sub-blocks. `list_walk_ms` is K7 by
+    the list walk in the same order, `ascending_ms` (where K9 orders the
+    sweep) the kernel over every superblock in ascending order. Where K9
+    orders the sweep, its row follows (bounce-1 rays)."""
     import torch
 
     from strelka_tpu_torch.kernels import cones as KC
@@ -1014,22 +1047,28 @@ def cone_rows(scene, b1, sh, where: str):
     n = b1["args"][2].shape[0]
     tblk = pc.geom.shape[0] // pc.bounds.shape[1]
     rows = []
-    for kernel, chk, stats, fn, out_bytes, which in (
-            ("cone_closest", b1, b1["stats7"], KC.cone_closest, 12, "bounce-1"),
-            ("cone_any", sh, sh["stats8"], KC.cone_any, 1, "shadow")):
+    for kernel, chk, stats, fixed, fn, out_bytes, which in (
+            ("cone_closest", b1, b1["stats7"], b1["stats7_list"], KC.cone_closest, 12, "bounce-1"),
+            ("cone_any", sh, sh["stats8"], sh["stats8"], KC.cone_any, 1, "shadow")):
         args, order = chk["args"], chk["order"]
         o, d, tmin, tmax, _ = args
         live = max(int((tmax > tmin).sum()), 1)
-        swept, tested = int(stats[0].sum()), int(stats[1].sum())
+        swept, tested = int(stats.per_ray[0].sum()), int(stats.per_ray[1].sum())
+        issued, slots_tested = (int(v) for v in stats.slots)
+        fixed_issued, fixed_tested = one_ray_a_thread_slots(fixed.per_ray[1]), int(fixed.slots[1])
         if kernel == "cone_closest":
             need = C.sub_blocks_entered(pc.geom, pc.bounds, o, d, tmin, torch.minimum(chk["t"], tmax))
         else:
             need = C.any_hit_need(pc.geom, pc.bounds, o, d, tmin, tmax)
         blocks_needed, cones_needed, boxes = int(need[0].sum()), int(need[1].sum()), int(need[2].sum())
-        log(f"{kernel} on the {which} rays ({live} live of {n}): sweeps {swept / live:.2f} sub-blocks and tests "
-            f"{tested / live:.1f} cones a live ray (the kernel's counters); needs {blocks_needed / live:.2f} "
-            f"sub-blocks and {cones_needed / live:.1f} cones (counted in plain PyTorch); {boxes} of "
-            f"{pc.bounds.shape[1]} sub-blocks touched")
+        blocks_per_sm, threads = KC.occupancy(kernel == "cone_any", True, kernel == "cone_closest", tmin.device)
+        log(f"{kernel} on the {which} rays ({live} live of {n}): sweeps {swept / live:.2f} sub-blocks and steps "
+            f"through {tested / live:.1f} cones a live ray (the kernel's counters; the list walk "
+            f"{int(fixed.per_ray[0].sum()) / live:.2f}); needs {blocks_needed / live:.2f} sub-blocks and "
+            f"{cones_needed / live:.1f} cones (counted in plain PyTorch); {boxes} of {pc.bounds.shape[1]} sub-blocks "
+            f"touched; lane efficiency {slots_tested / max(issued, 1):.4f} ({slots_tested} of {issued} lane slots "
+            f"test a cone; with fixed lanes {fixed_tested / max(fixed_issued, 1):.4f}); {blocks_per_sm} blocks of "
+            f"{threads} threads an SM")
         order_bytes = 0 if order is None else int(order.count.sum()) * 4 + order.count.shape[0] * 4
         row = dict(
             kernel=kernel, at=f"{where}, {which} rays", shape=KC.launch_shape(n, pc, order),
@@ -1038,10 +1077,15 @@ def cone_rows(scene, b1, sh, where: str):
             bound_bytes=ray_bytes(tmin, tmax, None, out_bytes) + boxes * (tblk * 32 + 32) + order_bytes,
             bound_ops_s=cones_needed * C.CONE_FLOPS / F32_OPS_PER_S,
             max_abs_err=chk["err"] if kernel == "cone_closest" else 0.0, library_ms=None,
-            sub_blocks_per_ray=swept / live, needed_sub_blocks_per_ray=blocks_needed / live,
+            sub_blocks_per_ray=swept / live, list_walk_sub_blocks_per_ray=int(fixed.per_ray[0].sum()) / live,
+            needed_sub_blocks_per_ray=blocks_needed / live,
             cones_per_ray=tested / live, needed_cones_per_ray=cones_needed / live, live_rays=live,
-            sub_blocks_touched=boxes,
+            sub_blocks_touched=boxes, lane_efficiency=slots_tested / max(issued, 1),
+            fixed_lane_efficiency=fixed_tested / max(fixed_issued, 1), blocks_per_sm=blocks_per_sm,
         )
+        if kernel == "cone_closest":
+            row["list_walk_ms"] = time_ms(lambda: fn(*args, order=order, near_to_far=False), samples=5, inner=2,
+                                          warmup=1)
         if order is not None:
             row["ascending_ms"] = time_ms(lambda: fn(*args), samples=5, inner=2, warmup=1)
         rows.append(row)

@@ -44,8 +44,8 @@ def main() -> int:
         live = int((tmax > tmin).sum())
         for tile in (32, 64, 128, 256):
             order = KO.sweep_order(o, d, tmin, tmax, pc.sbounds, tile)
-            st7 = KC.cone_closest(o, d, tmin, tmax, pc, stats=True, order=order)[3]
-            st8 = KC.cone_any(o, d, tmin, tmax, pc, stats=True, order=order)[1]
+            st7 = KC.cone_closest(o, d, tmin, tmax, pc, stats=True, order=order)[3].per_ray
+            st8 = KC.cone_any(o, d, tmin, tmax, pc, stats=True, order=order)[1].per_ray
             few = dict(samples=5, inner=2, warmup=1)
             print(json.dumps(dict(
                 rays=name, tile=tile, live_rays=live,

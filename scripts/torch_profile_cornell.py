@@ -39,9 +39,9 @@ KERNELS = {
     "bvh_kernelILb0E": "bvh_closest",  # the same, where the profiler keeps the mangled name
     "bvh_kernel<true>": "bvh_any",
     "bvh_kernelILb1E": "bvh_any",
-    "cone_kernel<false>": "cone_closest",
+    "cone_kernel<false": "cone_closest",
     "cone_kernelILb0E": "cone_closest",
-    "cone_kernel<true>": "cone_any",
+    "cone_kernel<true": "cone_any",
     "cone_kernelILb1E": "cone_any",
     "open_w_kernel": "open_w",
 }

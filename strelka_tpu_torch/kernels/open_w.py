@@ -43,6 +43,7 @@ class SweepOrder(NamedTuple):
     order: torch.Tensor  # [n_tiles, nsb] i32 superblocks, the passed ones first, nearest first
     count: torch.Tensor  # [n_tiles] i32 how many of a row's entries some ray of the tile passes
     tile: int  # rays a tile
+    tnear: torch.Tensor  # [n_tiles, nsb] f32 the least tnear of the tile's rays at each entry of `order`
 
 
 def open_w_plain(o, d, tmin, bound, sbounds, d2=None, r2t=None, tile: int = MAX_TILE, chunk: int = 64):
@@ -126,7 +127,8 @@ def open_w(o, d, tmin, bound, sbounds, d2=None, r2t=None, tile: int = MAX_TILE):
 def sweep_order(o, d, tmin, tmax, sbounds, tile: int) -> SweepOrder:
     """The cone sweeps' order per ray tile from K9: the superblocks some ray
     of the tile passes, by the least entry distance among the tile's rays
-    (of equal distances the lower index first), then the others."""
+    (of equal distances the lower index first), then the others; with those
+    distances in the same order."""
     _, w, tn = open_w(o, d, tmin, tmax, sbounds, tile=tile)
-    order = torch.argsort(tn, dim=1, stable=True).to(torch.int32)
-    return SweepOrder(order, w.sum(dim=1, dtype=torch.int32), tile)
+    tnear, order = torch.sort(tn, dim=1, stable=True)
+    return SweepOrder(order.to(torch.int32), w.sum(dim=1, dtype=torch.int32), tile, tnear)

@@ -48,6 +48,9 @@ CONE_SUPER = 8  # sub-blocks per superblock
 # _CONE_WL_MIN_NSB: below it the ascending sweep's few boxes cost nothing)
 CONE_ORDER_MIN_NSB = 32
 CONE_ORDER_TILE = 64  # of 32, 64, 128, 256 the least K7 + order time on hair_long (scripts/torch_cone_tile_probe.py)
+# (tnear, superblock) entries a ray of K7's near-to-far walk keeps in shared
+# memory at a time (scripts/torch_cone_list_probe.py)
+CONE_LIST = 16
 # packed row numbers ([12, M_pad], pack_cones)
 ROW_A, ROW_B, ROW_RA, ROW_RB, ROW_U0, ROW_U1, ROW_SEG = 0, 3, 6, 7, 8, 9, 10
 # columns of the cone-major geometry [M_pad, 8] and rows of the attributes [3, M_pad]
@@ -464,20 +467,29 @@ def tile_sweep_order_k(origins, sbounds, tile: int, k: int):
 # ---------------------------------------------------------------------------
 
 
-def slab_enters(o, d, tmin, tmax, bounds):
-    """[R] rays x [8, B] boxes -> [R, B] bool: the slab test of kernels K7/K8
-    (strelka_tpu/ops/pallas_intersect.py:_tile_hits_block per ray): inv =
-    1 / where(|d| > 1e-20, d, 1e-20), tnear <= tfar with equality, inverted
-    boxes rejected."""
+def slab_tnear(o, d, tmin, tmax, bounds):
+    """[R] rays x [8, B] boxes (or [8, R, B], each ray its own) -> [R, B]
+    f32: the slab test of kernels K7/K8 (strelka_tpu/ops/pallas_intersect.py:
+    _tile_hits_block per ray): inv = 1 / where(|d| > 1e-20, d, 1e-20),
+    tnear <= tfar with equality, inverted boxes rejected. The interval's
+    entry distance where it enters the box, inf where it does not."""
+    if bounds.dim() == 2:
+        bounds = bounds[:, None, :]
     tnear = tmin[:, None]
     tfar = tmax[:, None]
     for c in range(3):
         inv = 1.0 / torch.where(torch.abs(d[c]) > 1e-20, d[c], 1e-20)
-        t0 = (bounds[c][None, :] - o[c][:, None]) * inv[:, None]
-        t1 = (bounds[3 + c][None, :] - o[c][:, None]) * inv[:, None]
+        t0 = (bounds[c] - o[c][:, None]) * inv[:, None]
+        t1 = (bounds[3 + c] - o[c][:, None]) * inv[:, None]
         tnear = torch.maximum(tnear, torch.minimum(t0, t1))
         tfar = torch.minimum(tfar, torch.maximum(t0, t1))
-    return (tnear <= tfar) & (bounds[0] <= bounds[3])[None, :]
+    return torch.where((tnear <= tfar) & (bounds[0] <= bounds[3]), tnear, float("inf"))
+
+
+def slab_enters(o, d, tmin, tmax, bounds):
+    """[R] rays x [8, B] boxes -> [R, B] bool: does the ray's interval
+    [tmin, tmax] enter the box (slab_tnear)?"""
+    return slab_tnear(o, d, tmin, tmax, bounds) < float("inf")
 
 
 def _live_cones(geom, nb: int):
@@ -546,3 +558,97 @@ def any_hit_need(geom, bounds, o, d, tmin, tmax, chunk: int = 32768):
             step += 1
             ray = ray[~occluded & (count[ray] > step)]
     return blocks, cones, touched
+
+
+def near_to_far_sweep(geom, bounds, sbounds, o, d, tmin, tmax, cand=None, cand_count=None, cap: int = CONE_LIST,
+                      chunk: int = 16384):
+    """What kernel K7's near-to-far walk sweeps, counted without the kernel
+    (csrc/cones.cu:next_near_far): each live ray slab-tests its candidate
+    superblocks in their order (cand [N, C] i32 with cand_count [N] entries
+    that count, a tile's list of kernel K9 per ray; None: all, ascending)
+    against [tmin, min(best t, tmax)] and keeps the entered ones, up to `cap`
+    a round, as (tnear, superblock); it takes them nearest first (of equal
+    tnear the first kept), then inside a superblock its entered sub-blocks
+    nearest first (of equal tnear the lowest), sweeps each sub-block's cones
+    and stops at the first box whose tnear is greater than its best t; when
+    a round's list holds nothing nearer it scans on in another round.
+    Returns (sub-blocks swept [N] i32, final best t [N] f32, 1e16 = miss)."""
+    n, nb, nsb = tmin.shape[0], bounds.shape[1], sbounds.shape[1]
+    sup, tblk = nb // nsb, geom.shape[0] // nb
+    dev = tmin.device
+    inf = float("inf")
+    blocked = geom.reshape(nb, tblk, 8)
+    swept_out = torch.zeros(n, dtype=torch.int32, device=dev)
+    best_out = torch.full((n,), MISS_T, dtype=torch.float32, device=dev)
+    for r0 in range(0, n, chunk):
+        rs = slice(r0, min(n, r0 + chunk))
+        oc, dc, tn, tx = [c[rs] for c in o], [c[rs] for c in d], tmin[rs], tmax[rs]
+        r = tn.shape[0]
+        if cand is None:
+            rows = torch.arange(nsb, device=dev).expand(r, nsb)
+            limit = torch.full((r,), nsb, dtype=torch.int64, device=dev)
+        else:
+            rows, limit = cand[rs].long(), cand_count[rs].long()
+        ncand = rows.shape[1]
+        col = torch.arange(ncand, device=dev)
+        best = torch.full((r,), MISS_T, dtype=torch.float32, device=dev)
+        swept = torch.zeros(r, dtype=torch.int32, device=dev)
+        pos = torch.zeros(r, dtype=torch.int64, device=dev)
+        lst_tn = torch.full((r, cap), inf, dtype=torch.float32, device=dev)
+        lst_sb = torch.zeros((r, cap), dtype=torch.int64, device=dev)
+        cur = torch.full((r,), -1, dtype=torch.int64, device=dev)
+        sub = torch.full((r, sup), inf, dtype=torch.float32, device=dev)
+        active = tx > tn
+        ray = lambda ids: ([c[ids] for c in oc], [c[ids] for c in dc], tn[ids])  # noqa: E731
+        while bool(active.any()):
+            blk = torch.full((r,), -1, dtype=torch.int64, device=dev)
+            need = active.clone()
+            while bool(need.any()):
+                bound = torch.minimum(best, tx)
+                # a superblock is open: its nearest sub-block not yet taken, or close it
+                ia = torch.nonzero(need & (cur >= 0))[:, 0]
+                tb, kb = sub[ia].min(dim=1)  # the first (lowest) of equal minima
+                take = tb <= best[ia]
+                it = ia[take]
+                blk[it] = cur[it] * sup + kb[take]
+                sub[it, kb[take]] = inf
+                need[it] = False
+                cur[ia[~take]] = -1
+                # none open: the nearest entry of the list, else the round is over
+                ib = torch.nonzero(need & (cur < 0))[:, 0]
+                tb, at = lst_tn[ib].min(dim=1)
+                take = tb <= best[ib]
+                it = ib[take]
+                cur[it] = lst_sb[it, at[take]]
+                lst_tn[it, at[take]] = inf
+                o_it, d_it, tn_it = ray(it)
+                boxes = bounds[:, cur[it, None] * sup + torch.arange(sup, device=dev)]  # [8, R', sup]
+                sub[it] = slab_tnear(o_it, d_it, tn_it, bound[it], boxes)
+                ic = ib[~take]
+                lst_tn[ic] = inf
+                out = pos[ic] >= limit[ic]
+                active[ic[out]] = False
+                need[ic[out]] = False
+                fill = ic[~out]
+                if fill.numel():  # a new round: scan on until the list holds cap entries
+                    o_f, d_f, tn_f = ray(fill)
+                    tnear = slab_tnear(o_f, d_f, tn_f, bound[fill], sbounds[:, rows[fill]])  # [F, C]
+                    ok = (tnear < inf) & (col >= pos[fill, None]) & (col < limit[fill, None])
+                    kk = min(cap, ncand)
+                    first = torch.sort(torch.where(ok, col, ncand), dim=1).values[:, :kk]
+                    got = first < ncand
+                    at = first.clamp(max=ncand - 1)
+                    lst_tn[fill, :kk] = torch.where(got, tnear.gather(1, at), inf)
+                    lst_sb[fill, :kk] = rows[fill].gather(1, at)
+                    full = ok.sum(dim=1) >= cap
+                    pos[fill] = torch.where(full, first[:, -1] + 1, limit[fill])
+            s = torch.nonzero(blk >= 0)[:, 0]
+            if s.numel():
+                a, b, ra, rb = _geom_columns(blocked[blk[s]])
+                t, _, hit = ray_round_cone(_columns([c[s] for c in oc]), _columns([c[s] for c in dc]), a, b, ra, rb,
+                                           tn[s, None], tx[s, None])
+                t = torch.where(hit & (ra >= 0.0), t, MISS_T)
+                best[s] = torch.minimum(best[s], t.min(dim=1).values)
+                swept[s] += 1
+        swept_out[rs], best_out[rs] = swept, best
+    return swept_out, best_out

@@ -9,9 +9,10 @@ component-major Vec3 (ops/vec.py); prim ids are in the scene's triangle
 order, which is the BVH's leaf order where there is one. A scene's curves
 are swept apart from its triangles: `intersect_curves_closest` and
 `intersect_curves_any` run the round-cone kernels K7 and K8 (their plain
-dense sweep on CPU tensors) over the scene's packed cones; from
-`CONE_ORDER_MIN_NSB` superblocks on, kernel K9 first gives each ray tile its
-superblocks nearest first (`cone_sweep_order`).
+dense sweep on CPU tensors) over the scene's packed cones; K7 walks each
+ray's boxes nearest first. From `CONE_ORDER_MIN_NSB` superblocks on, kernel
+K9 first gives each ray tile the superblocks its rays pass, nearest first
+(`cone_sweep_order`): K7's candidates and K8's order.
 
 Also hosts offset_ray, the exact port of the Ray Tracing Gems self-
 intersection offset (OptixRender_radiance_closest_hit.cu:218-233).
@@ -87,9 +88,9 @@ def intersect_any(scene, origins: Vec3, directions: Vec3, tmin, tmax, ray_mask: 
 
 def cone_sweep_order(cones: KC.PackedCones, o, d, tmin, tmax):
     """The cone sweeps' schedule, as the reference's _cones_dispatch picks
-    one by the number of superblocks: few are swept in ascending order (None);
-    from CONE_ORDER_MIN_NSB on, kernel K9 gives each tile of CONE_ORDER_TILE
-    rays the superblocks its rays pass, nearest first."""
+    one by the number of superblocks: few are all candidates, in ascending
+    order (None); from CONE_ORDER_MIN_NSB on, kernel K9 gives each tile of
+    CONE_ORDER_TILE rays the superblocks its rays pass, nearest first."""
     if tmin.device.type == "cpu" or cones.sbounds.shape[1] < CONE_ORDER_MIN_NSB:
         return None  # the plain dense sweep has no order
     return KO.sweep_order(o, d, tmin, tmax, cones.sbounds, CONE_ORDER_TILE)
