@@ -12,17 +12,23 @@ Phases (any failure raises and the script exits non-zero):
   2. Cornell (flat scene, kernels K1-K4): hold each kernel against its plain
      PyTorch version on the card at every shape the Cornell main path
      gives it (512x512, 4 spp: 2^20 rays a bounce) and time both (CUDA
-     events, median); render the golden config through TorchRender and require
+     events, median); K2/K3, culled by the scene's 32-triangle group boxes,
+     on the camera, bounce-1, bounce-0 NEE shadow and shadow-style rays (and
+     on the camera rays against the table twice over, every hit a tie)
+     against the dense plain versions, their cull=False mode and the
+     one-ray-a-thread schedule, and their per-ray counts of groups tested
+     against the plain copies of their walks; render the golden config through TorchRender and require
      SSIM >= 0.99 against goldens/cornell_golden.png; drive the main path
      at full size (render_launch, depth 4, accumulation: 1 warm-up + 16
      timed launches) with every launch count reset just before and read
      just after;
   3. box_field(grid=12), 25,732 triangles, built flat and with the BVH:
-     K2/K3 against their plain versions at that size, K5/K6 against K2/K3,
-     and the two golden-config renders compared;
+     K2/K3 held as on Cornell at that size (camera, bounce-1 and shadow
+     rays), K5/K6 against K2/K3 in cull=False mode, and the two
+     golden-config renders compared;
   4. box_field(grid=48), 411,652 triangles on a BVH (kernels K1, K4, K5,
      K6): K5/K6 against the plain traversal and against K2/K3 brute force
-     on the scene's camera, bounce-1 and shadow rays (2^19 lanes each),
+     (cull=False) on the scene's camera, bounce-1 and shadow rays (2^19 lanes each),
      their times and bounds, K1 at 2^19 sample indices, K4 at this scene's
      two tables (attr_table [411776, 68] and light_table [2, 20]); the
      golden config
@@ -37,7 +43,8 @@ Phases (any failure raises and the script exits non-zero):
      K7 against its list walk, and K7's count of sub-blocks swept against the
      plain count of its walk, on the scene's camera, bounce-1 and shadow rays
      (384x384x2 = 294,912 lanes each); the lane slots of the cone loop that
-     test a cone, beside those of fixed lanes; K1-K4 at this scene's shapes;
+     test a cone, beside those of fixed lanes; K1-K4 at this scene's shapes
+     (K2/K3 held as on Cornell on the camera, bounce-1 and shadow rays);
      the golden config (64x64, 4 spp x 16 launches) against
      goldens/hair_patch_golden.png; the main path at 384x384, 2 spp, depth 4
      (1 warm-up + 4 timed launches);
@@ -174,6 +181,34 @@ def time_ms(fn, samples: int = 20, inner: int = 10, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def graph_ms(fn, calls: int = 20, samples: int = 10) -> float:
+    """Device time of one fn() call alone: `calls` calls captured in a CUDA
+    graph and replayed (CUDA events, median over `samples` replays), so that
+    the host's time a call does not set it as it can in time_ms."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -334,45 +369,68 @@ def closest_mismatch(t_a, p_a, t_b, p_b):
     return int((differ & ~tie).sum()), int((differ & tie).sum()), max_rel
 
 
-def check_intersect(scene, rays, ray_mask, name, time_plain: bool = False):
-    """K2 and K3 against their plain versions on one ray set. Returns the
-    kernels' arguments, K2's largest absolute difference in t, u or v over
-    the lanes where both give the same prim (misses included), and the plain
-    versions' times (one call each) if asked for."""
+def same_bits(a, b):
+    """Lanes where two f32 tensors differ in any bit."""
+    import torch
+
+    return a.view(torch.int32) != b.view(torch.int32)
+
+
+def closest_off(a, b) -> int:
+    """Lanes where two K2 results (t, prim, u, v, ...) differ: prim, or t, u or v in any bit."""
+    return int(((a[1] != b[1]) | same_bits(a[0], b[0]) | same_bits(a[2], b[2]) | same_bits(a[3], b[3])).sum())
+
+
+def check_intersect(scene, rays, ray_mask, name):
+    """K2 and K3 on one ray set of a flat scene, culled by the scene's group
+    boxes (one ray a warp, as the main path runs them), against the dense
+    plain versions, their own cull=False mode and the one-ray-a-thread
+    schedule on every lane: prim and occlusion equal, t, u, v bit for bit.
+    Their per-ray counts of groups tested must equal the plain copies of
+    their walks (kernels/intersect.py:closest_walk_plain, any_walk_plain),
+    whose results must equal the dense ones too. Returns a dict: args, K2's
+    (t, prim, u, v, groups), K3's (occluded, groups), the plain K3 walk's
+    (occluded, groups, triangles, groups touched), the dense plain versions'
+    times (one call each) and K2's largest absolute difference in t, u or v
+    against the dense plain version."""
     import torch
 
     from strelka_tpu_torch.kernels import intersect as KI
 
     args = flat_args(scene, rays, ray_mask)
-    t_k, p_k, u_k, v_k = held(lambda: KI.intersect_closest(*args))
-    (t_p, p_p, u_p, v_p), closest_plain_ms = timed_once_ms(lambda: KI.closest_plain(*args))
-    # tie rule: ids equal, except where two prims give t within 1e-5 t
-    both = (p_k >= 0) & (p_p >= 0)
-    differ = p_k != p_p
-    tie_ok = both & (torch.abs(t_k - t_p) <= 1e-5 * torch.abs(t_p))
-    bad_prim = int((differ & ~tie_ok).sum())
-    same = ~differ
-    hits = same & (p_k >= 0)
-    t_err = float((torch.abs(t_k - t_p) / torch.abs(t_p))[hits].max()) if bool(hits.any()) else 0.0
-    # the same prim gives the same barycentrics: one -fmad=false f32 MT on both sides
-    uv_bits = int(((u_k.view(torch.int32) != u_p.view(torch.int32)) |
-                   (v_k.view(torch.int32) != v_p.view(torch.int32)))[same].sum())
-    if bad_prim or t_err > 1e-6 or uv_bits:
-        raise AssertionError(f"K2 on {name}: {bad_prim} prims differ beyond ties, max rel t err {t_err}, "
-                             f"u or v not bit-equal on {uv_bits} lanes with equal prims")
-    occ_k = held(lambda: KI.intersect_any(*args))
-    occ_p, any_plain_ms = timed_once_ms(lambda: KI.any_plain(*args))
-    bad_occ = int((occ_k != occ_p).sum())
-    if bad_occ:
-        raise AssertionError(f"K3 on {name}: {bad_occ} occlusion results differ")
-    max_abs = max(float(torch.abs(a - b)[same].max()) if bool(same.any()) else 0.0
-                  for a, b in ((t_k, t_p), (u_k, u_p), (v_k, v_p)))
-    log(f"K2/K3 on {name} rays ({rays['tmin'].shape[0]} x {scene.v0.shape[0]} triangles): prims equal but for "
-        f"{int(differ.sum())} ties (|dt| <= 1e-5 t), max rel t err {t_err:.3g} (limit 1e-6), u and v bit-equal "
-        f"on the {int(same.sum())} lanes with equal prims, occlusion equal ({int(occ_k.sum())} occluded)")
-    if time_plain:
-        return args, max_abs, (closest_plain_ms, any_plain_ms)
-    return args, max_abs
+    kw = dict(bounds=scene.tri_bounds)
+    k2 = held(lambda: KI.intersect_closest(*args, **kw, stats=True))
+    dense2, closest_plain_ms = timed_once_ms(lambda: KI.closest_plain(*args))
+    walk2 = KI.closest_walk_plain(*args, scene.tri_bounds)
+    off2 = dict(plain=closest_off(k2, dense2), cull_false=closest_off(k2, KI.intersect_closest(*args, cull=False)),
+                thread=closest_off(k2, KI.intersect_closest(*args, **kw, schedule="thread")),
+                walk=closest_off(walk2, dense2), count=int((k2[4] != walk2[4]).sum()))
+    k3 = held(lambda: KI.intersect_any(*args, **kw, stats=True))
+    dense3, any_plain_ms = timed_once_ms(lambda: KI.any_plain(*args))
+    walk3 = KI.any_walk_plain(*args, scene.tri_bounds)
+    all3 = KI.intersect_any(*args, cull=False)
+    off3 = dict(plain=int((k3[0] != dense3).sum()), cull_false=int((k3[0] != all3).sum()),
+                thread=int((k3[0] != KI.intersect_any(*args, **kw, schedule="thread")).sum()),
+                walk=int((walk3[0] != dense3).sum()), count=int((k3[1] != walk3[1]).sum()))
+    o, d, tmin, tmax = args[:4]
+    live = max(int((tmax > tmin).sum()), 1)
+    entered = KI.groups_entered(o, d, tmin, tmax, scene.geom_mask, ray_mask, scene.tri_bounds)[0]
+    needed = KI.groups_entered(o, d, tmin, torch.minimum(k2[0], tmax), scene.geom_mask, ray_mask,
+                               scene.tri_bounds)[0]
+    ng = scene.tri_bounds.shape[1]
+    log(f"K2/K3 on {name} rays ({tmin.shape[0]} x {scene.v0.shape[0]} triangles in {ng} groups, {live} live): "
+        f"{int((k2[1] >= 0).sum())} hits, {int(k3[0].sum())} occluded; lanes off the dense plain version "
+        f"{off2['plain']} / {off3['plain']}, off cull=False {off2['cull_false']} / {off3['cull_false']}, off one ray a "
+        f"thread {off2['thread']} / {off3['thread']}; the plain walks off the dense version {off2['walk']} / "
+        f"{off3['walk']}, groups tested off the plain walks' count {off2['count']} / {off3['count']} (bar: 0 "
+        f"everywhere, t, u, v bit for bit); a live ray's interval enters {float(entered.sum()) / live:.2f} groups, "
+        f"K2 tests {float(k2[4].sum()) / live:.2f} (its final interval enters {float(needed.sum()) / live:.2f}), "
+        f"K3 tests {float(k3[1].sum()) / live:.2f} (ascending up to its first hit)")
+    if any(off2.values()) or any(off3.values()):
+        raise AssertionError(f"K2 or K3 on {name} rays: lanes off {off2} / {off3}")
+    max_abs = max(float(torch.abs(k2[k] - dense2[k]).max()) for k in (0, 2, 3))  # t, u, v
+    return dict(args=args, closest=k2, any=k3, walk_any=walk3, plain_ms=(closest_plain_ms, any_plain_ms),
+                max_abs_err=max_abs)
 
 
 def tests_needed(args, any_hit: bool) -> int:
@@ -406,6 +464,68 @@ def tests_needed(args, any_hit: bool) -> int:
     return total
 
 
+def intersect_rows(scene, closest, anys, where: str):
+    """K2's row on one ray set (`closest`, a check_intersect result) and K3's
+    on each of `anys` ((result, label) pairs), timed as the main path runs
+    them (one ray a warp, culled) and with one ray a thread (`thread_ms`).
+    bound_ms counts what these rays need of the culled sweep: per live ray
+    the slab tests of all G group boxes (SLAB_FLOPS each) and MT_FLOPS for
+    every triangle whose mask matches in the groups its final interval
+    [tmin, min(t, tmax)] enters (K2), or in the groups an ascending walk
+    tests up to and including its first hit (K3, kernels/intersect.py:
+    any_walk_plain); bytes: the rays as `ray_bytes` does, the box table once
+    and the triangles (40 bytes) of every group some ray needs. dense_bound_ms
+    is the dense sweep's count: every mask-matching triangle that is not
+    the ray's own prim (K3: up to the first occluder in id order)."""
+    import torch
+
+    from strelka_tpu_torch.kernels import intersect as KI
+    from strelka_tpu_torch.ops.bvh import SLAB_FLOPS
+
+    ng = scene.tri_bounds.shape[1]
+    rows = []
+    for kernel, chk, label in (("intersect_closest", closest, "bounce-1"), *(("intersect_any", c, l) for c, l in anys)):
+        args = chk["args"]
+        o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask = args
+        n, ntri = tmin.shape[0], v0.shape[0]
+        live = max(int((tmax > tmin).sum()), 1)
+        kw = dict(bounds=scene.tri_bounds)
+        if kernel == "intersect_closest":
+            fn, out_bytes, tested = KI.intersect_closest, 16, chk["closest"][4]
+            need, tris, touched = KI.groups_entered(o, d, tmin, torch.minimum(chk["closest"][0], tmax), mask, ray_mask,
+                                                    scene.tri_bounds)
+            plain_ms = chk["plain_ms"][0]
+        else:
+            fn, out_bytes, tested = KI.intersect_any, 1, chk["any"][1]
+            _, need, tris, touched = chk["walk_any"]
+            plain_ms = chk["plain_ms"][1]
+        dense_bytes = ray_bytes(tmin, tmax, exclude, out_bytes) + ntri * 40
+        dense_ops_s = tests_needed(args, any_hit=kernel == "intersect_any") * KI.MT_FLOPS / F32_OPS_PER_S
+        row = dict(
+            kernel=kernel, at=f"{where}, {label} rays", shape=(n, ntri), schedule=KI.pick_schedule(ntri, False),
+            ms=time_ms(lambda: fn(*args, **kw)), device_ms=graph_ms(lambda: fn(*args, **kw)),
+            warp_ms=time_ms(lambda: fn(*args, **kw, schedule="warp")),
+            thread_ms=time_ms(lambda: fn(*args, **kw, schedule="thread")),
+            warp_device_ms=graph_ms(lambda: fn(*args, **kw, schedule="warp")),
+            thread_device_ms=graph_ms(lambda: fn(*args, **kw, schedule="thread")),
+            plain_ms=plain_ms,
+            bound_bytes=ray_bytes(tmin, tmax, exclude, out_bytes) + ng * 24 + int(touched.sum()) * KI.GROUP * 40,
+            bound_ops_s=(live * ng * SLAB_FLOPS + int(tris.sum()) * KI.MT_FLOPS) / F32_OPS_PER_S,
+            dense_bound_ms=max(dense_bytes / HBM_BYTES_PER_S, dense_ops_s) * 1e3,
+            max_abs_err=chk["max_abs_err"] if kernel == "intersect_closest" else 0.0, library_ms=None,
+            live_rays=live, groups=ng, groups_per_ray=float(tested.sum()) / live,
+            needed_groups_per_ray=float(need.sum()) / live, needed_tris_per_ray=float(tris.sum()) / live,
+            groups_touched=int(touched.sum()),
+        )
+        log(f"{kernel} on {row['at']}: {row['ms']:.4f} ms, {row['device_ms']:.4f} ms on the device alone (one ray a "
+            f"{row['schedule']}; one ray a warp {row['warp_ms']:.4f} / {row['warp_device_ms']:.4f}, one ray a thread "
+            f"{row['thread_ms']:.4f} / {row['thread_device_ms']:.4f}); a live ray "
+            f"tests {row['groups_per_ray']:.2f} of {ng} groups and needs {row['needed_groups_per_ray']:.2f} "
+            f"({row['needed_tris_per_ray']:.1f} triangles whose mask matches); {row['groups_touched']} groups touched")
+        rows.append(row)
+    return rows
+
+
 JITTER_DIMS, BOUNCE_DIMS = (0, 1), (0, 1, 2, 3, 4)  # the two dimension lists render_launch asks K1 for
 
 
@@ -436,54 +556,56 @@ def sobol_rows(sample_idx, cfg: Config, where: str):
     ) for dims, depth in ((BOUNCE_DIMS, 1), (JITTER_DIMS, 0))]
 
 
-def phase_kernels(scene, params):
+def twice_over(scene):
+    """A flat scene's triangle table twice over, the second copy rolled by
+    half a group, with its group boxes: every hit has a twin at equal t and
+    a higher id, in a group of other triangles and another box."""
+    import types
+
     import torch
 
     from strelka_tpu_torch.kernels import intersect as KI
+
+    tables = [torch.cat([a, a.roll(KI.GROUP // 2, 0)]).contiguous()
+              for a in (scene.v0, scene.e1, scene.e2, scene.geom_mask)]
+    bounds = KI.tri_group_bounds(*(a.cpu().numpy() for a in tables))
+    return types.SimpleNamespace(v0=tables[0], e1=tables[1], e2=tables[2], geom_mask=tables[3],
+                                 tri_bounds=torch.tensor(bounds, device=scene.device))
+
+
+def phase_kernels(scene, params):
+    import torch
+
     from strelka_tpu_torch.ops import sampler as S
     from strelka_tpu_torch.render.device_scene import RAY_MASK_PRIMARY, RAY_MASK_SHADOW
 
     dev = scene.device
-    sample_idx, camera, bounce1, _, prims, _, _ = main_path_rays(scene, params, dev, CORNELL)
-    n = sample_idx.shape[0]
+    sample_idx, camera, bounce1, shadow, prims, _, _ = main_path_rays(scene, params, dev, CORNELL)
     where = "cornell 2^20 lanes x 640 triangles"
 
     # ---- K1: both calls of a launch, every depth of the main path, bit-equal
     rows = sobol_rows(sample_idx, CORNELL, "cornell")
 
-    # ---- K2 / K3: camera rays and bounce-1 rays (2^20 each)
-    cam_args, err_cam = check_intersect(scene, camera, RAY_MASK_PRIMARY, "camera")
-    b1_args, err_b1 = check_intersect(scene, bounce1, RAY_MASK_PRIMARY, "bounce-1")
-    # shadow-style any-hit set: bounce-1 rays cut to a hashed fraction in
-    # [0, 1.5) of their hit distance, so that some are occluded and some not
-    t_b1 = KI.intersect_closest(*b1_args)[0]
+    # ---- K2 / K3: camera, bounce-1 and the bounce-0 NEE shadow rays (2^20 each)
+    check_intersect(scene, camera, RAY_MASK_PRIMARY, "camera")
+    b1 = check_intersect(scene, bounce1, RAY_MASK_PRIMARY, "bounce-1")
+    nee = check_intersect(scene, shadow, RAY_MASK_SHADOW, "NEE shadow")
+    # shadow-style any-hit set (the dense K3's row): bounce-1 rays cut to a
+    # hashed fraction in [0, 1.5) of their hit distance, so that some are
+    # occluded and some not
     frac = S.uniform_hash(sample_idx, 7) * 1.5
-    o, d, tmin, tmax, ex, v0, e1, e2, mask, _ = b1_args
-    shadow_tmax = torch.where(tmax > 0, torch.clamp(t_b1, max=1e3) * frac, 0.0).contiguous()
-    sh_args = (o, d, tmin, shadow_tmax, ex, v0, e1, e2, mask, RAY_MASK_SHADOW)
-    if not torch.equal(held(lambda: KI.intersect_any(*sh_args)), KI.any_plain(*sh_args)):
-        raise AssertionError("K3 differs from its plain version on shadow-style rays")
+    t_b1 = b1["closest"][0]
+    style = dict(bounce1, tmax=torch.where(bounce1["tmax"] > 0, torch.clamp(t_b1, max=1e3) * frac, 0.0))
+    sh = check_intersect(scene, style, RAY_MASK_SHADOW, "shadow-style")
+    # ties: the table twice over, the second copy rolled by half a group, so that
+    # every hit is two triangles at equal t in groups with other boxes; the
+    # walk may meet the copy first, and the lower id must win (camera rays:
+    # they exclude no prim, which the copy would not share)
+    check_intersect(twice_over(scene), camera, RAY_MASK_PRIMARY, "Cornell twice over, camera")
     ntri = scene.v0.shape[0]
-    tests_k2, tests_k3 = tests_needed(b1_args, any_hit=False), tests_needed(sh_args, any_hit=True)
-    log(f"ray-triangle tests needed: K2 {tests_k2} on the bounce-1 rays, K3 {tests_k3} on the shadow-style "
-        f"rays; of {ntri} triangles {int(((scene.geom_mask & RAY_MASK_PRIMARY) != 0).sum())} match the "
-        f"primary ray mask, {int(((scene.geom_mask & RAY_MASK_SHADOW) != 0).sum())} the shadow mask")
-    rows.append(dict(
-        kernel="intersect_closest", at=where + ", bounce-1 rays", shape=(n, ntri),
-        ms=time_ms(lambda: KI.intersect_closest(*b1_args)),
-        plain_ms=time_ms(lambda: KI.closest_plain(*b1_args), samples=3, inner=1, warmup=1),
-        bound_bytes=ray_bytes(*b1_args[2:5], 16) + ntri * 40,
-        bound_ops_s=tests_k2 * KI.MT_FLOPS / F32_OPS_PER_S,
-        max_abs_err=max(err_cam, err_b1), library_ms=None,
-    ))
-    rows.append(dict(
-        kernel="intersect_any", at=where + ", shadow-style rays", shape=(n, ntri),
-        ms=time_ms(lambda: KI.intersect_any(*sh_args)),
-        plain_ms=time_ms(lambda: KI.any_plain(*sh_args), samples=3, inner=1, warmup=1),
-        bound_bytes=ray_bytes(*sh_args[2:5], 1) + ntri * 40,
-        bound_ops_s=tests_k3 * KI.MT_FLOPS / F32_OPS_PER_S,
-        max_abs_err=0.0, library_ms=None,
-    ))
+    log(f"of {ntri} triangles {int(((scene.geom_mask & RAY_MASK_PRIMARY) != 0).sum())} match the primary ray mask, "
+        f"{int(((scene.geom_mask & RAY_MASK_SHADOW) != 0).sum())} the shadow mask")
+    rows += intersect_rows(scene, b1, ((nee, "NEE shadow"), (sh, "shadow-style")), where)
 
     # ---- K4: the attr table at the camera hits (2^20 indices), bit-equal
     rows.append(gather_row(scene.attr_table, prims, "cornell attr_table at the camera hits"))
@@ -686,7 +808,8 @@ def check_bvh_vs_plain(scene, rays, ray_mask, name, any_hit: bool):
 
 def check_bvh_vs_bruteforce(scene, rays, ray_mask, name):
     """K5/K6 against K2/K3 sweeping every triangle of the same (leaf-ordered)
-    arrays: an independent oracle. Bar: hit/miss equal and, where both hit
+    arrays (cull=False: the BVH scene has no group boxes): an independent
+    oracle. Bar: hit/miss equal and, where both hit
     other prims, |dt| <= 1e-5 t (the tie rule); t within 1e-5 relative.
     A BVH may lose a grazing hit that brute force keeps (a slab test can cull
     an edge-on triangle), so up to 1e-4 of the lanes may differ, the
@@ -699,8 +822,8 @@ def check_bvh_vs_bruteforce(scene, rays, ray_mask, name):
 
     fa, ba = flat_args(scene, rays, ray_mask), bvh_args(scene, rays, ray_mask)
     t_k, p_k, _, _ = KB.bvh_closest(*ba)
-    t_f, p_f, _, _ = KI.intersect_closest(*fa)
-    occ_k, occ_f = KB.bvh_any(*ba), KI.intersect_any(*fa)
+    t_f, p_f, _, _ = KI.intersect_closest(*fa, cull=False)
+    occ_k, occ_f = KB.bvh_any(*ba), KI.intersect_any(*fa, cull=False)
     torch.cuda.synchronize()
     n = p_k.shape[0]
     hit_miss = int(((p_k >= 0) != (p_f >= 0)).sum())
@@ -778,10 +901,8 @@ def phase_flat_scene(dev):
     their plain versions at that size, K5/K6 against the plain traversal and
     against K2/K3, and the two golden-config renders compared."""
     import numpy as np
-    import torch
 
     from strelka_tpu_torch import kernels as K
-    from strelka_tpu_torch.kernels import intersect as KI
     from strelka_tpu_torch.render.device_scene import RAY_MASK_PRIMARY, RAY_MASK_SHADOW, build_device_scene
     from strelka_tpu_torch.scene import testscenes as TS
     from strelka_tpu_torch.utils.image import ssim
@@ -800,34 +921,10 @@ def phase_flat_scene(dev):
     _, camera, bounce1, shadow, _, _, _ = main_path_rays(flat, params, dev, BOX)
     n = camera["tmin"].shape[0]
     where = f"box_field(grid={FLAT_GRID}) 2^19 lanes x {ntri} triangles"
-    _, err_cam = check_intersect(flat, camera, RAY_MASK_PRIMARY, "flat camera")
-    b1_args, err_b1, (closest_plain_ms, _) = check_intersect(flat, bounce1, RAY_MASK_PRIMARY, "flat bounce-1",
-                                                             time_plain=True)
-    sh_args = flat_args(flat, shadow, RAY_MASK_SHADOW)
-    occ_p, any_plain_ms = timed_once_ms(lambda: KI.any_plain(*sh_args))
-    if not torch.equal(held(lambda: KI.intersect_any(*sh_args)), occ_p):
-        raise AssertionError("K3 differs from its plain version on the flat scene's shadow rays")
-    tests_k2, tests_k3 = tests_needed(b1_args, any_hit=False), tests_needed(sh_args, any_hit=True)
-    log(f"ray-triangle tests needed at {ntri} triangles: K2 {tests_k2} on the bounce-1 rays, K3 {tests_k3} on "
-        f"the shadow rays ({int(occ_p.sum())} occluded)")
-    rows = [
-        dict(
-            kernel="intersect_closest", at=where + ", bounce-1 rays", shape=(n, ntri),
-            ms=time_ms(lambda: KI.intersect_closest(*b1_args), samples=5, inner=2, warmup=1),
-            plain_ms=closest_plain_ms,
-            bound_bytes=ray_bytes(*b1_args[2:5], 16) + ntri * 40,
-            bound_ops_s=tests_k2 * KI.MT_FLOPS / F32_OPS_PER_S,
-            max_abs_err=max(err_cam, err_b1), library_ms=None,
-        ),
-        dict(
-            kernel="intersect_any", at=where + ", shadow rays", shape=(n, ntri),
-            ms=time_ms(lambda: KI.intersect_any(*sh_args), samples=5, inner=2, warmup=1),
-            plain_ms=any_plain_ms,
-            bound_bytes=ray_bytes(*sh_args[2:5], 1) + ntri * 40,
-            bound_ops_s=tests_k3 * KI.MT_FLOPS / F32_OPS_PER_S,
-            max_abs_err=0.0, library_ms=None,
-        ),
-    ]
+    check_intersect(flat, camera, RAY_MASK_PRIMARY, "flat camera")
+    b1 = check_intersect(flat, bounce1, RAY_MASK_PRIMARY, "flat bounce-1")
+    sh = check_intersect(flat, shadow, RAY_MASK_SHADOW, "flat shadow")
+    rows = intersect_rows(flat, b1, ((sh, "shadow"),), where)
     finish_bounds(rows)
 
     # ---- K5/K6 on the BVH build of the same scene, against the plain
@@ -1115,7 +1212,6 @@ def phase_hair_kernels(scene, params, cfg: Config, subset_lanes=None):
     where the scene's dispatch orders their sweep, K9 on the superblock boxes."""
     import torch
 
-    from strelka_tpu_torch.kernels import intersect as KI
     from strelka_tpu_torch.render.device_scene import RAY_MASK_PRIMARY, RAY_MASK_SHADOW
 
     dev = scene.device
@@ -1126,28 +1222,10 @@ def phase_hair_kernels(scene, params, cfg: Config, subset_lanes=None):
     rows = sobol_rows(sample_idx, cfg, cfg.name)
 
     # ---- K2/K3 on the ground quad
-    _, err_cam = check_intersect(scene, camera, RAY_MASK_PRIMARY, f"{cfg.name} camera")
-    b1_args, err_b1, (closest_plain_ms, _) = check_intersect(scene, bounce1, RAY_MASK_PRIMARY, f"{cfg.name} bounce-1",
-                                                             time_plain=True)
-    sh_args = flat_args(scene, shadow, RAY_MASK_SHADOW)
-    occ_p, any_plain_ms = timed_once_ms(lambda: KI.any_plain(*sh_args))
-    if not torch.equal(held(lambda: KI.intersect_any(*sh_args)), occ_p):
-        raise AssertionError(f"K3 differs from its plain version on the {cfg.name} shadow rays")
-    flat_where = f"{cfg.name} {n} lanes x {ntri} triangles"
-    rows.append(dict(
-        kernel="intersect_closest", at=flat_where + ", bounce-1 rays", shape=(n, ntri),
-        ms=time_ms(lambda: KI.intersect_closest(*b1_args)), plain_ms=closest_plain_ms,
-        bound_bytes=ray_bytes(*b1_args[2:5], 16) + ntri * 40,
-        bound_ops_s=tests_needed(b1_args, any_hit=False) * KI.MT_FLOPS / F32_OPS_PER_S,
-        max_abs_err=max(err_cam, err_b1), library_ms=None,
-    ))
-    rows.append(dict(
-        kernel="intersect_any", at=flat_where + ", shadow rays", shape=(n, ntri),
-        ms=time_ms(lambda: KI.intersect_any(*sh_args)), plain_ms=any_plain_ms,
-        bound_bytes=ray_bytes(*sh_args[2:5], 1) + ntri * 40,
-        bound_ops_s=tests_needed(sh_args, any_hit=True) * KI.MT_FLOPS / F32_OPS_PER_S,
-        max_abs_err=0.0, library_ms=None,
-    ))
+    check_intersect(scene, camera, RAY_MASK_PRIMARY, f"{cfg.name} camera")
+    b1 = check_intersect(scene, bounce1, RAY_MASK_PRIMARY, f"{cfg.name} bounce-1")
+    sh = check_intersect(scene, shadow, RAY_MASK_SHADOW, f"{cfg.name} shadow")
+    rows += intersect_rows(scene, b1, ((sh, "shadow"),), f"{cfg.name} {n} lanes x {ntri} triangles")
 
     # ---- K7/K8 on the cones
     subset = None
@@ -1317,6 +1395,7 @@ def main() -> int:
         # plain_lanes: the lanes the plain version ran on, where they are fewer than the kernel's
         entry["shapes"] = [dict(at=r["at"], shape=list(r["shape"]), launches=shape_launches(m, r) if m else 0,
                                 **{k: r[k] for k in numbers},
+                                **{k: r[k] for k in ("dense_bound_ms", "device_ms", "schedule") if k in r},
                                 **{k: r[k] for k in ("plain_lanes",) if r.get(k, r["shape"][0]) != r["shape"][0]})
                            for r, m in mine]
         kernels.append(entry)

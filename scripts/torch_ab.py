@@ -8,10 +8,10 @@ Run on a machine with one CUDA card, from the root of a checkout:
 `--a` and `--b` are checkouts (B defaults to this one); each run builds its
 own kernels under its checkout. Every run's output goes to `--out`
 (a_1.log, b_1.log, b_2.log, a_2.log), and the script prints one JSON line
-per run and kernel shape (ms, bound_ms, launches, the sub-blocks a live ray
-sweeps where the line has them), one per run and main path (ms per launch,
-padded Mrays/s) and last the card's name and power limit. It exits non-zero
-if a run fails.
+per run and row of the flat-triangle and cone kernels (ms, bound_ms,
+launches, the groups or sub-blocks a live ray sweeps where the line has
+them), one per run and main path (ms per launch, padded Mrays/s) and last
+the card's name and power limit. It exits non-zero if a run fails.
 """
 
 from __future__ import annotations
@@ -25,7 +25,9 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEEP = ("ms", "bound_ms", "plain_ms", "launches", "sub_blocks_per_ray", "needed_sub_blocks_per_ray",
-        "lane_efficiency", "fixed_lane_efficiency", "list_walk_ms", "ascending_ms")
+        "lane_efficiency", "fixed_lane_efficiency", "list_walk_ms", "ascending_ms", "schedule", "device_ms", "warp_ms",
+        "thread_ms", "warp_device_ms", "thread_device_ms", "dense_bound_ms", "groups_per_ray", "needed_groups_per_ray")
+KERNELS = ("intersect_closest", "intersect_any", "cone_closest", "cone_any", "open_w")
 
 
 def summarise(tag: str, out: str) -> list:
@@ -38,7 +40,7 @@ def summarise(tag: str, out: str) -> list:
             m = rec["main_path"]
             lines.append(dict(run=tag, main_path=m["scene"], ms_per_launch=m.get("ms_per_launch"),
                               padded_mrays_per_s=m.get("padded_mrays_per_s")))
-        elif "kernel" in rec and rec["kernel"] in ("cone_closest", "cone_any", "open_w"):
+        elif "kernel" in rec and rec["kernel"] in KERNELS:
             lines.append(dict(run=tag, kernel=rec["kernel"], at=rec["at"], **{k: rec[k] for k in KEEP if k in rec}))
     return lines
 

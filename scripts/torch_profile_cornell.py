@@ -32,8 +32,14 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = {
     "random_dims_kernel": "sobol",
-    "closest_kernel": "intersect_closest",
-    "any_kernel": "intersect_any",
+    "tri_warp_kernel<false": "intersect_closest",
+    "tri_warp_kernelILb0E": "intersect_closest",
+    "tri_warp_kernel<true": "intersect_any",
+    "tri_warp_kernelILb1E": "intersect_any",
+    "tri_thread_kernel<false": "intersect_closest",
+    "tri_thread_kernelILb0E": "intersect_closest",
+    "tri_thread_kernel<true": "intersect_any",
+    "tri_thread_kernelILb1E": "intersect_any",
     "gather_rows_t_kernel": "gather_rows_t",
     "bvh_kernel<false>": "bvh_closest",
     "bvh_kernelILb0E": "bvh_closest",  # the same, where the profiler keeps the mangled name

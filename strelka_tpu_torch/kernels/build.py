@@ -46,8 +46,10 @@ _I32 = ctypes.c_int
 # C entry points: name -> argtypes (every entry returns cudaGetLastError())
 SIGNATURES = {
     "strelka_random_dims": [_VP, _VP, _I64, ctypes.c_uint32, _I32, _I32, _VP],
-    "strelka_intersect_closest": [_VP] * 13 + [_I32, _I64, _I32] + [_VP] * 5,
-    "strelka_intersect_any": [_VP] * 13 + [_I32, _I64, _I32] + [_VP] * 2,
+    # 8 ray components, exclude, v0, e1, e2, mask, group boxes; ray mask, n, ntri, groups, cull, schedule; ray
+    # counter, outputs, groups tested, stream
+    "strelka_intersect_closest": [_VP] * 14 + [_I32, _I64, _I32, _I32, _I32, _I32] + [_VP] * 7,
+    "strelka_intersect_any": [_VP] * 14 + [_I32, _I64, _I32, _I32, _I32, _I32] + [_VP] * 4,
     "strelka_bvh_closest": [_VP] * 10 + [_I32] + [_VP] * 4 + [_I32, _I64, _I32] + [_VP] * 5,
     "strelka_bvh_any": [_VP] * 10 + [_I32] + [_VP] * 4 + [_I32, _I64, _I32] + [_VP] * 2,
     "strelka_gather_rows_t": [_VP, _VP, _VP, _I64, _I32, _I32, _VP],
@@ -157,6 +159,10 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The raw handle of PyTorch's current stream on a CUDA device (the call
+    Triton's launcher makes: torch.cuda.current_stream builds a Stream object
+    first, several microseconds of host time a kernel call)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

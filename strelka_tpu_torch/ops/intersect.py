@@ -4,7 +4,9 @@ The PyTorch counterpart of strelka_tpu/ops/intersect.py. The dispatch is
 the reference's: a scene with a BVH goes to the traversal (kernels K5 and
 K6 on CUDA tensors, the plain lockstep walk on CPU tensors), a flat scene
 to the sweep over all triangles (kernels K2 and K3, or their plain
-versions, the brute-force sweeps of the JAX CPU path). Rays are
+versions, the brute-force sweeps of the JAX CPU path); on the card K2/K3
+test only the 32-triangle groups whose box a ray enters
+(`DeviceScene.tri_bounds`). Rays are
 component-major Vec3 (ops/vec.py); prim ids are in the scene's triangle
 order, which is the BVH's leaf order where there is one. A scene's curves
 are swept apart from its triangles: `intersect_curves_closest` and
@@ -59,6 +61,11 @@ def _rays(origins: Vec3, directions: Vec3, tmax, active):
     return o, d, tmax.contiguous()
 
 
+def _tri_bounds(scene):
+    """A flat scene's group boxes (DeviceScene.tri_bounds), which K2/K3 cull by."""
+    return getattr(scene, "tri_bounds", None)
+
+
 def intersect_closest(scene, origins: Vec3, directions: Vec3, tmin, tmax, ray_mask: int,
                       active=None, exclude=None) -> Hit:
     """Closest hit against the scene's triangles (kernel K5 or K2 on the card).
@@ -71,7 +78,7 @@ def intersect_closest(scene, origins: Vec3, directions: Vec3, tmin, tmax, ray_ma
     bvh = getattr(scene, "bvh", None)
     if bvh is not None:
         return Hit(*KB.bvh_closest(o, d, tmin.contiguous(), tmax, ex, bvh, *tris, ray_mask))
-    return Hit(*KI.intersect_closest(o, d, tmin.contiguous(), tmax, ex, *tris, ray_mask))
+    return Hit(*KI.intersect_closest(o, d, tmin.contiguous(), tmax, ex, *tris, ray_mask, bounds=_tri_bounds(scene)))
 
 
 def intersect_any(scene, origins: Vec3, directions: Vec3, tmin, tmax, ray_mask: int,
@@ -83,7 +90,7 @@ def intersect_any(scene, origins: Vec3, directions: Vec3, tmin, tmax, ray_mask: 
     bvh = getattr(scene, "bvh", None)
     if bvh is not None:
         return KB.bvh_any(o, d, tmin.contiguous(), tmax, ex, bvh, *tris, ray_mask)
-    return KI.intersect_any(o, d, tmin.contiguous(), tmax, ex, *tris, ray_mask)
+    return KI.intersect_any(o, d, tmin.contiguous(), tmax, ex, *tris, ray_mask, bounds=_tri_bounds(scene))
 
 
 def cone_sweep_order(cones: KC.PackedCones, o, d, tmin, tmax):

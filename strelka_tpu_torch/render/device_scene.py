@@ -13,6 +13,10 @@ epilogue read:
   mat_table      [M, 24] f32
   light_table    [L, 20] f32
   bvh            DeviceBvh    threaded BVH (ops/bvh.py), or None (flat scene)
+  tri_bounds     [8, G] f32   a flat scene's boxes of 32-triangle groups in
+                              table order (kernels/intersect.py:
+                              tri_group_bounds), which K2/K3 cull by; None
+                              with a BVH
   curves         DeviceCurves world-space cubic B-spline segments, or None
   cone_geom      [M_pad, 8] f32  the segments as round cones (a.xyz, ra,
                               b.xyz, rb), Morton-sorted, padded with ra = -1:
@@ -46,6 +50,7 @@ import torch
 from strelka_tpu_torch import log
 from strelka_tpu_torch.materials import BsdfType, MaterialManager
 from strelka_tpu_torch.kernels.cones import PackedCones
+from strelka_tpu_torch.kernels.intersect import tri_group_bounds
 from strelka_tpu_torch.ops import curves as C
 from strelka_tpu_torch.ops.bvh import DeviceBvh, ThreadedBvh, device_bvh, timed_build
 from strelka_tpu_torch.scene.scene import InstanceType, Scene
@@ -105,6 +110,7 @@ class DeviceScene:
     num_lights: int
     num_triangles: int
     bvh: Optional[DeviceBvh] = None  # triangles are in its leaf order
+    tri_bounds: Optional[torch.Tensor] = None  # [8, G] f32 boxes of 32-triangle groups (flat scenes)
     curves: Optional[DeviceCurves] = None
     num_cones: int = 0  # round cones before padding
     cone_geom: Optional[torch.Tensor] = None  # [M_pad, 8] f32 (a.xyz, ra, b.xyz, rb), Morton-sorted
@@ -432,8 +438,13 @@ def device_scene_from_arrays(arrays: dict, device) -> DeviceScene:
         bvh = device_bvh(tuple(np.asarray(a) for a in bvh), device, builder=arrays.get("bvh_builder", "carried"),
                          build_seconds=float(arrays.get("bvh_build_seconds", 0.0)))
     mat_table = np.asarray(arrays["mat_table"], np.float32)
+    tri_bounds = None
+    if bvh is None:
+        tri_bounds = torch.tensor(tri_group_bounds(*(np.asarray(arrays[k]) for k in ("v0", "e1", "e2", "geom_mask"))),
+                                  device=device)
     return DeviceScene(
         bvh=bvh,
+        tri_bounds=tri_bounds,
         has_hair=bool((mat_table[:, 0] == float(BsdfType.HAIR)).any()),
         **_curve_fields(arrays, device),
         v0=f32("v0"),
