@@ -17,19 +17,35 @@ Phases (any failure raises and the script exits non-zero):
      on the camera rays against the table twice over, every hit a tie)
      against the dense plain versions, their cull=False mode and the
      one-ray-a-thread schedule, and their per-ray counts of groups tested
-     against the plain copies of their walks; render the golden config through TorchRender and require
-     SSIM >= 0.99 against goldens/cornell_golden.png; drive the main path
+     against the plain copies of their walks; the same for the rays of
+     scene/grazing.py that hunt the box test's rounding edge (the grazing
+     soup and coplanar grids turned, scaled and moved, rays at their shared
+     vertices, edges and overlaps), with K5 on a BVH of the same triangles
+     against its plain version and the dense sweep (the comparisons with
+     the dense versions on every lane whose hit lies inside the box test's
+     margin's domain; the lanes outside it counted); render the golden
+     config through TorchRender and require SSIM >= 0.99 against
+     goldens/cornell_golden.png; drive the main path
      at full size (render_launch, depth 4, accumulation: 1 warm-up + 16
      timed launches) with every launch count reset just before and read
      just after;
   3. box_field(grid=12), 25,732 triangles, built flat and with the BVH:
      K2/K3 held as on Cornell at that size (camera, bounce-1 and shadow
-     rays), K5/K6 against K2/K3 in cull=False mode, and the two
+     rays), K5 against its three oracles (check_k5: its plain near-to-far
+     walk bit for bit with its per-ray counters, the dense sweep K2
+     cull=False bit for bit, and the reference's DFS walk wherever that walk
+     keeps the dense hit) on the camera and bounce-1 rays and on the tie
+     table (the tree's triangles twice over, one copy a half), K6 against
+     its plain traversal on the shadow rays and against K3 in cull=False
+     mode on the camera, bounce-1 and shadow rays, and the two
      golden-config renders compared;
   4. box_field(grid=48), 411,652 triangles on a BVH (kernels K1, K4, K5,
-     K6): K5/K6 against the plain traversal and against K2/K3 brute force
-     (cull=False) on the scene's camera, bounce-1 and shadow rays (2^19 lanes each),
-     their times and bounds, K1 at 2^19 sample indices, K4 at this scene's
+     K6): K5 against its three oracles on the scene's camera and bounce-1
+     rays, K6 against the plain traversal on its shadow rays and against
+     K3 brute force (cull=False) on all three (2^19 lanes each), their times and bounds (K5's
+     row with its boxes tested a ray beside what a ray needs and beside
+     the DFS walk's, its stack depth, registers and local memory), K1 at
+     2^19 sample indices, K4 at this scene's
      two tables (attr_table [411776, 68] and light_table [2, 20]); the
      golden config
      against goldens/box_field_golden.png; the main path at 512x512, 2 spp,
@@ -130,6 +146,9 @@ REPLACES = {
     "open_w": ("strelka_tpu/ops/pallas_intersect.py:1002", "strelka_tpu_torch/csrc/open_w.cu"),
 }
 OPEN_K = 16  # superblocks a tile has swept when the open flag is asked (the reference's CONE_RESIDUAL_K)
+# what a walking kernel's entry in the kernels line carries beside the numbers of every entry
+WALK_KEYS = ("nodes_per_ray", "ideal_nodes_per_ray", "primed_nodes_per_ray", "dfs_nodes_per_ray", "stack_depth",
+             "registers", "local_bytes")
 
 
 # (kernel, shape) pairs held against the plain version so far: a main path
@@ -376,19 +395,54 @@ def same_bits(a, b):
     return a.view(torch.int32) != b.view(torch.int32)
 
 
-def closest_off(a, b) -> int:
+def closest_lanes(a, b):
     """Lanes where two K2 results (t, prim, u, v, ...) differ: prim, or t, u or v in any bit."""
-    return int(((a[1] != b[1]) | same_bits(a[0], b[0]) | same_bits(a[2], b[2]) | same_bits(a[3], b[3])).sum())
+    return (a[1] != b[1]) | same_bits(a[0], b[0]) | same_bits(a[2], b[2]) | same_bits(a[3], b[3])
 
 
-def check_intersect(scene, rays, ray_mask, name):
+def closest_off(a, b) -> int:
+    """How many lanes two K2 results differ on (closest_lanes)."""
+    return int(closest_lanes(a, b).sum())
+
+
+def outside_domain(args, dense_prim):
+    """Lanes of one ray set (K2/K3's arguments) whose hits lie outside the
+    box test's margin's domain (ops/slab.py:NU_MIN, PERF.md section 6): for
+    the closest hit, the dense winner's normalised determinant is below
+    NU_MIN; for occlusion, the ray has hits and every one's is. Returns
+    (closest lanes, occlusion lanes), [R] bool each."""
+    import torch
+
+    from strelka_tpu_torch.kernels import intersect as KI
+    from strelka_tpu_torch.ops import slab
+
+    o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask = args
+    nu = slab.normalised_det(d, e1, e2)
+    won = dense_prim >= 0
+    nu_won = torch.where(won, nu.gather(1, dense_prim.clamp(min=0).long()[:, None])[:, 0], 1.0)
+    hit = KI._valid(KI.mt_block(o, d, v0, e1, e2, tmin, tmax)[3], mask, ray_mask, 0, exclude)
+    nu_any = torch.where(hit, nu, 0.0).max(dim=1).values
+    return won & (nu_won < slab.NU_MIN), hit.any(dim=1) & (nu_any < slab.NU_MIN)
+
+
+def domain_note(lanes, outside, what: str) -> str:
+    """The log's words for the lanes outside the margin's domain: how many,
+    and on how many of them `lanes` (a comparison with a dense version) differs."""
+    return f"{what} {int(outside.sum())} outside the margin's domain, {int((lanes & outside).sum())} of them off"
+
+
+def check_intersect(scene, rays, ray_mask, name, domain: bool = False):
     """K2 and K3 on one ray set of a flat scene, culled by the scene's group
     boxes (one ray a warp, as the main path runs them), against the dense
     plain versions, their own cull=False mode and the one-ray-a-thread
     schedule on every lane: prim and occlusion equal, t, u, v bit for bit.
     Their per-ray counts of groups tested must equal the plain copies of
     their walks (kernels/intersect.py:closest_walk_plain, any_walk_plain),
-    whose results must equal the dense ones too. Returns a dict: args, K2's
+    whose results must equal the dense ones too. With `domain`, the
+    comparisons with the dense versions hold on every lane inside the
+    margin's domain (outside_domain), and the lanes outside it are counted
+    and printed with how many of them differ; the other comparisons still
+    hold on every lane. Returns a dict: args, K2's
     (t, prim, u, v, groups), K3's (occluded, groups), the plain K3 walk's
     (occluded, groups, triangles, groups touched), the dense plain versions'
     times (one call each) and K2's largest absolute difference in t, u or v
@@ -402,16 +456,24 @@ def check_intersect(scene, rays, ray_mask, name):
     k2 = held(lambda: KI.intersect_closest(*args, **kw, stats=True))
     dense2, closest_plain_ms = timed_once_ms(lambda: KI.closest_plain(*args))
     walk2 = KI.closest_walk_plain(*args, scene.tri_bounds)
-    off2 = dict(plain=closest_off(k2, dense2), cull_false=closest_off(k2, KI.intersect_closest(*args, cull=False)),
-                thread=closest_off(k2, KI.intersect_closest(*args, **kw, schedule="thread")),
-                walk=closest_off(walk2, dense2), count=int((k2[4] != walk2[4]).sum()))
     k3 = held(lambda: KI.intersect_any(*args, **kw, stats=True))
     dense3, any_plain_ms = timed_once_ms(lambda: KI.any_plain(*args))
     walk3 = KI.any_walk_plain(*args, scene.tri_bounds)
     all3 = KI.intersect_any(*args, cull=False)
-    off3 = dict(plain=int((k3[0] != dense3).sum()), cull_false=int((k3[0] != all3).sum()),
+    out2, out3 = outside_domain(args, dense2[1]) if domain else (torch.zeros_like(dense3),) * 2
+    held2 = lambda lanes: int((lanes & ~out2).sum())  # noqa: E731
+    held3 = lambda lanes: int((lanes & ~out3).sum())  # noqa: E731
+    off2 = dict(plain=held2(closest_lanes(k2, dense2)),
+                cull_false=held2(closest_lanes(k2, KI.intersect_closest(*args, cull=False))),
+                thread=closest_off(k2, KI.intersect_closest(*args, **kw, schedule="thread")),
+                walk=held2(closest_lanes(walk2, dense2)), count=int((k2[4] != walk2[4]).sum()))
+    off3 = dict(plain=held3(k3[0] != dense3), cull_false=held3(k3[0] != all3),
                 thread=int((k3[0] != KI.intersect_any(*args, **kw, schedule="thread")).sum()),
-                walk=int((walk3[0] != dense3).sum()), count=int((k3[1] != walk3[1]).sum()))
+                walk=held3(walk3[0] != dense3), count=int((k3[1] != walk3[1]).sum()))
+    outside = ""
+    if domain:
+        outside = (f"; lanes {domain_note(closest_lanes(k2, dense2), out2, 'K2')}, "
+                   f"{domain_note(k3[0] != dense3, out3, 'K3')} (held inside the domain only)")
     o, d, tmin, tmax = args[:4]
     live = max(int((tmax > tmin).sum()), 1)
     entered = KI.groups_entered(o, d, tmin, tmax, scene.geom_mask, ray_mask, scene.tri_bounds)[0]
@@ -425,7 +487,7 @@ def check_intersect(scene, rays, ray_mask, name):
         f"{off3['walk']}, groups tested off the plain walks' count {off2['count']} / {off3['count']} (bar: 0 "
         f"everywhere, t, u, v bit for bit); a live ray's interval enters {float(entered.sum()) / live:.2f} groups, "
         f"K2 tests {float(k2[4].sum()) / live:.2f} (its final interval enters {float(needed.sum()) / live:.2f}), "
-        f"K3 tests {float(k3[1].sum()) / live:.2f} (ascending up to its first hit)")
+        f"K3 tests {float(k3[1].sum()) / live:.2f} (ascending up to its first hit){outside}")
     if any(off2.values()) or any(off3.values()):
         raise AssertionError(f"K2 or K3 on {name} rays: lanes off {off2} / {off3}")
     max_abs = max(float(torch.abs(k2[k] - dense2[k]).max()) for k in (0, 2, 3))  # t, u, v
@@ -573,6 +635,75 @@ def twice_over(scene):
                                  tri_bounds=torch.tensor(bounds, device=scene.device))
 
 
+# scene/grazing.py:plane_case arguments (seed, scale, offset, nx, nz, overlap, least sine of the rays' angle
+# to the plane): coplanar grids turned, scaled and moved, rays at their vertices, edges and overlaps
+PLANE_CASES = [(11, 1.0, 0.0, 12, 12, True, 1e-3), (12, 0.01, 3.0, 8, 12, True, 1e-4),
+               (13, 300.0, 1000.0, 12, 8, False, 1e-3), (14, 40.0, 20.0, 16, 16, True, 0.085)]
+
+
+def grazing_scene(tris, dev):
+    """A flat scene-like table of numpy triangles (v0, e1, e2, mask) on the
+    card, with its group boxes and, on `bvh`, the same triangles on a BVH
+    in its leaf order (and the permutation, to map exclude ids)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from strelka_tpu_torch.kernels import intersect as KI
+    from strelka_tpu_torch.ops.bvh import device_bvh, timed_build
+
+    t = lambda a: torch.tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731
+    flat = types.SimpleNamespace(v0=t(tris[0]), e1=t(tris[1]), e2=t(tris[2]), geom_mask=t(tris[3]),
+                                 tri_bounds=t(KI.tri_group_bounds(*tris)), device=dev)
+    threaded, perm, _, _ = timed_build(*tris[:3])
+    leaf = [a[perm] for a in tris]
+    tree = types.SimpleNamespace(v0=t(leaf[0]), e1=t(leaf[1]), e2=t(leaf[2]), geom_mask=t(leaf[3]),
+                                 bvh=device_bvh(threaded, dev), device=dev)
+    return flat, tree, perm
+
+
+def grazing_rays(rays, dev, perm=None):
+    """numpy (o, d, tmin, tmax, exclude) -> a ray set on the card (exclude
+    ids mapped to a BVH's leaf order by `perm`)."""
+    import numpy as np
+    import torch
+
+    o, d, tmin, tmax, exclude = rays
+    if perm is not None:
+        inv = np.argsort(perm)
+        exclude = np.where(exclude >= 0, inv[np.clip(exclude, 0, len(perm) - 1)], -1).astype(np.int32)
+    t = lambda a: torch.tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731
+    return dict(o=tuple(t(o[:, k]) for k in range(3)), d=tuple(t(d[:, k]) for k in range(3)), tmin=t(tmin),
+                tmax=t(tmax), exclude=t(exclude))
+
+
+def phase_grazing(dev):
+    """The box tests' rounding edge on the card (scene/grazing.py): the
+    grazing soup (rays at the shared vertices and edges of a coplanar grid
+    and at coplanar overlaps) and the coplanar grids of PLANE_CASES, through
+    K2/K3 as check_intersect holds them (0 lanes off the other schedule
+    and the plain walks; 0 lanes off the dense versions and cull=False
+    inside the margin's domain) and through K5 on a BVH of the same
+    triangles (check_k5: 0 lanes off its plain version; 0 off the dense
+    sweep inside the domain). PLANE_CASES aim rays down to a sine of 1e-4
+    to the plane, past the domain (a normalised determinant of
+    ops/slab.py:NU_MIN): the lanes whose hits lie outside it are counted
+    and printed with how many of them differ, and are not held."""
+    from strelka_tpu_torch.render.device_scene import RAY_MASK_PRIMARY, RAY_MASK_SHADOW
+    from strelka_tpu_torch.scene import grazing as G
+
+    cases = [("grazing soup", G.soup_case("grazing", 2))]
+    cases += [(f"plane case {k}", G.plane_case(*c, n=8192)) for k, c in enumerate(PLANE_CASES)]
+    for name, (tris, rays) in cases:
+        flat, tree, perm = grazing_scene(tris, dev)
+        masks = ((RAY_MASK_PRIMARY, "primary"), (RAY_MASK_SHADOW, "shadow")) if name == "grazing soup" else (
+            (RAY_MASK_PRIMARY, "primary"),)  # the planes' triangles all have mask 1: both masks take the same
+        for mask, label in masks:
+            check_intersect(flat, grazing_rays(rays, dev), mask, f"{name}, {label} mask", domain=True)
+            check_k5(tree, grazing_rays(rays, dev, perm), mask, f"{name}, {label} mask", domain=True)
+
+
 def phase_kernels(scene, params):
     import torch
 
@@ -609,6 +740,9 @@ def phase_kernels(scene, params):
 
     # ---- K4: the attr table at the camera hits (2^20 indices), bit-equal
     rows.append(gather_row(scene.attr_table, prims, "cornell attr_table at the camera hits"))
+
+    # ---- K2/K3 (and K5) at the box tests' rounding edge
+    phase_grazing(dev)
     return rows
 
 
@@ -770,95 +904,172 @@ def phase_main_path(scene, host, cfg: Config):
 # ---------------------------------------------------------------------------
 
 
-def check_bvh_vs_plain(scene, rays, ray_mask, name, any_hit: bool):
-    """K5 (or K6) against the plain traversal on one ray set: the same walk
-    and arithmetic, so prim, t, u and v must be EQUAL (t, u, v bit for bit).
-    Returns (args, the plain walk's TraversalCounts, plain ms)."""
+def check_k5(scene, rays, ray_mask, name, domain: bool = False):
+    """K5 on one ray set against its three oracles, on every lane:
+    1. its plain version (ops/bvh.py:intersect_bvh_ordered_plain, the same
+       near-to-far walk): t, prim, u, v bit for bit, and the per-ray counts
+       of child boxes and triangles tested equal;
+    2. the dense sweep, K2 cull=False over the same leaf-ordered triangles:
+       t, prim, u, v bit for bit;
+    3. the reference's DFS walk (ops/bvh.py:intersect_bvh_plain, which K6
+       runs): every lane where K5 differs from it is a lane where that walk
+       differs from the dense sweep (the count is printed).
+    The main path's instance (stats=False) must equal the one held here
+    (stats=True) bit for bit. With `domain`, oracles 2 and 3 hold on every
+    lane inside the margin's domain (outside_domain), and the lanes outside
+    it are counted and printed with how many of them differ.
+    Returns a dict: args, K5's per-ray counters, the DFS walk's
+    TraversalCounts, the plain version's ms (one call)."""
+    import torch
+
+    from strelka_tpu_torch.kernels import bvh as KB
+    from strelka_tpu_torch.kernels import intersect as KI
+    from strelka_tpu_torch.ops.bvh import intersect_bvh_plain
+
+    args = bvh_args(scene, rays, ray_mask)
+    k5 = held(lambda: KB.bvh_closest(*args, stats=True))
+    main = held(lambda: KB.bvh_closest(*args))
+    plain, plain_ms = timed_once_ms(lambda: KB.closest_plain(*args, counts=True))
+    flat = flat_args(scene, rays, ray_mask)
+    dense = KI.intersect_closest(*flat, cull=False)
+    dfs = intersect_bvh_plain(*args, counts=True)
+    torch.cuda.synchronize()
+    off_main = closest_off(main, k5)
+    off_plain = closest_off(k5, plain)
+    counts_off = int(((k5[4] != plain[4].nodes) | (k5[5] != plain[4].tris)).sum())
+    outside = outside_domain(flat, dense[1])[0] if domain else torch.zeros_like(dense[1], dtype=torch.bool)
+    k5_off_dense = closest_lanes(k5, dense)
+    off_dense = int((k5_off_dense & ~outside).sum())
+    dfs_off_dense = (dfs[1] != dense[1]) | same_bits(dfs[0], dense[0])
+    k5_off_dfs = (k5[1] != dfs[1]) | same_bits(k5[0], dfs[0])
+    unexplained = int((k5_off_dfs & ~dfs_off_dense & ~outside).sum())
+    live = max(int((args[3] > args[2]).sum()), 1)
+    note = f"; lanes {domain_note(k5_off_dense, outside, 'K5')} (held inside the domain only)" if domain else ""
+    log(f"K5 on {name} rays ({k5[1].shape[0]}, {live} live, {int((k5[1] >= 0).sum())} hits): the main path's "
+        f"instance off the stats one on {off_main} lanes; lanes off its plain version {off_plain} (t, prim, u, v bit "
+        f"for bit), per-ray box and triangle counts off {counts_off}; off the dense sweep (K2 cull=False) "
+        f"{off_dense}; off the DFS walk {int(k5_off_dfs.sum())}, of them where that walk keeps the dense hit "
+        f"{unexplained} (bar: 0 for all five); the DFS walk off the dense sweep {int(dfs_off_dense.sum())}; a live "
+        f"ray tests {float(k5[4].sum()) / live:.2f} boxes and {float(k5[5].sum()) / live:.2f} triangles (DFS walk "
+        f"{dfs[4].nodes_visited / live:.2f} and {dfs[4].tri_tests / live:.2f}); plain {plain_ms:.0f} ms{note}")
+    if off_main or off_plain or counts_off or off_dense or unexplained:
+        raise AssertionError(f"K5 on {name} rays: {off_main} lanes off between its two instances, {off_plain} off "
+                             f"its plain version, {counts_off} counts off, {off_dense} off the dense sweep, "
+                             f"{unexplained} off the DFS walk where it is right")
+    return dict(args=args, prim=k5[1], nodes=k5[4], tris=k5[5], dfs=dfs[4], plain_ms=plain_ms,
+                dfs_off_dense=int(dfs_off_dense.sum()), k5_off_dfs=int(k5_off_dfs.sum()))
+
+
+def check_bvh_vs_plain(scene, rays, ray_mask, name):
+    """K6 against the plain traversal on one ray set: the same walk and
+    arithmetic, so occlusion must be EQUAL. Returns (args, the plain walk's
+    TraversalCounts, plain ms)."""
     import torch
 
     from strelka_tpu_torch.kernels import bvh as KB
     from strelka_tpu_torch.ops.bvh import intersect_bvh_plain
 
     args = bvh_args(scene, rays, ray_mask)
-    label = "bvh_any" if any_hit else "bvh_closest"
-    out_p, plain_ms = timed_once_ms(
-        lambda: intersect_bvh_plain(*args, any_hit=any_hit, counts=True, name=label))
-    t_p, p_p, u_p, v_p, walk = out_p
-    if any_hit:
-        occ = held(lambda: KB.bvh_any(*args))
-        torch.cuda.synchronize()
-        bad = int((occ != (p_p >= 0)).sum())
-        if bad:
-            raise AssertionError(f"K6 on {name}: {bad} occlusion results differ from the plain traversal")
-        log(f"K6 on {name} rays ({occ.shape[0]}): occlusion equal to the plain traversal ({int(occ.sum())} "
-            f"occluded; tolerance: none); plain walk {walk.steps} steps, {plain_ms:.0f} ms")
-    else:
-        t_k, p_k, u_k, v_k = held(lambda: KB.bvh_closest(*args))
-        torch.cuda.synchronize()
-        bad = int((p_k != p_p).sum())
-        bits = int(sum((a.view(torch.int32) != b.view(torch.int32)).sum()
-                       for a, b in ((t_k, t_p), (u_k, u_p), (v_k, v_p))))
-        if bad or bits:
-            raise AssertionError(f"K5 on {name}: {bad} prims and {bits} values of t, u, v differ from the "
-                                 "plain traversal")
-        log(f"K5 on {name} rays ({p_k.shape[0]}): prim, t, u, v equal to the plain traversal bit for bit "
-            f"({int((p_k >= 0).sum())} hits; tolerance: none); plain walk {walk.steps} steps, {plain_ms:.0f} ms")
+    out_p, plain_ms = timed_once_ms(lambda: intersect_bvh_plain(*args, any_hit=True, counts=True, name="bvh_any"))
+    p_p, walk = out_p[1], out_p[4]
+    occ = held(lambda: KB.bvh_any(*args))
+    torch.cuda.synchronize()
+    bad = int((occ != (p_p >= 0)).sum())
+    if bad:
+        raise AssertionError(f"K6 on {name}: {bad} occlusion results differ from the plain traversal")
+    log(f"K6 on {name} rays ({occ.shape[0]}): occlusion equal to the plain traversal ({int(occ.sum())} "
+        f"occluded; tolerance: none); plain walk {walk.steps} steps, {plain_ms:.0f} ms")
     return args, walk, plain_ms
 
 
 def check_bvh_vs_bruteforce(scene, rays, ray_mask, name):
-    """K5/K6 against K2/K3 sweeping every triangle of the same (leaf-ordered)
+    """K6 against K3 sweeping every triangle of the same (leaf-ordered)
     arrays (cull=False: the BVH scene has no group boxes): an independent
-    oracle. Bar: hit/miss equal and, where both hit
-    other prims, |dt| <= 1e-5 t (the tie rule); t within 1e-5 relative.
-    A BVH may lose a grazing hit that brute force keeps (a slab test can cull
-    an edge-on triangle), so up to 1e-4 of the lanes may differ, the
-    reference's own bar being 1% of prims (tests/test_bvh.py); the count is
-    printed. Returns the fraction of lanes that differ."""
+    oracle. K6 walks the reference's exact boxes, which may lose a grazing
+    hit that brute force keeps (a slab test can cull an edge-on triangle),
+    so up to 1e-4 of the lanes may differ, the reference's own bar being 1%
+    of prims (tests/test_bvh.py); the count is printed. (K5 is held to the
+    dense sweep on every lane by check_k5.) Returns the fraction of lanes
+    that differ."""
     import torch
 
     from strelka_tpu_torch.kernels import bvh as KB
     from strelka_tpu_torch.kernels import intersect as KI
 
-    fa, ba = flat_args(scene, rays, ray_mask), bvh_args(scene, rays, ray_mask)
-    t_k, p_k, _, _ = KB.bvh_closest(*ba)
-    t_f, p_f, _, _ = KI.intersect_closest(*fa, cull=False)
-    occ_k, occ_f = KB.bvh_any(*ba), KI.intersect_any(*fa, cull=False)
+    occ_k = KB.bvh_any(*bvh_args(scene, rays, ray_mask))
+    occ_f = KI.intersect_any(*flat_args(scene, rays, ray_mask), cull=False)
     torch.cuda.synchronize()
-    n = p_k.shape[0]
-    hit_miss = int(((p_k >= 0) != (p_f >= 0)).sum())
-    bad, ties, rel = closest_mismatch(t_k, p_k, t_f, p_f)
+    n = occ_k.shape[0]
     bad_occ = int((occ_k != occ_f).sum())
-    log(f"K5/K6 vs brute force (K2/K3 over {scene.v0.shape[0]} triangles) on {name} rays ({n}): closest differs "
-        f"on {bad} lanes beyond ties ({hit_miss} of them hit against miss), {ties} ties, max rel t diff {rel:.3g} "
-        f"(limit 1e-5); occlusion differs on {bad_occ} lanes (bar: at most {1e-4 * n:.0f} lanes each)")
-    if bad > 1e-4 * n or bad_occ > 1e-4 * n or rel > 1e-5:
-        raise AssertionError(f"K5/K6 disagree with brute force on {name} rays")
-    return max(bad, bad_occ) / n
+    log(f"K6 vs brute force (K3 over {scene.v0.shape[0]} triangles) on {name} rays ({n}): occlusion differs on "
+        f"{bad_occ} lanes (bar: at most {1e-4 * n:.0f})")
+    if bad_occ > 1e-4 * n:
+        raise AssertionError(f"K6 disagrees with brute force on {name} rays")
+    return bad_occ / n
 
 
-def bvh_rows(scene, sets, where: str):
-    """K5/K6 rows: times on the bounce-1 (K5) and shadow (K6) rays, and the
-    bound from what these rays need: the nodes whose box overlaps
-    [tmin, final t] and the triangles of such leaves that pass mask and
-    exclude (K6: up to the first occluder in the kernel's order). The
-    operations count every such visit; the bytes count each such node row
-    (32 bytes) and triangle (40) once, whatever the number of rays that
-    need it, and the rays as `ray_bytes` does."""
+def kernel_resources(report: str, needle: str) -> dict:
+    """Registers, stack frame (local memory) and spills a thread of the first
+    compiled kernel whose name holds `needle`, from build.ptxas_report()."""
+    import re
+
+    out, fn = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)'?", line)
+        if m:
+            fn = m.group(1)
+            continue
+        if fn is None or needle not in fn or out.get("registers") is not None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.update(stack_frame_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out["registers"] = int(m.group(1))
+    return out
+
+
+def bvh_rows(scene, b1, sh, where: str):
+    """K5/K6 rows: times on the bounce-1 (K5, a check_k5 result) and shadow
+    (K6, a check_bvh_vs_plain result) rays, and the bound from what these
+    rays need: the nodes whose box overlaps [tmin, final t] and the
+    triangles of such leaves that pass mask and exclude (K6: up to the first
+    occluder in the kernel's order). The operations count every such visit
+    at the reference's slab test (the margin's operations are the kernel's
+    overhead, not the function's work); the bytes count
+    each such node row (32 bytes) and triangle (40) once, whatever the
+    layout a kernel reads and the number of rays that need it, and the
+    rays as `ray_bytes` does. K5's row has its own walk's counts (boxes and
+    triangles tested a live ray, from its per-ray counters, equal to its
+    plain version's), the DFS walk's beside them, its stack depth and its
+    registers and local memory a thread."""
+    import torch
+
     from strelka_tpu_torch.kernels import bvh as KB
+    from strelka_tpu_torch.kernels import build
     from strelka_tpu_torch.kernels.intersect import MT_FLOPS
-    from strelka_tpu_torch.ops.bvh import SLAB_FLOPS, intersect_bvh_plain
+    from strelka_tpu_torch.ops.bvh import SLAB_FLOPS, STACK, intersect_bvh_plain
 
-    (b1_args, b1_walk, b1_plain_ms), (sh_args, sh_walk, sh_plain_ms) = sets
+    b1_args, b1_walk = b1["args"], b1["dfs"]
+    sh_args, sh_walk, sh_plain_ms = sh
     n = b1_args[2].shape[0]
     live_b1 = int((b1_args[3] > b1_args[2]).sum())
     live_sh = int((sh_args[3] > sh_args[2]).sum())
-    t_final = KB.bvh_closest(*b1_args)[0]
+    t_final, p_final = KB.bvh_closest(*b1_args)[:2]
     ideal = intersect_bvh_plain(*b1_args, prime_t=t_final, counts=True)[4]
-    log(f"K5 on the bounce-1 rays ({live_b1} live of {n}): the kernel's order visits "
-        f"{b1_walk.nodes_visited / live_b1:.1f} nodes and tests {b1_walk.tri_tests / live_b1:.2f} triangles a "
-        f"live ray; given the final t a ray needs {ideal.nodes_overlapped / live_b1:.1f} nodes "
-        f"(boxes overlapping [tmin, t]) and {ideal.tri_tests / live_b1:.2f} triangles")
+    # K5's own walk given the final t from the start (tmax cut to it): the boxes its layout makes a ray test
+    cut = torch.where(p_final >= 0, torch.minimum(t_final, b1_args[3]), b1_args[3])
+    primed = float(KB.closest_plain(*b1_args[:3], cut, *b1_args[4:], counts=True)[4].nodes.sum()) / live_b1
+    nodes_k5, tris_k5 = float(b1["nodes"].sum()) / live_b1, float(b1["tris"].sum()) / live_b1
+    res = kernel_resources(build.ptxas_report(), "bvh_closest_kernelILb0E")
+    log(f"K5 on the bounce-1 rays ({live_b1} live of {n}): its near-to-far walk tests {nodes_k5:.1f} boxes and "
+        f"{tris_k5:.2f} triangles a live ray (the DFS walk of K6 and the reference: "
+        f"{b1_walk.nodes_visited / live_b1:.1f} and {b1_walk.tri_tests / live_b1:.2f}); given the final t a ray needs "
+        f"{ideal.nodes_overlapped / live_b1:.1f} nodes (boxes overlapping [tmin, t]) and "
+        f"{ideal.tri_tests / live_b1:.2f} triangles, and K5's walk given it from the start tests {primed:.1f} boxes; "
+        f"stack {scene.bvh.depth} of {STACK} entries deep; {res}")
     log(f"K6 on the shadow rays ({live_sh} live of {n}): the kernel's order visits "
         f"{sh_walk.nodes_visited / max(live_sh, 1):.1f} nodes and tests "
         f"{sh_walk.tri_tests / max(live_sh, 1):.2f} triangles a live ray, "
@@ -870,12 +1081,16 @@ def bvh_rows(scene, sets, where: str):
         dict(
             kernel="bvh_closest", at=where + ", bounce-1 rays", shape=shape,
             ms=time_ms(lambda: KB.bvh_closest(*b1_args), samples=10, inner=3),
-            plain_ms=b1_plain_ms,
+            plain_ms=b1["plain_ms"],
             bound_bytes=ray_bytes(*b1_args[2:5], 16) + ideal.nodes_touched * 32 + ideal.tris_touched * 40,
             bound_ops_s=(ideal.nodes_overlapped * SLAB_FLOPS + ideal.tri_tests * MT_FLOPS) / F32_OPS_PER_S,
             max_abs_err=0.0, library_ms=None,
-            nodes_per_ray=b1_walk.nodes_visited / live_b1, ideal_nodes_per_ray=ideal.nodes_overlapped / live_b1,
-            tris_per_ray=b1_walk.tri_tests / live_b1, ideal_tris_per_ray=ideal.tri_tests / live_b1,
+            nodes_per_ray=nodes_k5, ideal_nodes_per_ray=ideal.nodes_overlapped / live_b1,
+            dfs_nodes_per_ray=b1_walk.nodes_visited / live_b1, primed_nodes_per_ray=primed,
+            tris_per_ray=tris_k5, ideal_tris_per_ray=ideal.tri_tests / live_b1,
+            dfs_tris_per_ray=b1_walk.tri_tests / live_b1,
+            stack_depth=scene.bvh.depth, stack_entries=STACK, registers=res.get("registers"),
+            local_bytes=res.get("stack_frame_bytes"), spill_bytes=res.get("spill_store_bytes"),
             live_rays=live_b1, nodes_needed=ideal.nodes_touched, tris_needed=ideal.tris_touched,
         ),
         dict(
@@ -893,6 +1108,71 @@ def bvh_rows(scene, sets, where: str):
         ),
     ]
     return rows
+
+
+def bvh_tie_table(scene):
+    """A BVH scene's triangles twice over in a tree whose root has two halves
+    with equal boxes (scene/grazing.py:twin_tree): the left half over the
+    copies (the higher ids), the right over the originals. Every hit has a
+    twin at equal t; K5 meets the higher id first and only the rule "equal t,
+    the lower id" gives the dense sweep's answer."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from strelka_tpu_torch.ops.bvh import device_bvh
+    from strelka_tpu_torch.scene import grazing as G
+
+    b = scene.bvh
+    threaded = tuple(x.cpu().numpy() for x in (b.bb_min, b.bb_max, b.skip, b.start, b.count))
+    ntri = scene.v0.shape[0]
+    tables = [torch.cat([a, a]).contiguous() for a in (scene.v0, scene.e1, scene.e2, scene.geom_mask)]
+    tree = device_bvh(G.twin_tree(tuple(np.asarray(a) for a in threaded), ntri), scene.device)
+    return types.SimpleNamespace(v0=tables[0], e1=tables[1], e2=tables[2], geom_mask=tables[3], bvh=tree,
+                                 device=scene.device)
+
+
+def leaf_boxes(bvh, ntri: int):
+    """Each triangle's leaf box in a tree -> [8, ntri] f32 (lo xyz, hi xyz, 0, 0)."""
+    import torch
+
+    leaves = torch.nonzero(bvh.count > 0)[:, 0]
+    boxes = torch.zeros((8, ntri), dtype=torch.float32, device=bvh.nodes.device)
+    for k in range(4):
+        at = leaves[bvh.count[leaves] > k]
+        prim = (bvh.start[at] + k).long()
+        boxes[0:3, prim] = bvh.bb_min[at].T
+        boxes[3:6, prim] = bvh.bb_max[at].T
+    return boxes
+
+
+def check_bvh_ties(scene, camera, name):
+    """K5 on the tie table of a BVH scene (bvh_tie_table) against its three
+    oracles (check_k5), on the camera rays, and on the same rays with tmax
+    cut to the lowered tnear of their hit's leaf box (an interval that ends
+    where a box begins: no triangle hits, and the walk meets that leaf's
+    twin with best t equal to its tnear, which the strict pop still takes:
+    the per-ray counters show it)."""
+    import torch
+
+    from strelka_tpu_torch.ops import slab
+    from strelka_tpu_torch.render.device_scene import RAY_MASK_PRIMARY
+
+    ties = bvh_tie_table(scene)
+    rays = dict(camera)
+    rays["exclude"] = torch.full_like(camera["exclude"], -1)  # a ray's own prim would have a twin
+    chk = check_k5(ties, rays, RAY_MASK_PRIMARY, f"{name} tie table")
+    prim = chk["prim"]
+    hit = prim >= 0
+    o, d = _contig(rays)
+    box = leaf_boxes(ties.bvh, ties.v0.shape[0])[:, prim.clamp(min=0).long()][:, :, None]  # [8, N, 1]
+    tn_leaf = slab.slab_tnear(o, d, rays["tmin"], rays["tmax"], box)[:, 0]
+    cut = dict(rays, tmax=torch.where(hit & (tn_leaf < float("inf")), tn_leaf, 0.0).contiguous())
+    check_k5(ties, cut, RAY_MASK_PRIMARY, f"{name} tie table, tmax at the lowered tnear of the hit's leaf box")
+    if chk["dfs_off_dense"] == 0:
+        raise AssertionError(f"the {name} tie table made no tie the DFS walk loses")
+    return chk
 
 
 def phase_flat_scene(dev):
@@ -914,7 +1194,8 @@ def phase_flat_scene(dev):
         raise AssertionError("use_bvh=False must keep the scene flat and the default must build a BVH")
     ntri = flat.v0.shape[0]
     log(f"box_field(grid={FLAT_GRID}): {flat.num_triangles} triangles ({ntri} padded), BVH of "
-        f"{tree.bvh.num_nodes} nodes ({tree.bvh.builder} builder, {tree.bvh.build_seconds:.2f} s)")
+        f"{tree.bvh.num_nodes} nodes ({tree.bvh.builder} builder, {tree.bvh.build_seconds:.2f} s), "
+        f"{tree.bvh.depth} internal nodes deep")
     params = launch_params(host, BOX.width, BOX.height, 0)
 
     # ---- K2/K3 at 25,732 triangles, on the flat scene's own rays (2^19 lanes)
@@ -927,15 +1208,17 @@ def phase_flat_scene(dev):
     rows = intersect_rows(flat, b1, ((sh, "shadow"),), where)
     finish_bounds(rows)
 
-    # ---- K5/K6 on the BVH build of the same scene, against the plain
-    # traversal and against K2/K3 over its leaf-ordered triangles
+    # ---- K5/K6 on the BVH build of the same scene: K5 against its three
+    # oracles, K6 against the plain traversal and K3 over its leaf-ordered
+    # triangles; K5 on the tie table of this tree
     _, camera, bounce1, shadow, _, _, _ = main_path_rays(tree, params, dev, BOX)
-    differ = 0.0
-    for rays, mask, name, any_hit in ((camera, RAY_MASK_PRIMARY, "grid-12 camera", False),
-                                      (bounce1, RAY_MASK_PRIMARY, "grid-12 bounce-1", False),
-                                      (shadow, RAY_MASK_SHADOW, "grid-12 shadow", True)):
-        check_bvh_vs_plain(tree, rays, mask, name, any_hit)
-        differ = max(differ, check_bvh_vs_bruteforce(tree, rays, mask, name))
+    check_k5(tree, camera, RAY_MASK_PRIMARY, "grid-12 camera")
+    check_k5(tree, bounce1, RAY_MASK_PRIMARY, "grid-12 bounce-1")
+    check_bvh_vs_plain(tree, shadow, RAY_MASK_SHADOW, "grid-12 shadow")
+    differ = max(check_bvh_vs_bruteforce(tree, r, mask, f"grid-12 {label}") for r, mask, label in (
+        (camera, RAY_MASK_PRIMARY, "camera"), (bounce1, RAY_MASK_PRIMARY, "bounce-1"),
+        (shadow, RAY_MASK_SHADOW, "shadow")))
+    check_bvh_ties(tree, camera, "grid-12")
 
     # ---- the two golden-config renders
     K.reset_counts()
@@ -957,7 +1240,7 @@ def phase_flat_scene(dev):
         raise AssertionError("the flat and the BVH render of box_field(grid=12) disagree")
     result = dict(triangles=flat.num_triangles, padded_triangles=ntri, rays=n, kernels=rows,
                   launches_golden_render={k: flat_counts[k] for k in ("intersect_closest", "intersect_any")},
-                  bvh_vs_bruteforce_lanes_differing_frac=differ,
+                  bvh_any_vs_bruteforce_lanes_differing_frac=differ,
                   render_max_abs_diff=float(diff.max()), render_pixels_differing=differing, render_ssim=s)
     return result
 
@@ -967,21 +1250,22 @@ def phase_box_kernels(scene, params):
     gives it: K1 on its 2^19 sample indices, K5/K6 on 2^19 lanes a bounce
     against 411,652 triangles, K4 on its two tables (the attr table at the
     hits, the light table at the sampled light ids)."""
+    from strelka_tpu_torch.ops.bvh import STACK
     from strelka_tpu_torch.render.device_scene import RAY_MASK_PRIMARY, RAY_MASK_SHADOW
 
     dev = scene.device
     where = f"box_field(grid={BOX_GRID}) 2^19 lanes x {scene.v0.shape[0]} triangles"
     sample_idx, camera, bounce1, shadow, prims, lid, _ = main_path_rays(scene, params, dev, BOX)
     rows = sobol_rows(sample_idx, BOX, "box_field")
-    check_bvh_vs_plain(scene, camera, RAY_MASK_PRIMARY, "box_field camera", False)
-    b1 = check_bvh_vs_plain(scene, bounce1, RAY_MASK_PRIMARY, "box_field bounce-1", False)
-    sh = check_bvh_vs_plain(scene, shadow, RAY_MASK_SHADOW, "box_field shadow", True)
-    differ = 0.0
-    for rays, mask, name in ((camera, RAY_MASK_PRIMARY, "box_field camera"),
-                             (bounce1, RAY_MASK_PRIMARY, "box_field bounce-1"),
-                             (shadow, RAY_MASK_SHADOW, "box_field shadow")):
-        differ = max(differ, check_bvh_vs_bruteforce(scene, rays, mask, name))
-    rows += bvh_rows(scene, (b1, sh), where)
+    log(f"box_field(grid={BOX_GRID}): tree {scene.bvh.depth} internal nodes deep (K5's stack holds {STACK}), "
+        f"{scene.bvh.children.shape[0]} rows of its child table")
+    check_k5(scene, camera, RAY_MASK_PRIMARY, "box_field camera")
+    b1 = check_k5(scene, bounce1, RAY_MASK_PRIMARY, "box_field bounce-1")
+    sh = check_bvh_vs_plain(scene, shadow, RAY_MASK_SHADOW, "box_field shadow")
+    differ = max(check_bvh_vs_bruteforce(scene, r, mask, f"box_field {label}") for r, mask, label in (
+        (camera, RAY_MASK_PRIMARY, "camera"), (bounce1, RAY_MASK_PRIMARY, "bounce-1"),
+        (shadow, RAY_MASK_SHADOW, "shadow")))
+    rows += bvh_rows(scene, b1, sh, where)
     rows.append(gather_row(scene.attr_table, prims, "box_field attr_table at the camera hits"))
     rows.append(gather_row(scene.light_table, lid, "box_field light_table at the sampled light ids"))
     finish_bounds(rows)
@@ -1002,7 +1286,7 @@ def cone_args(scene, rays):
 def check_open_w(pc, o, d, tmin, tmax, t_closest, name):
     """K9 against its plain version on one ray set, at the tile the cone
     sweeps use: W equal and min_tn bit for bit without the open flag (the
-    main path's call), and the open flag too with each tile's OPEN_K nearest
+    main path's call), and with the open flag too, each tile's OPEN_K nearest
     superblocks taken as swept and the closest sweep's t as the bound (the
     reference's use after phase 1). Returns (plain ms, mean superblocks a
     tile passes)."""
@@ -1362,7 +1646,7 @@ def main() -> int:
     # ---- 7. results
     print(json.dumps({"main_path": main_cornell, "golden_ssim": ssim_cornell}), flush=True)
     print(json.dumps({"main_path": main_box, "golden_ssim": ssim_box,
-                      "bvh_vs_bruteforce_lanes_differing_frac": box_differ}), flush=True)
+                      "bvh_any_vs_bruteforce_lanes_differing_frac": box_differ}), flush=True)
     print(json.dumps({"flat_scene": {k: v for k, v in flat.items() if k != "kernels"}}), flush=True)
     print_kernel_lines(rows, main_cornell)
     print_kernel_lines(flat["kernels"])
@@ -1392,6 +1676,7 @@ def main() -> int:
             **{f"launches_{m['scene']}": m["launch_counts"][name] for m in mains},
         }
         entry.update({k: mine[0][0][k] for k in numbers})
+        entry.update({k: mine[0][0][k] for k in WALK_KEYS if k in mine[0][0]})
         # plain_lanes: the lanes the plain version ran on, where they are fewer than the kernel's
         entry["shapes"] = [dict(at=r["at"], shape=list(r["shape"]), launches=shape_launches(m, r) if m else 0,
                                 **{k: r[k] for k in numbers},

@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Mutation check of the checks in chip_smoke.py: each mutant a copy of this
+checkout with one deliberate fault, run once.
+
+Run on a machine with one CUDA card, from the root of a checkout:
+
+    python3 scripts/torch_mutations.py [--only NAME ...] [--out DIR]
+
+Each mutant is a copy of the checkout in a fresh temporary directory
+(outside the checkout; build outputs and `build/` left out), with one
+textual change, and runs `chip_smoke.py` there. A mutant is caught when
+chip_smoke.py exits non-zero; the script prints one JSON line
+per mutant (its name, exit code, seconds, and the check that failed: the
+last AssertionError line) and writes each run's output to --out (default
+build/mutations/<name>.log). It exits non-zero if a mutant is not caught or
+a replacement does not apply.
+
+Mutants:
+  k5_no_lower_id  K5 keeps the first hit of equal t (no "equal t, the lower
+                  id" rule): the tie tables must catch it;
+  k5_pop_ge       K5's pop drops an entry whose tnear equals best t: its
+                  results stay right (the margin puts a box's tnear below
+                  every hit in it), so the per-ray counters must catch it
+                  wherever a pushed tnear meets best t (the tie table's cut
+                  rays, tmax at a leaf box's lowered tnear, make such rays);
+  margin_zero     the box test's pad and slack set to 0 in both twins
+                  (csrc/common.cuh and ops/slab.py): the reference's exact
+                  test; the grazing soup must catch it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+MUTANTS = {
+    "k5_no_lower_id": [
+        ("strelka_tpu_torch/csrc/bvh.cu", "(t < best_t || (t == best_t && prim < best_p))", "(t < best_t)"),
+    ],
+    "k5_pop_ge": [
+        ("strelka_tpu_torch/csrc/bvh.cu", "if (!(stack_t[sp] > best_t)) {", "if (!(stack_t[sp] >= best_t)) {"),
+    ],
+    "margin_zero": [
+        ("strelka_tpu_torch/csrc/common.cuh", "kStrelkaPad = 0x1p-13f", "kStrelkaPad = 0.0f"),
+        ("strelka_tpu_torch/csrc/common.cuh", "kStrelkaSlack = 0x1p-20f", "kStrelkaSlack = 0.0f"),
+        ("strelka_tpu_torch/ops/slab.py", "PAD = 2.0 ** -13", "PAD = 0.0"),
+        ("strelka_tpu_torch/ops/slab.py", "SLACK = 2.0 ** -20", "SLACK = 0.0"),
+    ],
+}
+LEFT_OUT = shutil.ignore_patterns("build", "_build", ".git", "__pycache__")
+
+
+def mutant_copy(name: str, root: str) -> str:
+    """A copy of the checkout under `root` with the mutant's replacements applied."""
+    tree = os.path.join(root, name)
+    shutil.copytree(REPO, tree, ignore=LEFT_OUT)
+    for path, old, new in MUTANTS[name]:
+        full = os.path.join(tree, path)
+        with open(full, encoding="utf-8") as f:
+            text = f.read()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: {old!r} is not in {path} exactly once")
+        with open(full, "w", encoding="utf-8") as f:
+            f.write(text.replace(old, new))
+    return tree
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", nargs="*", choices=sorted(MUTANTS), default=sorted(MUTANTS))
+    ap.add_argument("--out", default=os.path.join(REPO, "build", "mutations"))
+    args = ap.parse_args()
+    os.makedirs(args.out, exist_ok=True)
+    missed = 0
+    with tempfile.TemporaryDirectory(prefix="strelka_mutants_") as root:
+        for name in args.only:
+            tree = mutant_copy(name, root)
+            t0 = time.perf_counter()
+            run = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+            with open(os.path.join(args.out, f"{name}.log"), "w") as f:
+                f.write(run.stdout)
+            failed = [line for line in run.stdout.splitlines() if re.match(r"\w*(Assertion|Runtime|Value)Error", line)]
+            caught = run.returncode != 0
+            missed += not caught
+            print(json.dumps(dict(mutant=name, rc=run.returncode, caught=caught,
+                                  seconds=round(time.perf_counter() - t0, 1),
+                                  failed_at=failed[-1] if failed else None)), flush=True)
+            shutil.rmtree(tree, ignore_errors=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    return 1 if missed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

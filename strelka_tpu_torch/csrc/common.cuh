@@ -3,6 +3,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 // Every C entry ends with this: a launch the CUDA runtime refused (too many
@@ -81,5 +82,35 @@ __device__ __forceinline__ bool strelka_ray_tri(float v0x, float v0y, float v0z,
     v = (d0 * q0 + d1 * q1 + d2 * q2) * inv_det;
     t = (e2x * q0 + e2y * q1 + e2z * q2) * inv_det;
     return det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tn && t < tx;
+}
+
+// The port's one ray-box test (plain twin: strelka_tpu_torch/ops/slab.py:
+// slab_tnear, the same operations in the same order). The reference's slab
+// test with a margin that keeps every hit strelka_ray_tri accepts at a
+// normalised determinant >= 0.077 (PERF.md section 6, "The margin,
+// derived"): the box padded by kStrelkaPad * (|o|_inf + |box|_inf) on
+// every side, and tnear lowered by kStrelkaSlack * |tnear| before it is
+// compared with tfar (the interval's end, min(best t, tmax) in a walk). inv: 1 / (|d| > 1e-20 ? d : 1e-20) per
+// axis; om = |o|_inf; bm = strelka_box_scale of the box. Returns the lowered
+// tnear, or INFINITY where the interval does not enter the padded box. The
+// caller rejects inverted boxes (lo > hi).
+constexpr float kStrelkaPad = 0x1p-13f;
+constexpr float kStrelkaSlack = 0x1p-20f;
+
+__device__ __forceinline__ float strelka_box_scale(float lx, float ly, float lz, float hx, float hy, float hz) {
+    return fmaxf(fmaxf(fmaxf(fabsf(lx), fabsf(ly)), fmaxf(fabsf(lz), fabsf(hx))), fmaxf(fabsf(hy), fabsf(hz)));
+}
+
+__device__ __forceinline__ float strelka_slab_safe(float lx, float ly, float lz, float hx, float hy, float hz,
+                                                   float bm, float o0, float o1, float o2, float inv0, float inv1,
+                                                   float inv2, float om, float tn, float tfar) {
+    const float p = (om + bm) * kStrelkaPad;
+    const float x0 = ((lx - p) - o0) * inv0, x1 = ((hx + p) - o0) * inv0;
+    const float y0 = ((ly - p) - o1) * inv1, y1 = ((hy + p) - o1) * inv1;
+    const float z0 = ((lz - p) - o2) * inv2, z1 = ((hz + p) - o2) * inv2;
+    float tnear = fmaxf(fmaxf(fmaxf(tn, fminf(x0, x1)), fminf(y0, y1)), fminf(z0, z1));
+    tfar = fminf(fminf(fminf(tfar, fmaxf(x0, x1)), fmaxf(y0, y1)), fmaxf(z0, z1));
+    tnear = tnear - fabsf(tnear) * kStrelkaSlack;
+    return tnear <= tfar ? tnear : INFINITY;
 }
 #endif

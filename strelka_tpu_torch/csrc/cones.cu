@@ -24,11 +24,11 @@
 //
 // Cull: the cones are Morton-sorted and packed (a.xyz, b.xyz, ra, rb; padding
 // has ra = -1) with a box per 256-cone sub-block and per superblock of 8
-// sub-blocks. A ray slab-tests boxes with the test of
-// pallas_intersect.py:_tile_hits_block taken per ray (inv =
-// 1 / (|d| > 1e-20 ? d : 1e-20), tnear <= tfar with equality, inverted boxes
-// rejected, the far end clipped to the ray's best t for K7) and tests the
-// cones of the sub-blocks it enters. cull = 0 sweeps every cone: the brute
+// sub-blocks. A ray tests boxes with common.cuh:strelka_slab_safe (the slab
+// test of pallas_intersect.py:_tile_hits_block per ray with the port's
+// margin, which keeps a hit the closed form puts just outside its box;
+// inverted boxes rejected, the far end clipped to the ray's best t for K7)
+// and tests the cones of the sub-blocks it enters. cull = 0 sweeps every cone: the brute
 // force the culled sweep is held against.
 //
 // Walks (the order in which a ray meets the boxes; the result is the same,
@@ -114,7 +114,7 @@ struct Cones {
 };
 
 struct Ray {
-    float o0, o1, o2, d0, d1, d2, inv0, inv1, inv2, tn;
+    float o0, o1, o2, d0, d1, d2, inv0, inv1, inv2, om, tn;  // om: |o|_inf, the box test's pad scale
 };
 
 // Where the warp's ray is in its walk; the same in every lane but `sub`.
@@ -129,20 +129,18 @@ struct Walk {
     float sub;             // near to far: lane k < 8 holds sub-block k of sb's tnear, kNone once taken or not entered
 };
 
-// tnear of the ray's interval [tn, tfar] against box j of an [8, count]
-// table, or kNone where the interval does not enter it.
+// The lowered tnear of the ray's interval [tn, tfar] against box j of an
+// [8, count] table (common.cuh:strelka_slab_safe), or kNone where the
+// interval does not enter it or the box is inverted.
 __device__ __forceinline__ float slab_tnear(const float* __restrict__ tbl, int count, int j, const Ray& r,
                                             float tfar) {
     const float* p = tbl + j;
     const float lx = __ldg(p), ly = __ldg(p + count), lz = __ldg(p + 2 * static_cast<long long>(count));
     const float hx = __ldg(p + 3 * static_cast<long long>(count)), hy = __ldg(p + 4 * static_cast<long long>(count)),
                 hz = __ldg(p + 5 * static_cast<long long>(count));
-    const float x0 = (lx - r.o0) * r.inv0, x1 = (hx - r.o0) * r.inv0;
-    const float y0 = (ly - r.o1) * r.inv1, y1 = (hy - r.o1) * r.inv1;
-    const float z0 = (lz - r.o2) * r.inv2, z1 = (hz - r.o2) * r.inv2;
-    const float tnear = fmaxf(fmaxf(fmaxf(r.tn, fminf(x0, x1)), fminf(y0, y1)), fminf(z0, z1));
-    tfar = fminf(fminf(fminf(tfar, fmaxf(x0, x1)), fmaxf(y0, y1)), fmaxf(z0, z1));
-    return tnear <= tfar && lx <= hx ? tnear : kNone;
+    const float tnear = strelka_slab_safe(lx, ly, lz, hx, hy, hz, strelka_box_scale(lx, ly, lz, hx, hy, hz), r.o0,
+                                          r.o1, r.o2, r.inv0, r.inv1, r.inv2, r.om, r.tn, tfar);
+    return lx <= hx && tnear != INFINITY ? tnear : kNone;
 }
 
 // The least (v, at) over the warp, of equal v the least at; in every lane.
@@ -365,6 +363,7 @@ __global__ void __launch_bounds__(kThreads) cone_kernel(StrelkaRays rays, Cones 
         r.inv0 = 1.0f / (fabsf(r.d0) > 1e-20f ? r.d0 : 1e-20f);
         r.inv1 = 1.0f / (fabsf(r.d1) > 1e-20f ? r.d1 : 1e-20f);
         r.inv2 = 1.0f / (fabsf(r.d2) > 1e-20f ? r.d2 : 1e-20f);
+        r.om = fmaxf(fmaxf(fabsf(r.o0), fabsf(r.o1)), fabsf(r.o2));
         const long long tile = cones.order ? i / cones.order_tile : 0;
         Walk w;
         w.list = cones.order ? cones.order + tile * nsb : nullptr;

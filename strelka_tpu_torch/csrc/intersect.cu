@@ -19,15 +19,17 @@
 // holds triangles 32g .. 32g + 31), each with its box (the [8, G] table of
 // kernels/intersect.py:tri_group_bounds, the reference's block_bounds with
 // tblk = 32; padding and mask-0 triangles give inverted boxes). A ray
-// slab-tests the boxes with the test of pallas_intersect.py:_tile_hits_block
-// taken per ray (inv = 1 / (|d| > 1e-20 ? d : 1e-20), tnear <= tfar with
-// equality, inverted boxes rejected) and tests the triangles of the groups
-// its interval enters. cull = 0 takes every group: the sweep the culled one
-// is held against.
+// tests the boxes with common.cuh:strelka_slab_safe (the slab test of
+// pallas_intersect.py:_tile_hits_block per ray, with the margin that keeps
+// every hit Möller–Trumbore accepts inside its group's box; inverted boxes
+// rejected) and tests the triangles of the groups its interval enters, so
+// the result is the dense sweep's on every lane. cull = 0 takes every group:
+// the sweep the culled one is held against.
 //
 // Bound on the H100: f32 operations, 46 per ray-triangle test, over the
 // triangles of the groups a ray's final interval enters, and 24 per slab
-// test; rays and triangles are a few MB at most. The dense sweep issued 94
+// test (the margin's 21 more are the kernel's overhead, not the function's
+// work); rays and triangles are a few MB at most. The dense sweep issued 94
 // instructions a test (the operations, 10 shared-memory loads, compares and
 // branches) for every triangle: culling is what cuts the work, since the
 // arithmetic has to stay as it is.
@@ -72,7 +74,7 @@ constexpr float kNone = INFINITY;  // "not entered": above any best t
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Ray {
-    float o0, o1, o2, d0, d1, d2, inv0, inv1, inv2, tn, tx;
+    float o0, o1, o2, d0, d1, d2, inv0, inv1, inv2, om, tn, tx;  // om: |o|_inf, the box test's pad scale
     int ex;
 };
 
@@ -85,20 +87,19 @@ __device__ __forceinline__ Ray load_ray(const StrelkaRays& rays, long long i, fl
     r.inv0 = 1.0f / (fabsf(r.d0) > 1e-20f ? r.d0 : 1e-20f);
     r.inv1 = 1.0f / (fabsf(r.d1) > 1e-20f ? r.d1 : 1e-20f);
     r.inv2 = 1.0f / (fabsf(r.d2) > 1e-20f ? r.d2 : 1e-20f);
+    r.om = fmaxf(fmaxf(fabsf(r.o0), fabsf(r.o1)), fabsf(r.o2));
     r.ex = rays.exclude ? rays.exclude[i] : -1;
     return r;
 }
 
-// tnear of the ray's interval [tn, tfar] against a box, or kNone where the
-// interval does not enter it (_tile_hits_block per ray).
+// The lowered tnear of the ray's interval [tn, tfar] against a box, or
+// kNone where the interval does not enter it or the box is inverted
+// (common.cuh:strelka_slab_safe).
 __device__ __forceinline__ float slab_tnear(float lx, float ly, float lz, float hx, float hy, float hz, const Ray& r,
                                             float tfar) {
-    const float x0 = (lx - r.o0) * r.inv0, x1 = (hx - r.o0) * r.inv0;
-    const float y0 = (ly - r.o1) * r.inv1, y1 = (hy - r.o1) * r.inv1;
-    const float z0 = (lz - r.o2) * r.inv2, z1 = (hz - r.o2) * r.inv2;
-    const float tnear = fmaxf(fmaxf(fmaxf(r.tn, fminf(x0, x1)), fminf(y0, y1)), fminf(z0, z1));
-    tfar = fminf(fminf(fminf(tfar, fmaxf(x0, x1)), fmaxf(y0, y1)), fmaxf(z0, z1));
-    return tnear <= tfar && lx <= hx ? tnear : kNone;
+    const float tnear = strelka_slab_safe(lx, ly, lz, hx, hy, hz, strelka_box_scale(lx, ly, lz, hx, hy, hz), r.o0,
+                                          r.o1, r.o2, r.inv0, r.inv1, r.inv2, r.om, r.tn, tfar);
+    return lx <= hx ? tnear : kNone;
 }
 
 // Group g's box from the [8, ngroups] table.
@@ -143,6 +144,7 @@ __device__ __forceinline__ Ray shfl_ray(const Ray& mine, int src) {
     r.d2 = __shfl_sync(kFull, mine.d2, src);
     r.inv0 = __shfl_sync(kFull, mine.inv0, src); r.inv1 = __shfl_sync(kFull, mine.inv1, src);
     r.inv2 = __shfl_sync(kFull, mine.inv2, src);
+    r.om = __shfl_sync(kFull, mine.om, src);
     r.tn = __shfl_sync(kFull, mine.tn, src); r.tx = __shfl_sync(kFull, mine.tx, src);
     r.ex = __shfl_sync(kFull, mine.ex, src);
     return r;

@@ -3,12 +3,14 @@
 // Replaces strelka_tpu/ops/pallas_intersect.py:pallas_open_w. Rays go in
 // tiles of `tile` consecutive lanes; each ray has the interval
 // [tmin, bound]. Against every superblock box sb ([8, nsb]: lo.xyz, hi.xyz)
-// a ray passes when
-//     tnear <= tfar  and  tnear < bound  and  lo <= hi on all three axes,
-// with tnear = max(tmin, entry distances) and tfar = min(bound, exit
-// distances) from inv = 1 / (|d| > 1e-20 ? d : 1e-20), t = (box - o) * inv
-// (built with -fmad=false: the difference and the product each round, as in
+// a ray passes when the port's box test (common.cuh:strelka_slab_safe, the
+// reference's slab test with a margin) enters the padded box, tnear < bound,
+// tmin < bound and lo <= hi on all three axes, tnear being the test's
+// lowered tnear (built with -fmad=false: every operation rounds once, as in
 // the plain PyTorch version strelka_tpu_torch/kernels/open_w.py:open_w_plain).
+// The padded box holds every cone hit in the box, so a tile's list leaves out
+// no superblock a ray's hit lies in (kernels/open_w.py:sweep_order, the cone
+// sweeps' order).
 // Outputs:
 //   W      [n_tiles, nsb] bool  does any ray of the tile pass the box?
 //   min_tn [n_tiles, nsb] f32   the least tnear over the tile's passing rays,
@@ -16,7 +18,7 @@
 //   open   [n]            bool  does the ray pass a box that the tile has not
 //                               swept yet, d2[tile, sb] >= r2t[tile]? (all
 //                               false when d2 and r2t are null)
-// A lane with bound <= tmin passes nothing (tnear >= tmin >= bound).
+// A lane with bound <= tmin passes nothing.
 //
 // Bound on the H100: f32 operations, 26 a (ray, box) pair (6 differences,
 // 6 products, 6 minima and maxima of the pairs, 6 folds into tnear and tfar,
@@ -46,7 +48,7 @@ __global__ void open_w_kernel(StrelkaRays rays, const float* __restrict__ sb, in
     const long long i = static_cast<long long>(tile) * blockDim.x + threadIdx.x;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
     // a lane past the end is dead: it votes with the others and passes nothing
-    float tn = 0.0f, bound = 0.0f, o0 = 0.0f, o1 = 0.0f, o2 = 0.0f, inv0 = 1.0f, inv1 = 1.0f, inv2 = 1.0f;
+    float tn = 0.0f, bound = 0.0f, o0 = 0.0f, o1 = 0.0f, o2 = 0.0f, inv0 = 1.0f, inv1 = 1.0f, inv2 = 1.0f, om = 0.0f;
     if (i < n) {
         tn = rays.tmin[i];
         bound = rays.tmax[i];
@@ -55,6 +57,7 @@ __global__ void open_w_kernel(StrelkaRays rays, const float* __restrict__ sb, in
         inv0 = 1.0f / (fabsf(d0) > 1e-20f ? d0 : 1e-20f);
         inv1 = 1.0f / (fabsf(d1) > 1e-20f ? d1 : 1e-20f);
         inv2 = 1.0f / (fabsf(dz) > 1e-20f ? dz : 1e-20f);
+        om = fmaxf(fmaxf(fabsf(o0), fabsf(o1)), fabsf(o2));
     }
     const float r2 = r2t ? r2t[tile] : 0.0f;
     const float* __restrict__ d2_row = d2 ? d2 + static_cast<long long>(tile) * nsb : nullptr;
@@ -69,12 +72,9 @@ __global__ void open_w_kernel(StrelkaRays rays, const float* __restrict__ sb, in
         for (int j = 0; j < m; ++j) {
             const float lx = s_box[0][j], ly = s_box[1][j], lz = s_box[2][j];
             const float hx = s_box[3][j], hy = s_box[4][j], hz = s_box[5][j];
-            const float x0 = (lx - o0) * inv0, x1 = (hx - o0) * inv0;
-            const float y0 = (ly - o1) * inv1, y1 = (hy - o1) * inv1;
-            const float z0 = (lz - o2) * inv2, z1 = (hz - o2) * inv2;
-            const float tnear = fmaxf(fmaxf(fmaxf(tn, fminf(x0, x1)), fminf(y0, y1)), fminf(z0, z1));
-            const float tfar = fminf(fminf(fminf(bound, fmaxf(x0, x1)), fmaxf(y0, y1)), fmaxf(z0, z1));
-            const bool pass = tnear <= tfar && tnear < bound && lx <= hx && ly <= hy && lz <= hz;
+            const float tnear = strelka_slab_safe(lx, ly, lz, hx, hy, hz, strelka_box_scale(lx, ly, lz, hx, hy, hz),
+                                                  o0, o1, o2, inv0, inv1, inv2, om, tn, bound);
+            const bool pass = tnear != INFINITY && tnear < bound && tn < bound && lx <= hx && ly <= hy && lz <= hz;
             const unsigned vote = __ballot_sync(0xffffffffu, pass);
             float mn = kBig;
             if (vote) {  // the same for every lane of the warp

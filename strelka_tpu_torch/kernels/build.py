@@ -50,7 +50,9 @@ SIGNATURES = {
     # counter, outputs, groups tested, stream
     "strelka_intersect_closest": [_VP] * 14 + [_I32, _I64, _I32, _I32, _I32, _I32] + [_VP] * 7,
     "strelka_intersect_any": [_VP] * 14 + [_I32, _I64, _I32, _I32, _I32, _I32] + [_VP] * 4,
-    "strelka_bvh_closest": [_VP] * 10 + [_I32] + [_VP] * 4 + [_I32, _I64, _I32] + [_VP] * 5,
+    # 8 ray components, exclude, child rows; rows, depth; v0, e1, e2, mask; ray mask, n, ntri; t, prim, u, v,
+    # nodes, tris, stream
+    "strelka_bvh_closest": [_VP] * 10 + [_I32, _I32] + [_VP] * 4 + [_I32, _I64, _I32] + [_VP] * 7,
     "strelka_bvh_any": [_VP] * 10 + [_I32] + [_VP] * 4 + [_I32, _I64, _I32] + [_VP] * 2,
     "strelka_gather_rows_t": [_VP, _VP, _VP, _I64, _I32, _I32, _VP],
     # 8 ray components, cone geometry, boxes, superblock boxes; m_pad, nb, super, cull, (K7) near to far; order,

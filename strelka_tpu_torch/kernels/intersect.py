@@ -15,10 +15,11 @@ starts from, rejected by id). Triangles: v0, e1, e2 [T, 3] f32 and the
 geometry mask [T] int32, in groups of GROUP consecutive triangles with the
 boxes of `tri_group_bounds` ([8, G], `DeviceScene.tri_bounds` of a flat
 scene). The kernels test the triangles of the groups a ray's interval
-enters (`cull=False`: every group, the sweep the culled one is held
-against). `closest_walk_plain` and `any_walk_plain` repeat the walks of
-one ray a warp in plain PyTorch, with the groups each ray tests; the
-kernels count them with `stats=True`.
+enters by the port's box test with its margin (`ops/slab.py:slab_tnear`),
+so that no hit the dense sweep finds is culled (`cull=False`: every group,
+the sweep the culled one is held against). `closest_walk_plain` and
+`any_walk_plain` repeat the walks of one ray a warp in plain PyTorch, with
+the groups each ray tests; the kernels count them with `stats=True`.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 
 from strelka_tpu_torch import kernels as K
 from strelka_tpu_torch.kernels import build
-from strelka_tpu_torch.ops.curves import slab_tnear
+from strelka_tpu_torch.ops.slab import slab_tnear
 
 MISS_T = 1e16
 GROUP = 32  # triangles a group (csrc/intersect.cu:kGroup): one a lane of a warp

@@ -3,7 +3,9 @@
 Replaces strelka_tpu/ops/pallas_intersect.py:pallas_open_w; the CUDA source
 is csrc/open_w.cu. Rays go in tiles of `tile` consecutive lanes, each ray
 with the interval [tmin, bound]. Against every superblock box a ray passes
-when tnear <= tfar, tnear < bound and the box is not inverted. Returns
+when the port's box test (`ops/slab.py:slab_tnear`, the reference's slab
+test with a margin, the cone sweeps' own) enters the padded box, its
+lowered tnear < bound, tmin < bound and the box is not inverted. Returns
 
   open   [N] bool              the ray passes a box its tile has not swept
                                yet (d2[tile, sb] >= r2t[tile]); all false
@@ -12,8 +14,11 @@ when tnear <= tfar, tnear < bound and the box is not inverted. Returns
   min_tn [n_tiles, nsb] f32    the least tnear over the tile's passing rays,
                                1e16 where none passes
 
-The cone sweeps (kernels/cones.py) take their near-to-far superblock order
-from W and min_tn: `sweep_order`.
+min_tn holds the test's lowered tnears: a superblock that holds a ray's
+hit is never left out of its tile's row. The cone sweeps
+(kernels/cones.py) take their near-to-far superblock order from W and
+min_tn: `sweep_order`. The plain version takes pallas_open_w's exact test,
+bit for bit, when asked (`exact=True`); the kernel has no such mode.
 
 Rays: o and d are (x, y, z) triples of [N] f32 tensors, tmin/bound [N] f32.
 sbounds [8, nsb] f32 (lo.xyz, hi.xyz, two unused rows); d2 [n_tiles, nsb]
@@ -28,6 +33,7 @@ import torch
 
 from strelka_tpu_torch import kernels as K
 from strelka_tpu_torch.kernels import build
+from strelka_tpu_torch.ops import slab
 
 BIG = 1e16
 MAX_TILE = 1024
@@ -46,9 +52,11 @@ class SweepOrder(NamedTuple):
     tnear: torch.Tensor  # [n_tiles, nsb] f32 the least tnear of the tile's rays at each entry of `order`
 
 
-def open_w_plain(o, d, tmin, bound, sbounds, d2=None, r2t=None, tile: int = MAX_TILE, chunk: int = 64):
+def open_w_plain(o, d, tmin, bound, sbounds, d2=None, r2t=None, tile: int = MAX_TILE, chunk: int = 64,
+                 exact: bool = False):
     """Plain K9: the broadcast slab test of a tile's rays against a chunk of
-    boxes, reduced over the rays (W, min_tn) and over the boxes (open)."""
+    boxes, reduced over the rays (W, min_tn) and over the boxes (open).
+    exact=True takes pallas_open_w's test in place of the port's."""
     K.note_plain("open_w", tmin.device)
     n, nsb = tmin.shape[0], sbounds.shape[1]
     pad = -n % tile
@@ -65,14 +73,19 @@ def open_w_plain(o, d, tmin, bound, sbounds, d2=None, r2t=None, tile: int = MAX_
     w_cols, tn_cols = [], []
     for c0 in range(0, nsb, chunk):
         box = sbounds[:, c0:c0 + chunk]
-        tnear, tfar = tmin_t, bound_t
-        for c in range(3):
-            t0 = (box[c][None, None, :] - oc[c]) * inv[c]
-            t1 = (box[3 + c][None, None, :] - oc[c]) * inv[c]
-            tnear = torch.maximum(tnear, torch.minimum(t0, t1))
-            tfar = torch.minimum(tfar, torch.maximum(t0, t1))
         valid = (box[0] <= box[3]) & (box[1] <= box[4]) & (box[2] <= box[5])
-        passes = (tnear <= tfar) & (tnear < bound_t) & valid[None, None, :]
+        if not exact:
+            tnear = slab.slab_tnear([c.reshape(-1) for c in oc], [c.reshape(-1) for c in dc], tmin_t.reshape(-1),
+                                    bound_t.reshape(-1), box).reshape(n_tiles, tile, -1)
+            passes = (tnear < float("inf")) & (tnear < bound_t) & (tmin_t < bound_t) & valid[None, None, :]
+        else:
+            tnear, tfar = tmin_t, bound_t
+            for c in range(3):
+                t0 = (box[c][None, None, :] - oc[c]) * inv[c]
+                t1 = (box[3 + c][None, None, :] - oc[c]) * inv[c]
+                tnear = torch.maximum(tnear, torch.minimum(t0, t1))
+                tfar = torch.minimum(tfar, torch.maximum(t0, t1))
+            passes = (tnear <= tfar) & (tnear < bound_t) & valid[None, None, :]
         w_cols.append(passes.any(dim=1))
         tn_cols.append(torch.where(passes, tnear, BIG).amin(dim=1))
         if d2 is not None:
@@ -120,7 +133,7 @@ def open_w(o, d, tmin, bound, sbounds, d2=None, r2t=None, tile: int = MAX_TILE):
             open_.data_ptr(), w.data_ptr(), tn.data_ptr(), build.stream_ptr(dev),
         )
         build.check(rc, "strelka_open_w")
-        K.count_launch("open_w", (n, nsb, tile, int(d2 is not None)))  # rays, boxes, tile, with the open flag
+        K.count_launch("open_w", (n, nsb, tile, int(d2 is not None)))  # rays, boxes, tile, open flag
     return open_, w, tn
 
 

@@ -14,9 +14,12 @@ format as the reference:
     skip[i], and skip[last] == n ends the walk. In this layout the left
     child of i is i + 1 and the right child is skip[i + 1].
 
-`intersect_bvh_plain` is the plain version of kernels K5 and K6
-(kernels/bvh.py, csrc/bvh.cu): the reference's lockstep stackless walk,
-operation for operation in f32, over component-array rays.
+`intersect_bvh_plain` is the plain version of kernel K6 (kernels/bvh.py,
+csrc/bvh.cu): the reference's lockstep stackless walk, operation for
+operation in f32, over component-array rays. Kernel K5 walks near to far
+over a second table made from the same tree, `child_rows` (each internal
+node's two child boxes and references in one 64-byte row), with a short
+stack; `intersect_bvh_ordered_plain` is its plain version.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 
 from strelka_tpu_torch import kernels as K
 from strelka_tpu_torch import log
+from strelka_tpu_torch.ops import slab
 
 MAX_LEAF = 4
 MISS_T = 1e16
@@ -38,6 +42,11 @@ MISS_T = 1e16
 # and a min against the best t for tfar (6).
 SLAB_FLOPS = 24
 _COUNT_BITS = 3  # packed node row: count <= MAX_LEAF fits; start < 2^28
+# child_rows: 16 int32 a row (64 bytes, four 16-byte loads): the left child's
+# box (lo xyz, hi xyz), the right child's box, the two child references and
+# the two boxes' scales (ops/slab.py:box_scale) as f32 bits
+CHILD_COLS = 16
+STACK = 64  # entries of K5's per-thread stack (csrc/bvh.cu:kStack); a deeper tree is refused
 
 
 class BvhNodes(NamedTuple):
@@ -64,13 +73,17 @@ class ThreadedBvh(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class DeviceBvh:
     """A ThreadedBvh on one device as the packed node rows of `pack_nodes`,
-    and how the tree came to be. Kernels K5/K6 and their plain version read
-    the same rows; the ThreadedBvh fields are views of them (start and
-    count are unpacked on each access)."""
+    the child table made from them (`child_rows`) with the tree's depth,
+    and how the tree came to be. Kernel K6 and its plain version read the
+    packed rows, K5 and its plain version the child table; the ThreadedBvh
+    fields are views of the rows (start and count are unpacked on each
+    access)."""
 
     nodes: torch.Tensor  # [n,8] i32: pack_nodes rows
     builder: str = "carried"  # "native", "numpy", or "carried" (arrays from elsewhere)
     build_seconds: float = 0.0
+    children: Optional[torch.Tensor] = None  # [m, CHILD_COLS] i32: child_rows of `nodes`, K5's table
+    depth: int = 0  # internal nodes on the longest root-to-leaf path: the stack K5's walk needs
 
     @property
     def num_nodes(self) -> int:
@@ -313,8 +326,52 @@ def pack_nodes(bvh: ThreadedBvh) -> np.ndarray:
     return rows
 
 
+def child_rows(rows: np.ndarray) -> Tuple[np.ndarray, int]:
+    """Packed threaded rows [n, 8] (pack_nodes) -> (the child table
+    [m, CHILD_COLS] int32, the tree's depth), built from the rows bit for bit.
+
+    Row r belongs to the r-th internal node in DFS order (row 0 the root);
+    its children in the threaded layout are i + 1 (left) and skip[i + 1]
+    (right). Per child: its box's six f32 words as in its own packed row, a
+    reference (an internal child: its row << 3, count 0; a leaf: its packed
+    word start << 3 | count) and its box's scale |box|_inf as f32 bits. A
+    tree that is one leaf gets one row: the leaf on the left and an inverted
+    box (never entered) on the right. depth: the most internal nodes on a
+    root-to-leaf path, so the most entries K5's stack holds at once (one
+    push an internal node at most)."""
+    rows = np.asarray(rows, np.int32)
+    n = rows.shape[0]
+    count = rows[:, 7] & ((1 << _COUNT_BITS) - 1)
+    internal = np.nonzero(count == 0)[0]
+    row_of = np.full(n, -1, np.int64)
+    row_of[internal] = np.arange(internal.shape[0])
+    ref = np.where(count == 0, (row_of << _COUNT_BITS).astype(np.int64), rows[:, 7].astype(np.int64))
+    scale = np.abs(rows[:, 0:6].view(np.float32)).max(axis=1)  # |box|_inf, as ops/slab.py:box_scale
+    if internal.shape[0] == 0:
+        empty = np.array([1e30] * 3 + [-1e30] * 3, np.float32)
+        out = np.zeros((1, CHILD_COLS), np.int32)
+        out[0, 0:6], out[0, 6:12] = rows[0, 0:6], empty.view(np.int32)
+        out[0, 12], out[0, 13] = rows[0, 7], 0
+        out[0, 14:16] = np.array([scale[0], np.float32(1e30)], np.float32).view(np.int32)
+        return out, 0
+    left = internal + 1
+    right = rows[left, 6].astype(np.int64)
+    out = np.empty((internal.shape[0], CHILD_COLS), np.int32)
+    out[:, 0:6] = rows[left, 0:6]
+    out[:, 6:12] = rows[right, 0:6]
+    out[:, 12] = ref[left].astype(np.int32)
+    out[:, 13] = ref[right].astype(np.int32)
+    out[:, 14] = scale[left].view(np.int32)
+    out[:, 15] = scale[right].view(np.int32)
+    depth = np.zeros(n, np.int64)  # internal ancestors of each node; children come after their parent in DFS order
+    for i, l, r in zip(internal.tolist(), left.tolist(), right.tolist()):
+        depth[l] = depth[r] = depth[i] + 1
+    return out, int(depth.max())
+
+
 def device_bvh(bvh: ThreadedBvh, device, builder: str = "carried", build_seconds: float = 0.0) -> DeviceBvh:
-    """Upload a ThreadedBvh (any 5 arrays in its field order)."""
+    """Upload a ThreadedBvh (any 5 arrays in its field order): its packed
+    rows and the child table made from them."""
     host = ThreadedBvh(
         bb_min=np.ascontiguousarray(bvh[0], np.float32),
         bb_max=np.ascontiguousarray(bvh[1], np.float32),
@@ -322,8 +379,10 @@ def device_bvh(bvh: ThreadedBvh, device, builder: str = "carried", build_seconds
         start=np.ascontiguousarray(bvh[3], np.int32),
         count=np.ascontiguousarray(bvh[4], np.int32),
     )
-    return DeviceBvh(nodes=torch.tensor(pack_nodes(host), device=device), builder=builder,
-                     build_seconds=build_seconds)
+    rows = pack_nodes(host)
+    children, depth = child_rows(rows)
+    return DeviceBvh(nodes=torch.tensor(rows, device=device), builder=builder, build_seconds=build_seconds,
+                     children=torch.tensor(children, device=device), depth=depth)
 
 
 def timed_build(v0, e1, e2):
@@ -495,3 +554,144 @@ def intersect_bvh_plain(
         return result + (TraversalCounts(visited, overlapped, tri_tests, steps, int(node_flag.sum()),
                                          int(tri_flag.sum())),)
     return result
+
+
+# ---------------------------------------------------------------------------
+# Plain near-to-far walk (the plain version of kernel K5)
+# ---------------------------------------------------------------------------
+
+
+class OrderedCounts(NamedTuple):
+    """What the near-to-far walk did, per ray ([N] i32 each)."""
+
+    nodes: torch.Tensor  # child boxes tested (two an internal node taken)
+    tris: torch.Tensor  # triangles of the leaves taken that pass mask and exclude
+
+
+def _child_boxes(rows):
+    """Child table rows [m, CHILD_COLS] -> per-ray boxes [8, m, 2] (lo xyz, hi xyz, 0, 0) and refs [m, 2]."""
+    f = rows[:, 0:12].view(torch.float32).reshape(-1, 2, 6)  # [m, child, lo xyz hi xyz]
+    boxes = torch.zeros((8, rows.shape[0], 2), dtype=torch.float32, device=rows.device)
+    boxes[0:6] = f.permute(2, 0, 1)
+    return boxes, rows[:, 12:14]
+
+
+def intersect_bvh_ordered_plain(o, d, tmin, tmax, exclude, bvh: DeviceBvh, v0, e1, e2, mask, ray_mask: int,
+                                counts: bool = False, name: str = ""):
+    """Kernel K5's walk in plain PyTorch -> (t, prim, u, v), each [N]; with
+    counts=True also an OrderedCounts.
+
+    Each live ray (tmax > tmin) starts at the root's row of bvh.children.
+    At an internal node it tests both child boxes with the port's box test
+    (ops/slab.py:slab_tnear) against [tmin, best t] (best t starts at
+    tmax): it goes to the nearer entered child (of equal tnear the left,
+    which holds the lower leaf ids) and pushes the farther one with its
+    tnear on its stack, or goes to the one entered, or pops. At a leaf it
+    tests the triangles in order (mask, exclude, Möller–Trumbore against
+    [tmin, tmax]) and a hit replaces the best one on t < best t, or on
+    equal t and a lower prim id; then it pops. A pop drops entries whose
+    tnear is greater than best t (strict) and takes the first one left; an
+    empty stack ends the walk. prim indexes the leaf-ordered triangles, -1
+    on a miss (t = 1e16, u = v = 0). The lanes step in lockstep, one action
+    each a step (bookkeeping only: every lane's sequence of actions and its
+    arithmetic are the kernel's)."""
+    if name:
+        K.note_plain(name, tmin.device)
+    n = tmin.shape[0]
+    dev = tmin.device
+    table = bvh.children
+    last_tri = v0.shape[0] - 1
+    out_t = tmax * 1.0
+    out_p = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    out_u = torch.zeros(n, dtype=torch.float32, device=dev)
+    out_v = torch.zeros(n, dtype=torch.float32, device=dev)
+    out_nodes = torch.zeros(n, dtype=torch.int32, device=dev)
+    out_tris = torch.zeros(n, dtype=torch.int32, device=dev)
+
+    lanes = torch.nonzero(tmax > tmin).squeeze(1)
+    oc = [c[lanes] for c in o]
+    dc = [c[lanes] for c in d]
+    tmn, tmx = tmin[lanes], tmax[lanes]
+    ex = exclude[lanes] if exclude is not None else None
+    m = lanes.shape[0]
+    node = torch.zeros(m, dtype=torch.int32, device=dev)  # a reference; -1: pop; -2: done
+    sp = torch.zeros(m, dtype=torch.int64, device=dev)
+    stack_ref = torch.zeros((m, max(bvh.depth, 1)), dtype=torch.int32, device=dev)
+    stack_t = torch.zeros((m, max(bvh.depth, 1)), dtype=torch.float32, device=dev)
+    best_t, best_p, best_u, best_v = tmx * 1.0, out_p[lanes], out_u[lanes], out_v[lanes]
+    nodes, tris = out_nodes[lanes], out_tris[lanes]
+    low = (1 << _COUNT_BITS) - 1
+    inf = float("inf")
+
+    while lanes.shape[0]:
+        # ---- internal nodes: test both children, go near, push far
+        a = torch.nonzero((node >= 0) & ((node & low) == 0))[:, 0]
+        if a.shape[0]:
+            boxes, refs = _child_boxes(table[(node[a] >> _COUNT_BITS).long()])
+            tn = slab.slab_tnear([c[a] for c in oc], [c[a] for c in dc], tmn[a], best_t[a], boxes)  # [A, 2]
+            tl, tr = tn[:, 0], tn[:, 1]
+            inl, inr = tl < inf, tr < inf
+            nodes[a] += 2
+            go_left = tl <= tr
+            both = inl & inr
+            pa = a[both]
+            at = sp[pa]
+            stack_ref[pa, at] = torch.where(go_left, refs[:, 1], refs[:, 0])[both]
+            stack_t[pa, at] = torch.where(go_left, tr, tl)[both]
+            sp[pa] += 1
+            nxt = torch.where(both, torch.where(go_left, refs[:, 0], refs[:, 1]),
+                              torch.where(inl, refs[:, 0], torch.where(inr, refs[:, 1], -1)))
+            node[a] = nxt
+        # ---- leaves: test the triangles, then pop
+        b = torch.nonzero((node >= 0) & ((node & low) != 0))[:, 0]
+        if a.shape[0]:
+            b = b[~torch.isin(b, a)]  # a lane takes one action a step
+        if b.shape[0]:
+            lo, ld = [c[b] for c in oc], [c[b] for c in dc]
+            start, cnt = node[b] >> _COUNT_BITS, node[b] & low
+            lt, lp, lu, lv = best_t[b], best_p[b], best_u[b], best_v[b]
+            l_ex = ex[b] if ex is not None else None
+            tested = torch.zeros_like(cnt)
+            for k in range(MAX_LEAF):
+                prim = torch.clamp(start + k, max=last_tri)
+                pi = prim.to(torch.int64)
+                cand = (k < cnt) & ((mask[pi] & ray_mask) != 0)
+                if l_ex is not None:
+                    cand = cand & (prim != l_ex)
+                tested += cand.to(torch.int32)
+                t, u, v, hit = _tri_test(lo, ld, v0[pi], e1[pi], e2[pi], tmn[b], tmx[b])
+                better = hit & cand & ((t < lt) | ((t == lt) & (prim < lp)))
+                lt, lp = torch.where(better, t, lt), torch.where(better, prim, lp)
+                lu, lv = torch.where(better, u, lu), torch.where(better, v, lv)
+            best_t[b], best_p[b], best_u[b], best_v[b] = lt, lp, lu, lv
+            tris[b] += tested
+            node[b] = -1
+        # ---- pops: one entry a step; an entry beyond best t is dropped
+        done = a.shape[0] + b.shape[0]
+        c = torch.nonzero(node == -1)[:, 0]
+        if done:
+            c = c[~torch.isin(c, torch.cat([a, b]))]
+        if c.shape[0]:
+            has = sp[c] > 0
+            cc = c[has]
+            sp[cc] -= 1
+            keep = ~(stack_t[cc, sp[cc]] > best_t[cc])
+            node[cc[keep]] = stack_ref[cc[keep], sp[cc[keep]]]
+            finished = c[~has]
+            if finished.shape[0]:
+                node[finished] = -2
+        walking = node != -2
+        if int(walking.sum()) * 2 <= lanes.shape[0]:  # shrink the working set; finished lanes write back
+            out_t[lanes], out_p[lanes], out_u[lanes], out_v[lanes] = best_t, best_p, best_u, best_v
+            out_nodes[lanes], out_tris[lanes] = nodes, tris
+            keep = torch.nonzero(walking).squeeze(1)
+            lanes = lanes[keep]
+            oc, dc = [x[keep] for x in oc], [x[keep] for x in dc]
+            tmn, tmx, node, sp = tmn[keep], tmx[keep], node[keep], sp[keep]
+            ex = ex[keep] if ex is not None else None
+            stack_ref, stack_t = stack_ref[keep], stack_t[keep]
+            best_t, best_p, best_u, best_v = best_t[keep], best_p[keep], best_u[keep], best_v[keep]
+            nodes, tris = nodes[keep], tris[keep]
+    out_t = torch.where(out_p >= 0, out_t, MISS_T)
+    result = (out_t, out_p, out_u, out_v)
+    return result + (OrderedCounts(out_nodes, out_tris),) if counts else result

@@ -37,6 +37,7 @@ import torch
 
 from strelka_tpu_torch import kernels as K
 from strelka_tpu_torch.ops import vec as V
+from strelka_tpu_torch.ops.slab import slab_enters, slab_tnear
 from strelka_tpu_torch.ops.vec import Vec3
 
 MISS_T = 1e16
@@ -465,31 +466,6 @@ def tile_sweep_order_k(origins, sbounds, tile: int, k: int):
 # ---------------------------------------------------------------------------
 # the work a culled sweep needs
 # ---------------------------------------------------------------------------
-
-
-def slab_tnear(o, d, tmin, tmax, bounds):
-    """[R] rays x [8, B] boxes (or [8, R, B], each ray its own) -> [R, B]
-    f32: the slab test of kernels K7/K8 (strelka_tpu/ops/pallas_intersect.py:
-    _tile_hits_block per ray): inv = 1 / where(|d| > 1e-20, d, 1e-20),
-    tnear <= tfar with equality, inverted boxes rejected. The interval's
-    entry distance where it enters the box, inf where it does not."""
-    if bounds.dim() == 2:
-        bounds = bounds[:, None, :]
-    tnear = tmin[:, None]
-    tfar = tmax[:, None]
-    for c in range(3):
-        inv = 1.0 / torch.where(torch.abs(d[c]) > 1e-20, d[c], 1e-20)
-        t0 = (bounds[c] - o[c][:, None]) * inv[:, None]
-        t1 = (bounds[3 + c] - o[c][:, None]) * inv[:, None]
-        tnear = torch.maximum(tnear, torch.minimum(t0, t1))
-        tfar = torch.minimum(tfar, torch.maximum(t0, t1))
-    return torch.where((tnear <= tfar) & (bounds[0] <= bounds[3]), tnear, float("inf"))
-
-
-def slab_enters(o, d, tmin, tmax, bounds):
-    """[R] rays x [8, B] boxes -> [R, B] bool: does the ray's interval
-    [tmin, tmax] enter the box (slab_tnear)?"""
-    return slab_tnear(o, d, tmin, tmax, bounds) < float("inf")
 
 
 def _live_cones(geom, nb: int):

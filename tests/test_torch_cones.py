@@ -25,6 +25,8 @@ import torch
 from strelka_tpu_torch.kernels import cones as KC
 from strelka_tpu_torch.kernels import open_w as KO
 from strelka_tpu_torch.ops import curves as TC
+from strelka_tpu_torch.ops import slab
+from strelka_tpu_torch.scene import grazing as G
 
 TBLK, SUPER = 16, 8  # small sub-blocks, the main path's 8 a superblock
 INF = float("inf")
@@ -185,7 +187,8 @@ def test_slab_tnear_per_ray_boxes_equal_shared_boxes():
     assert torch.equal(shared, own)
     assert torch.equal(TC.slab_enters(o, d, tmin, tmax, bounds), shared < INF)
     entered = shared < INF
-    assert bool(entered.any()) and ((shared[entered] >= tmin[:, None].expand_as(shared)[entered])).all()
+    low = (tmin - torch.abs(tmin) * slab.SLACK)[:, None].expand_as(shared)  # the margin lowers tnear by its slack
+    assert bool(entered.any()) and ((shared[entered] >= low[entered])).all()
     assert (shared[entered] <= tmax[:, None].expand_as(shared)[entered]).all()
 
 
@@ -239,3 +242,44 @@ def test_sweep_order_tnears_bound_every_ray_of_the_tile():
         entered = own[i, row] < INF
         assert not entered[cnt:].any()
         assert (own[i, row][entered] >= order.tnear[i // tile][entered]).all()
+
+
+def _grazing_scene(seed, scale, shift):
+    """scene/grazing.py:cone_face_case as tensors: cones along the axes,
+    rays at their boxes' faces and corners."""
+    geom, bounds, sbounds, o, d = (torch.tensor(np.ascontiguousarray(a)) for a in G.cone_face_case(seed, scale, shift))
+    n = o.shape[0]
+    return (geom, bounds, sbounds, tuple(o[:, i].contiguous() for i in range(3)),
+            tuple(d[:, i].contiguous() for i in range(3)), torch.zeros(n), torch.full((n,), 1e16))
+
+
+@pytest.mark.parametrize("seed,scale,shift", [(0, 1.0, 0.0), (1, 100.0, 0.0), (3, 0.01, 5.0), (2, 1.0, 300.0)])
+def test_rays_at_cone_box_faces_lose_no_hit(seed, scale, shift):
+    """ROADMAP C.2: the closed form can put a hit just outside its sub-block's
+    or superblock's box. With the port's box test (ops/slab.py) the culled
+    walks lose none: K7's near-to-far walk ends at the dense sweep's t on
+    every lane, and every occluded lane's hit lies in a sub-block and a
+    superblock its interval enters (K8's ascending culled sweep). The
+    reference's exact test loses some of these hits."""
+    geom, bounds, sbounds, o, d, tmin, tmax = _grazing_scene(seed, scale, shift)
+    _, best = TC.near_to_far_sweep(geom, bounds, sbounds, o, d, tmin, tmax)
+    t_p, c_p, _ = TC.intersect_curves_closest_plain(geom, o, d, tmin, tmax)
+    assert torch.equal(best.view(torch.int32), t_p.view(torch.int32))
+    a, b, ra, rb = TC._geom_columns(geom[None])
+    _, _, hit = TC.ray_round_cone([c[:, None] for c in o], [c[:, None] for c in d], a, b, ra, rb, tmin[:, None],
+                                  tmax[:, None])
+    hit = hit & (ra >= 0.0)
+    tblk = geom.shape[0] // bounds.shape[1]
+
+    def seen(**margin):
+        sub = slab.slab_tnear(o, d, tmin, tmax, bounds, **margin) < INF
+        sup = slab.slab_tnear(o, d, tmin, tmax, sbounds, **margin) < INF
+        boxes = (sub & sup.repeat_interleave(SUPER, dim=1)).repeat_interleave(tblk, dim=1)
+        return (hit & boxes).any(dim=1)
+
+    assert torch.equal(seen(), hit.any(dim=1)) and int((c_p >= 0).sum()) > 1900
+    # the same rays against the exact boxes: the winner's box, at the final t
+    exact = slab.slab_tnear(o, d, tmin, torch.minimum(t_p, tmax), bounds, pad=0.0, slack=0.0) < INF
+    won = c_p >= 0
+    lost = ~exact[won, (c_p[won] // tblk).long()]
+    assert int(lost.sum()) > 0

@@ -501,7 +501,8 @@ def test_open_w_plain_matches_pallas_open_w(with_open):
     to, td = _torch_rays(o, d)
     K.reset_counts()
     extra = (torch.tensor(np.asarray(jd2)), torch.tensor(np.asarray(jr2t))) if with_open else ()
-    open_, w, tn = KO.open_w(to, td, torch.tensor(tmin), torch.tensor(bound), torch.tensor(sbounds), *extra, tile=tile)
+    open_, w, tn = KO.open_w_plain(to, td, torch.tensor(tmin), torch.tensor(bound), torch.tensor(sbounds), *extra,
+                                   tile=tile, exact=True)
     np.testing.assert_array_equal(open_.numpy(), np.asarray(jopen))
     np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
     np.testing.assert_array_equal(tn.numpy(), np.asarray(jtn))

@@ -12,9 +12,12 @@ walks there); here:
   `any_walk_plain`) give the dense plain versions' (t, prim, u, v) bit for
   bit and their occlusion, on random soups with duplicate and coplanar
   triangles (ties go to the lowest id) and on Cornell's 32x32 camera and
-  bounce-1 rays; rays aimed exactly at the shared vertices and edges of a
-  coplanar grid show the cull's one known difference (a grazing hit that
-  Möller-Trumbore accepts just outside its group's box), and no other;
+  bounce-1 rays, and on rays aimed exactly at the shared vertices and
+  edges of a coplanar grid and at coplanar overlaps, where the reference's
+  exact box test drops hits that Möller-Trumbore accepts just outside their
+  group's box and the port's margin (ops/slab.py) keeps them; a property
+  test turns, scales and moves such grids at random and aims rays down to
+  the edge of the margin's domain: no lane inside it differs;
 - their per-ray counts of groups tested equal a loop over the rays, and no
   group the closest walk skipped holds a triangle that beats its final hit;
 - CPU tensors take the dense plain versions whatever the schedule or cull,
@@ -29,14 +32,18 @@ import sys
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, note, settings
+from hypothesis import strategies as st
 
 from strelka_tpu.ops.pallas_intersect import block_bounds
 from strelka_tpu.render.device_scene import build_device_scene as jax_build
 from strelka_tpu.scene import testscenes as JTS
 from strelka_tpu_torch import kernels as K
 from strelka_tpu_torch.kernels import intersect as KI
-from strelka_tpu_torch.ops.curves import slab_tnear
+from strelka_tpu_torch.ops import slab
+from strelka_tpu_torch.ops.slab import slab_tnear
 from strelka_tpu_torch.render.device_scene import RAY_MASK_PRIMARY, RAY_MASK_SHADOW, build_device_scene
+from strelka_tpu_torch.scene import grazing as G
 from strelka_tpu_torch.scene import testscenes as TTS
 
 INF = float("inf")
@@ -48,70 +55,23 @@ def _t(a):
 
 
 def _soup(kind: str, seed: int):
-    """A triangle soup of 300 (mask 1, 4 and 0, the last 7 padding-like), as
-    numpy arrays v0, e1, e2, mask. "dups": 24 triangles each copied to two
-    later ids in other groups (equal t, ties to the lowest id); "coplanar":
-    a 10x10 grid of unit quads in the plane y = 0 split into triangles that
-    share edges; "overlap": the grid and 40 larger triangles in the same
-    plane over it."""
-    rng = np.random.default_rng(seed)
-    n = 300
-    v0 = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
-    e1 = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
-    e2 = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
-    if kind == "dups":
-        src = rng.choice(100, 24, replace=False)
-        for k, s in enumerate(src):
-            for dst in (120 + 3 * k, 200 + 3 * k):
-                v0[dst], e1[dst], e2[dst] = v0[s], e1[s], e2[s]
-    elif kind in ("coplanar", "overlap"):
-        k = 0
-        for ix in range(10):
-            for iz in range(10):
-                p = np.array([ix - 5.0, 0.0, iz - 5.0], np.float32)
-                for a, b in (((1, 0, 0), (1, 0, 1)), ((1, 0, 1), (0, 0, 1))):
-                    v0[k], e1[k], e2[k] = p, np.array(a, np.float32), np.array(b, np.float32)
-                    k += 1
-        for k in range(200, 240 if kind == "overlap" else 200):
-            v0[k, 1] = e1[k, 1] = e2[k, 1] = 0.0
-            e1[k] *= 3.0
-            e2[k] *= 3.0
-    mask = np.ones(n, np.int32)
-    mask[rng.random(n) < 0.2] = 4
-    mask[-7:] = 0
-    return v0, e1, e2, mask
+    """A soup of 300 triangles (scene/grazing.py:soup) as numpy arrays."""
+    return G.soup(kind, seed)
 
 
-def _rays(n: int, seed: int, targets=None):
-    """Rays aimed at `targets` (points) where given, else random; dead
-    lanes, some tmin > 0, finite and infinite tmax, exclude ids."""
-    rng = np.random.default_rng(seed)
-    o = rng.uniform(-9, 9, (n, 3)).astype(np.float32)
-    if targets is not None:
-        d = targets[rng.integers(0, len(targets), n)] - o
-    else:
-        d = rng.normal(size=(n, 3))
-    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
-    d[::11] = np.eye(3, dtype=np.float32)[rng.integers(0, 3, len(d[::11]))]  # axis-parallel
-    tmin = np.where(np.arange(n) % 5 == 2, 1e-3, 0.0).astype(np.float32)
-    tmax = rng.choice([1e16, 8.0, 20.0], n).astype(np.float32)
-    tmax[::9] = 0.0  # dead lanes
-    exclude = np.where(rng.random(n) < 0.2, rng.integers(0, 300, n), -1).astype(np.int32)
+def _args(tris, rays):
+    """numpy (v0, e1, e2, mask) and (o, d, tmin, tmax, exclude) -> the walks' arguments."""
+    o, d, tmin, tmax, exclude = rays
     return (tuple(_t(o[:, k]) for k in range(3)), tuple(_t(d[:, k]) for k in range(3)), _t(tmin), _t(tmax),
-            _t(exclude))
+            _t(exclude)) + tuple(_t(a) for a in tris)
 
 
 def _soup_case(kind: str, seed: int):
     """A soup and 400 rays at its triangles' centroids ("grazing": the
     "overlap" soup and rays at its grid's vertices, edge midpoints and
-    centroids)."""
-    v0, e1, e2, mask = _soup("overlap" if kind == "grazing" else kind, seed)
-    p = v0 + (e1 + e2) / 3.0
-    if kind == "grazing":
-        p = np.concatenate([v0[:200], v0[:200] + e1[:200] * np.float32(0.5), p[:240]])
-    o, d, tmin, tmax, ex = _rays(400, seed + 1, p.astype(np.float32))
-    tris = tuple(_t(a) for a in (v0, e1, e2, mask))
-    return (o, d, tmin, tmax, ex) + tris, _t(KI.tri_group_bounds(v0, e1, e2, mask))
+    centroids), scene/grazing.py:soup_case."""
+    tris, rays = G.soup_case(kind, seed)
+    return _args(tris, rays), _t(KI.tri_group_bounds(*tris))
 
 
 def _cornell_case(kind: str):
@@ -210,34 +170,68 @@ def test_ties_go_to_the_lowest_id():
     assert torch.equal(p_w[lanes].long(), torch.argmax(tied.to(torch.int8), dim=1)[lanes])
 
 
-def test_grazing_hits_on_group_box_faces_are_the_only_difference():
-    """A known limit of the cull (the reference's _flat kernels share it):
-    Möller-Trumbore can accept a hit that its own rounding puts just outside
-    the triangle, or at a t that its group box's slab test (block_bounds,
-    tnear <= tfar) rounds otherwise, and that test then rejects the group.
-    Rays aimed exactly at the shared vertices and edges of a coplanar grid,
-    and at coplanar triangles that overlap in other groups (equal t), find
-    such hits on the faces of zero-thickness group boxes. Every lane where the walks differ from
-    the dense versions is one where the dense winner's group (K2), or every
-    occluder's group (K3), is not entered by the interval the walk tests it
-    with; the main paths' rays show none (chip_smoke.py holds every lane)."""
+@pytest.mark.parametrize("mask", ["primary", "shadow"])
+def test_no_lane_of_the_grazing_soup_differs_from_the_dense_versions(mask):
+    """Rays aimed exactly at the shared vertices and edges of a coplanar
+    grid, and at coplanar triangles that overlap in other groups (equal t),
+    find hits on the faces of zero-thickness group boxes that Möller-Trumbore
+    accepts just outside the box, or at a t the box's exact slab test rounds
+    below: the reference's exact test drops some of those groups (checked
+    here). With the port's margin (ops/slab.py) both walks equal the dense
+    versions on every lane: K2's (t, prim, u, v) bit for bit, K3's
+    occlusion."""
     args, bounds = _case("grazing-2")
+    o, d, tmin, tmax, exclude, v0, e1, e2, gmask = args
+    ray_mask = MASKS[mask]
+    dense = KI.closest_plain(*args, ray_mask)
+    walk = KI.closest_walk_plain(*args, ray_mask, bounds)
+    for a, b in zip(walk[:4], dense):
+        assert torch.equal(_bits(a), _bits(b))
+    assert torch.equal(KI.any_walk_plain(*args, ray_mask, bounds)[0], KI.any_plain(*args, ray_mask))
+    t_d, p_d = dense[:2]
+    exact = slab_tnear(o, d, tmin, torch.minimum(t_d, tmax), bounds, pad=0.0, slack=0.0) < INF
+    winner_entered = exact.gather(1, (p_d.clamp(min=0).long() // KI.GROUP)[:, None])[:, 0]
+    assert int(((p_d >= 0) & ~winner_entered).sum()) > 0
+
+
+def _differ_outside_the_domain(args, bounds, ray_mask):
+    """The walks against the dense versions on one case -> (lanes that
+    differ whose hits lie outside the margin's domain, lanes whose dense
+    hit lies outside it). Raises on a lane that differs with its hit inside:
+    for K2 the dense winner's normalised determinant, for K3 the largest of
+    the ray's hits'."""
     o, d, tmin, tmax, exclude, v0, e1, e2, mask = args
-    t_d, p_d, *_ = KI.closest_plain(*args, RAY_MASK_PRIMARY)
-    walk = KI.closest_walk_plain(*args, RAY_MASK_PRIMARY, bounds)
-    differ = (walk[1] != p_d) | (walk[0] != t_d)
-    entered = slab_tnear(o, d, tmin, torch.minimum(t_d, tmax), bounds) < INF
-    winner_entered = entered.gather(1, (p_d.clamp(min=0).long() // KI.GROUP)[:, None])[:, 0]
-    grazing = (p_d >= 0) & ~winner_entered
-    assert int(grazing.sum()) > 0 and not (differ & ~grazing).any()
-    occ = KI.any_walk_plain(*args, RAY_MASK_SHADOW, bounds)[0]
-    dense_occ = KI.any_plain(*args, RAY_MASK_SHADOW)
+    dense = KI.closest_plain(*args, ray_mask)
+    walk = KI.closest_walk_plain(*args, ray_mask, bounds)
+    nu = slab.normalised_det(d, e1, e2)
     _, _, _, hit = KI.mt_block(o, d, v0, e1, e2, tmin, tmax)
-    hit = KI._valid(hit, mask, RAY_MASK_SHADOW, 0, exclude)
-    ng = bounds.shape[1]
-    hit_groups = torch.nn.functional.pad(hit, (0, ng * KI.GROUP - v0.shape[0])).reshape(-1, ng, KI.GROUP).any(dim=2)
-    seen = (hit_groups & (slab_tnear(o, d, tmin, tmax, bounds) < INF)).any(dim=1)
-    assert not ((occ != dense_occ) & seen).any()
+    hit = KI._valid(hit, mask, ray_mask, 0, exclude)
+    won = dense[1] >= 0
+    nu_won = torch.where(won, nu.gather(1, dense[1].clamp(min=0).long()[:, None])[:, 0], 1.0)
+    nu_any = torch.where(hit, nu, 0.0).max(dim=1).values
+    off2 = (walk[1] != dense[1]) | (_bits(walk[0]) != _bits(dense[0]))
+    off3 = KI.any_walk_plain(*args, ray_mask, bounds)[0] != KI.any_plain(*args, ray_mask)
+    assert not (off2 & (nu_won >= slab.NU_MIN)).any()
+    assert not (off3 & (nu_any >= slab.NU_MIN)).any()
+    return int((off2 | off3).sum()), int((won & (nu_won < slab.NU_MIN)).sum())
+
+
+@settings(derandomize=True, max_examples=10, deadline=None, database=None)
+@given(seed=st.integers(0, 2 ** 16), log_scale=st.floats(-2.0, 3.0), log_offset=st.floats(-1.0, 3.0),
+       nx=st.integers(2, 8), nz=st.integers(2, 8), overlap=st.booleans(),
+       sin_min=st.sampled_from([slab.NU_MIN, slab.NU_MIN / 4, 1e-3, 1e-5]))
+def test_coplanar_grids_at_any_pose_lose_no_hit_inside_the_margins_domain(seed, log_scale, log_offset, nx, nz,
+                                                                          overlap, sin_min):
+    """A coplanar grid (and coplanar overlaps) turned, scaled and moved at
+    random, rays at its vertices, edge points and overlaps at angles down to
+    the edge of the margin's domain (a normalised determinant of NU_MIN) and
+    past it: the walks equal the dense versions on every lane whose hits lie
+    inside the domain; lanes outside it are counted (note) and may differ."""
+    tris, rays = G.plane_case(seed, 10.0 ** log_scale, 10.0 ** log_offset, nx, nz, overlap, sin_min)
+    args = _args(tris, rays)
+    bounds = _t(KI.tri_group_bounds(*tris))
+    off, outside = _differ_outside_the_domain(args, bounds, RAY_MASK_PRIMARY)
+    note(f"{outside} lanes hit outside the margin's domain, {off} of them differ")
 
 
 def _walk_one_ray(args, ray_mask, bounds, i):
