@@ -20,10 +20,12 @@ Phases (any failure raises and the script exits non-zero):
      against the plain copies of their walks; the same for the rays of
      scene/grazing.py that hunt the box test's rounding edge (the grazing
      soup and coplanar grids turned, scaled and moved, rays at their shared
-     vertices, edges and overlaps), with K5 on a BVH of the same triangles
-     against its plain version and the dense sweep (the comparisons with
-     the dense versions on every lane whose hit lies inside the box test's
-     margin's domain; the lanes outside it counted); render the golden
+     vertices, edges and overlaps), with K5 and K6 on a BVH of the same
+     triangles against their plain versions and the dense sweeps (the
+     comparisons with the dense versions on every lane whose hit lies inside
+     the box test's margin's domain; the lanes outside it counted); K4 at
+     the main path's shape and at edge shapes off its 16-byte paths (odd
+     widths and N, a table at an unaligned offset); render the golden
      config through TorchRender and require SSIM >= 0.99 against
      goldens/cornell_golden.png; drive the main path
      at full size (render_launch, depth 4, accumulation: 1 warm-up + 16
@@ -36,13 +38,14 @@ Phases (any failure raises and the script exits non-zero):
      cull=False bit for bit, and the reference's DFS walk wherever that walk
      keeps the dense hit) on the camera and bounce-1 rays and on the tie
      table (the tree's triangles twice over, one copy a half), K6 against
-     its plain traversal on the shadow rays and against K3 in cull=False
-     mode on the camera, bounce-1 and shadow rays, and the two
-     golden-config renders compared;
+     its plain twin and against K3 in cull=False mode (inside the margin's
+     domain; the lanes outside it counted) on the camera, bounce-1 and
+     shadow rays, and the two golden-config renders compared;
   4. box_field(grid=48), 411,652 triangles on a BVH (kernels K1, K4, K5,
      K6): K5 against its three oracles on the scene's camera and bounce-1
-     rays, K6 against the plain traversal on its shadow rays and against
-     K3 brute force (cull=False) on all three (2^19 lanes each), their times and bounds (K5's
+     rays, K6 against its plain twin and against K3 brute force
+     (cull=False, inside the margin's domain) on all three (2^19 lanes
+     each), their times and bounds (K5's
      row with its boxes tested a ray beside what a ray needs and beside
      the DFS walk's, its stack depth, registers and local memory), K1 at
      2^19 sample indices, K4 at this scene's
@@ -67,8 +70,11 @@ Phases (any failure raises and the script exits non-zero):
   6. hair_patch(n_curves=20000) ("hair_long"), 100,000 segments as 800,000
      cones in 391 superblocks, where kernel K9 gives each ray tile its list of
      superblocks (K7's candidates, K8's order): K9 against its plain version
-     (W and min_tn bit for bit, and the open flag with the reference's K = 16
-     nearest superblocks swept) on every lane; K7/K8 against cull=False, the
+     (W and min_tn bit for bit, the open flag with the reference's K = 16
+     nearest superblocks swept, and the sweep order sorted in the same
+     launch: order, count and tnear bit for bit) on every lane, also with
+     the superblocks three times over (1,173, past a block's threads) and
+     rays no multiple of the tile; K7/K8 against cull=False, the
      list walk and their ascending sweep on every lane and against the plain
      sweep and the plain count of K7's walk on a fixed subset of 2^14 lanes,
      the sub-blocks and cones a ray tests beside what it needs (counted in
@@ -408,21 +414,31 @@ def closest_off(a, b) -> int:
 def outside_domain(args, dense_prim):
     """Lanes of one ray set (K2/K3's arguments) whose hits lie outside the
     box test's margin's domain (ops/slab.py:NU_MIN, PERF.md section 6): for
-    the closest hit, the dense winner's normalised determinant is below
-    NU_MIN; for occlusion, the ray has hits and every one's is. Returns
-    (closest lanes, occlusion lanes), [R] bool each."""
+    the closest hit, the dense winner's (dense_prim: K2's dense plain
+    version or cull=False) normalised determinant is below NU_MIN; for
+    occlusion, the ray has hits and every one's is. Only a lane whose winner
+    lies outside can have no hit inside, so those lanes alone are tested
+    against every triangle, a few at a time (box_field has 411,776).
+    Returns (closest lanes, occlusion lanes), [R] bool each."""
     import torch
 
     from strelka_tpu_torch.kernels import intersect as KI
     from strelka_tpu_torch.ops import slab
 
     o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask = args
-    nu = slab.normalised_det(d, e1, e2)
-    won = dense_prim >= 0
-    nu_won = torch.where(won, nu.gather(1, dense_prim.clamp(min=0).long()[:, None])[:, 0], 1.0)
-    hit = KI._valid(KI.mt_block(o, d, v0, e1, e2, tmin, tmax)[3], mask, ray_mask, 0, exclude)
-    nu_any = torch.where(hit, nu, 0.0).max(dim=1).values
-    return won & (nu_won < slab.NU_MIN), hit.any(dim=1) & (nu_any < slab.NU_MIN)
+    p = dense_prim.clamp(min=0).long()
+    closest = (dense_prim >= 0) & (slab.normalised_det(d, e1[p], e2[p], paired=True) < slab.NU_MIN)
+    occlusion = torch.zeros_like(closest)
+    suspect = torch.nonzero(closest)[:, 0]
+    step = max(1, (1 << 24) // v0.shape[0])
+    for k in range(0, suspect.shape[0], step):
+        lanes = suspect[k:k + step]
+        so, sd = tuple(c[lanes] for c in o), tuple(c[lanes] for c in d)
+        hit = KI._valid(KI.mt_block(so, sd, v0, e1, e2, tmin[lanes], tmax[lanes])[3], mask, ray_mask, 0,
+                        None if exclude is None else exclude[lanes])
+        inside = (hit & (slab.normalised_det(sd, e1, e2) >= slab.NU_MIN)).any(dim=1)
+        occlusion[lanes] = hit.any(dim=1) & ~inside
+    return closest, occlusion
 
 
 def domain_note(lanes, outside, what: str) -> str:
@@ -684,9 +700,10 @@ def phase_grazing(dev):
     and at coplanar overlaps) and the coplanar grids of PLANE_CASES, through
     K2/K3 as check_intersect holds them (0 lanes off the other schedule
     and the plain walks; 0 lanes off the dense versions and cull=False
-    inside the margin's domain) and through K5 on a BVH of the same
+    inside the margin's domain) and through K5 and K6 on a BVH of the same
     triangles (check_k5: 0 lanes off its plain version; 0 off the dense
-    sweep inside the domain). PLANE_CASES aim rays down to a sine of 1e-4
+    sweep inside the domain; K6: 0 lanes off its plain twin, 0 off K3
+    cull=False inside the domain). PLANE_CASES aim rays down to a sine of 1e-4
     to the plane, past the domain (a normalised determinant of
     ops/slab.py:NU_MIN): the lanes whose hits lie outside it are counted
     and printed with how many of them differ, and are not held."""
@@ -702,6 +719,9 @@ def phase_grazing(dev):
         for mask, label in masks:
             check_intersect(flat, grazing_rays(rays, dev), mask, f"{name}, {label} mask", domain=True)
             check_k5(tree, grazing_rays(rays, dev, perm), mask, f"{name}, {label} mask", domain=True)
+            check_bvh_vs_plain(tree, grazing_rays(rays, dev, perm), mask, f"{name}, {label} mask")
+            check_bvh_vs_bruteforce(tree, grazing_rays(rays, dev, perm), mask, f"{name}, {label} mask", flat=flat,
+                                    flat_rays=grazing_rays(rays, dev))
 
 
 def phase_kernels(scene, params):
@@ -740,6 +760,7 @@ def phase_kernels(scene, params):
 
     # ---- K4: the attr table at the camera hits (2^20 indices), bit-equal
     rows.append(gather_row(scene.attr_table, prims, "cornell attr_table at the camera hits"))
+    check_gather_edges(dev)
 
     # ---- K2/K3 (and K5) at the box tests' rounding edge
     phase_grazing(dev)
@@ -747,8 +768,12 @@ def phase_kernels(scene, params):
 
 
 def gather_row(table, prims, where: str):
-    """K4 against its plain version at one table and index set, timed. Its
-    bound counts the table rows these indices name, not the whole table."""
+    """K4 against its plain version at one table and index set, timed (ms
+    back to back, device_ms replayed from a CUDA graph: at the small shapes
+    the wrapper's host time sets ms; zeros_ms, from a CUDA graph too, is
+    PyTorch writing zeros over an output of the same shape: the stores
+    alone, a floor for a copy that must make them). Its bound counts the
+    table rows these indices name, not the whole table."""
     import torch
 
     from strelka_tpu_torch.kernels import gather as KG
@@ -764,15 +789,43 @@ def gather_row(table, prims, where: str):
     log(f"K4 bit-equal (tolerance: none) on {where}: table {tuple(table.shape)} x {n} indices naming "
         f"{rows_named} rows")
     gidx64 = gidx.to(torch.int64)
+    zeros = torch.empty((table.shape[1], n), dtype=torch.float32, device=table.device)
     return dict(
         kernel="gather_rows_t", at=where, shape=(table.shape[0], table.shape[1], n),
         ms=time_ms(lambda: KG.gather_rows_t(table, gidx)),
+        device_ms=graph_ms(lambda: KG.gather_rows_t(table, gidx)),
+        zeros_ms=graph_ms(lambda: zeros.zero_()),
         plain_ms=time_ms(lambda: KG.gather_rows_t_plain(table, gidx)),
         bound_bytes=n * 4 + rows_named * table.shape[1] * 4 + n * table.shape[1] * 4,
         bound_ops_s=0.0,
         max_abs_err=0.0,
         library_ms=time_ms(lambda: torch.index_select(table, 0, gidx64).t().contiguous()),
     )
+
+
+def check_gather_edges(dev):
+    """K4 bit for bit against its plain version at kernels/gather.py:
+    GATHER_EDGES: each word
+    path of the table's rows and of the output, the last block's ragged
+    edge, streaming stores beside one-word stores; indices out of range on
+    both sides (clipped)."""
+    import numpy as np
+    import torch
+
+    from strelka_tpu_torch.kernels import gather as KG
+
+    rows = 300
+    for cols, n, offset in KG.GATHER_EDGES:
+        rng = np.random.default_rng(cols * 7 + n % 97 + offset)
+        buf = torch.tensor(rng.normal(size=offset + rows * cols).astype(np.float32), device=dev)
+        table = buf[offset:].view(rows, cols)
+        idx = torch.tensor(rng.integers(-3, rows + 3, n).astype(np.int32), device=dev)
+        a = held(lambda: KG.gather_rows_t(table, idx))
+        b = KG.gather_rows_t_plain(table, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"K4 differs from its plain version at width {cols}, N {n}, offset {offset}")
+    log(f"K4 bit-equal (tolerance: none) at the edge shapes (width, N, table offset in words) {KG.GATHER_EDGES}")
 
 
 def finish_bounds(rows):
@@ -961,51 +1014,67 @@ def check_k5(scene, rays, ray_mask, name, domain: bool = False):
 
 
 def check_bvh_vs_plain(scene, rays, ray_mask, name):
-    """K6 against the plain traversal on one ray set: the same walk and
-    arithmetic, so occlusion must be EQUAL. Returns (args, the plain walk's
-    TraversalCounts, plain ms)."""
+    """K6 against its plain twin on one ray set (ops/bvh.py:
+    intersect_bvh_plain with margin=True: the same walk, box test and
+    arithmetic), so occlusion must be EQUAL on every lane. Returns (args,
+    the plain walk's TraversalCounts, plain ms)."""
     import torch
 
     from strelka_tpu_torch.kernels import bvh as KB
     from strelka_tpu_torch.ops.bvh import intersect_bvh_plain
 
     args = bvh_args(scene, rays, ray_mask)
-    out_p, plain_ms = timed_once_ms(lambda: intersect_bvh_plain(*args, any_hit=True, counts=True, name="bvh_any"))
+    out_p, plain_ms = timed_once_ms(lambda: intersect_bvh_plain(*args, any_hit=True, counts=True, margin=True,
+                                                                name="bvh_any"))
     p_p, walk = out_p[1], out_p[4]
     occ = held(lambda: KB.bvh_any(*args))
     torch.cuda.synchronize()
     bad = int((occ != (p_p >= 0)).sum())
     if bad:
         raise AssertionError(f"K6 on {name}: {bad} occlusion results differ from the plain traversal")
-    log(f"K6 on {name} rays ({occ.shape[0]}): occlusion equal to the plain traversal ({int(occ.sum())} "
+    log(f"K6 on {name} rays ({occ.shape[0]}): occlusion equal to its plain twin ({int(occ.sum())} "
         f"occluded; tolerance: none); plain walk {walk.steps} steps, {plain_ms:.0f} ms")
     return args, walk, plain_ms
 
 
-def check_bvh_vs_bruteforce(scene, rays, ray_mask, name):
-    """K6 against K3 sweeping every triangle of the same (leaf-ordered)
-    arrays (cull=False: the BVH scene has no group boxes): an independent
-    oracle. K6 walks the reference's exact boxes, which may lose a grazing
-    hit that brute force keeps (a slab test can cull an edge-on triangle),
-    so up to 1e-4 of the lanes may differ, the reference's own bar being 1%
-    of prims (tests/test_bvh.py); the count is printed. (K5 is held to the
-    dense sweep on every lane by check_k5.) Returns the fraction of lanes
-    that differ."""
+def check_bvh_vs_bruteforce(scene, rays, ray_mask, name, flat=None, flat_rays=None, cap=None):
+    """K6 against K3 sweeping every triangle (cull=False), an independent
+    oracle: the same leaf-ordered triangles and rays, or those of `flat`
+    (the same triangles in another order) with `flat_rays`. Occlusion equal
+    on every lane inside the box test's margin's domain (PERF.md section 6:
+    a lane with a hit at a normalised determinant of NU_MIN or more keeps
+    it; outside_domain); the lanes outside it are counted and printed with
+    how many of them differ, and with `cap` (the main paths' ray sets) at
+    most that fraction of all lanes may differ. Returns a dict of those
+    counts."""
     import torch
 
     from strelka_tpu_torch.kernels import bvh as KB
     from strelka_tpu_torch.kernels import intersect as KI
 
     occ_k = KB.bvh_any(*bvh_args(scene, rays, ray_mask))
-    occ_f = KI.intersect_any(*flat_args(scene, rays, ray_mask), cull=False)
+    fargs = flat_args(scene if flat is None else flat, rays if flat_rays is None else flat_rays, ray_mask)
+    occ_f = KI.intersect_any(*fargs, cull=False)
+    outside = outside_domain(fargs, KI.intersect_closest(*fargs, cull=False)[1])[1]
     torch.cuda.synchronize()
-    n = occ_k.shape[0]
-    bad_occ = int((occ_k != occ_f).sum())
-    log(f"K6 vs brute force (K3 over {scene.v0.shape[0]} triangles) on {name} rays ({n}): occlusion differs on "
-        f"{bad_occ} lanes (bar: at most {1e-4 * n:.0f})")
-    if bad_occ > 1e-4 * n:
-        raise AssertionError(f"K6 disagrees with brute force on {name} rays")
-    return bad_occ / n
+    lanes = occ_k != occ_f
+    off = int((lanes & ~outside).sum())
+    res = dict(lanes=int(occ_k.shape[0]), occluded=int(occ_f.sum()), off=off, outside=int(outside.sum()),
+               outside_off=int((lanes & outside).sum()))
+    capped = cap is not None and int(lanes.sum()) > cap * res["lanes"]
+    bar = "" if cap is None else f", {int(lanes.sum())} in all (bar: at most {cap * res['lanes']:.0f})"
+    log(f"K6 vs brute force (K3 over {fargs[5].shape[0]} triangles) on {name} rays ({res['lanes']}, "
+        f"{res['occluded']} occluded): occlusion differs on {off} lanes inside the margin's domain (bar: 0); "
+        f"lanes {domain_note(lanes, outside, 'K6')}{bar}")
+    if off or capped:
+        raise AssertionError(f"K6 disagrees with brute force on {name} rays: {off} lanes inside the margin's domain, "
+                             f"{int(lanes.sum())} in all")
+    return res
+
+
+def bruteforce_summary(results):
+    """The K6 brute-force checks of a scene, summed: lanes, lanes off inside the domain, outside it, and off there."""
+    return {k: sum(r[k] for r in results) for k in ("lanes", "off", "outside", "outside_off")}
 
 
 def kernel_resources(report: str, needle: str) -> dict:
@@ -1214,10 +1283,12 @@ def phase_flat_scene(dev):
     _, camera, bounce1, shadow, _, _, _ = main_path_rays(tree, params, dev, BOX)
     check_k5(tree, camera, RAY_MASK_PRIMARY, "grid-12 camera")
     check_k5(tree, bounce1, RAY_MASK_PRIMARY, "grid-12 bounce-1")
-    check_bvh_vs_plain(tree, shadow, RAY_MASK_SHADOW, "grid-12 shadow")
-    differ = max(check_bvh_vs_bruteforce(tree, r, mask, f"grid-12 {label}") for r, mask, label in (
-        (camera, RAY_MASK_PRIMARY, "camera"), (bounce1, RAY_MASK_PRIMARY, "bounce-1"),
-        (shadow, RAY_MASK_SHADOW, "shadow")))
+    sets = ((camera, RAY_MASK_PRIMARY, "camera"), (bounce1, RAY_MASK_PRIMARY, "bounce-1"),
+            (shadow, RAY_MASK_SHADOW, "shadow"))
+    for r, mask, label in sets:
+        check_bvh_vs_plain(tree, r, mask, f"grid-12 {label}")
+    differ = bruteforce_summary([check_bvh_vs_bruteforce(tree, r, mask, f"grid-12 {label}", cap=1e-4)
+                                 for r, mask, label in sets])
     check_bvh_ties(tree, camera, "grid-12")
 
     # ---- the two golden-config renders
@@ -1240,7 +1311,7 @@ def phase_flat_scene(dev):
         raise AssertionError("the flat and the BVH render of box_field(grid=12) disagree")
     result = dict(triangles=flat.num_triangles, padded_triangles=ntri, rays=n, kernels=rows,
                   launches_golden_render={k: flat_counts[k] for k in ("intersect_closest", "intersect_any")},
-                  bvh_any_vs_bruteforce_lanes_differing_frac=differ,
+                  bvh_any_vs_bruteforce=differ,
                   render_max_abs_diff=float(diff.max()), render_pixels_differing=differing, render_ssim=s)
     return result
 
@@ -1261,10 +1332,11 @@ def phase_box_kernels(scene, params):
         f"{scene.bvh.children.shape[0]} rows of its child table")
     check_k5(scene, camera, RAY_MASK_PRIMARY, "box_field camera")
     b1 = check_k5(scene, bounce1, RAY_MASK_PRIMARY, "box_field bounce-1")
-    sh = check_bvh_vs_plain(scene, shadow, RAY_MASK_SHADOW, "box_field shadow")
-    differ = max(check_bvh_vs_bruteforce(scene, r, mask, f"box_field {label}") for r, mask, label in (
-        (camera, RAY_MASK_PRIMARY, "camera"), (bounce1, RAY_MASK_PRIMARY, "bounce-1"),
-        (shadow, RAY_MASK_SHADOW, "shadow")))
+    sets = ((camera, RAY_MASK_PRIMARY, "camera"), (bounce1, RAY_MASK_PRIMARY, "bounce-1"),
+            (shadow, RAY_MASK_SHADOW, "shadow"))
+    *_, sh = [check_bvh_vs_plain(scene, r, mask, f"box_field {label}") for r, mask, label in sets]  # K6's row: shadow
+    differ = bruteforce_summary([check_bvh_vs_bruteforce(scene, r, mask, f"box_field {label}", cap=1e-4)
+                                 for r, mask, label in sets])
     rows += bvh_rows(scene, b1, sh, where)
     rows.append(gather_row(scene.attr_table, prims, "box_field attr_table at the camera hits"))
     rows.append(gather_row(scene.light_table, lid, "box_field light_table at the sampled light ids"))
@@ -1283,36 +1355,54 @@ def cone_args(scene, rays):
     return o, d, rays["tmin"].contiguous(), rays["tmax"].contiguous(), scene.packed_cones
 
 
-def check_open_w(pc, o, d, tmin, tmax, t_closest, name):
+def check_open_w(pc, o, d, tmin, tmax, t_closest, name, sbounds=None):
     """K9 against its plain version on one ray set, at the tile the cone
-    sweeps use: W equal and min_tn bit for bit without the open flag (the
-    main path's call), and with the open flag too, each tile's OPEN_K nearest
-    superblocks taken as swept and the closest sweep's t as the bound (the
-    reference's use after phase 1). Returns (plain ms, mean superblocks a
-    tile passes)."""
+    sweeps use, over the scene's superblock boxes (or `sbounds`): W equal
+    and min_tn bit for bit without the open flag (the main path's launch),
+    and with the open flag too, each tile's OPEN_K nearest superblocks taken
+    as swept and the closest sweep's t as the bound (the reference's use
+    after phase 1); and the sweep order the main path takes from the same
+    launch (sweep_order: order, count and tnear) equal to the plain twin's
+    (sweep_order_plain, computed on the card) bit for bit. Returns (plain
+    ms, mean superblocks a tile passes, the comparisons the tiles' orders
+    need: c log2 c for the c superblocks a tile passes, a comparison sort's
+    least; the others are placed by index)."""
     import torch
 
     from strelka_tpu_torch.kernels import open_w as KO
     from strelka_tpu_torch.ops import curves as C
 
     tile = C.CONE_ORDER_TILE
+    sb = pc.sbounds if sbounds is None else sbounds
     bits = lambda a, b: a.view(torch.int32) != b.view(torch.int32)  # noqa: E731
-    open_k, w_k, tn_k = held(lambda: KO.open_w(o, d, tmin, tmax, pc.sbounds, tile=tile))
-    (open_p, w_p, tn_p), plain_ms = timed_once_ms(lambda: KO.open_w_plain(o, d, tmin, tmax, pc.sbounds, tile=tile))
+    open_k, w_k, tn_k = held(lambda: KO.open_w(o, d, tmin, tmax, sb, tile=tile))
+    (open_p, w_p, tn_p), plain_ms = timed_once_ms(lambda: KO.open_w_plain(o, d, tmin, tmax, sb, tile=tile))
     off = int((w_k != w_p).sum()) + int(bits(tn_k, tn_p).sum()) + int(open_k.sum()) + int(open_p.sum())
-    _, r2t, d2 = C.tile_sweep_order_k(o, pc.sbounds, tile, OPEN_K)
+    _, r2t, d2 = C.tile_sweep_order_k(o, sb, tile, OPEN_K)
     bound = torch.minimum(t_closest, tmax)
-    open_k2, w_k2, tn_k2 = held(lambda: KO.open_w(o, d, tmin, bound, pc.sbounds, d2, r2t, tile=tile))
-    open_p2, w_p2, tn_p2 = KO.open_w_plain(o, d, tmin, bound, pc.sbounds, d2, r2t, tile=tile)
+    open_k2, w_k2, tn_k2 = held(lambda: KO.open_w(o, d, tmin, bound, sb, d2, r2t, tile=tile))
+    open_p2, w_p2, tn_p2 = KO.open_w_plain(o, d, tmin, bound, sb, d2, r2t, tile=tile)
     off2 = int((open_k2 != open_p2).sum()) + int((w_k2 != w_p2).sum()) + int(bits(tn_k2, tn_p2).sum())
+    got = held(lambda: KO.sweep_order(o, d, tmin, tmax, sb, tile))
+    want = KO.sweep_order_plain(o, d, tmin, tmax, sb, tile)
+    off3 = (int((got.order != want.order).sum()) + int((got.count != want.count).sum())
+            + int(bits(got.tnear, want.tnear).sum()))
+    # entries of a passed head whose key equals the one before: where only "the lower index first" orders them
+    key = want.tnear + 0.0
+    head = torch.arange(key.shape[1] - 1, device=key.device)[None, :] < (want.count[:, None] - 1)
+    ties = int(((key[:, 1:] == key[:, :-1]) & head).sum())
     passed = float(w_k.sum()) / w_k.shape[0]
+    c = w_k.sum(dim=1).double()
+    sort_ops = float(torch.where(c > 1, c * torch.log2(c.clamp(min=1)), 0.0).sum())
     log(f"K9 on {name} rays ({tmin.shape[0]} in {w_k.shape[0]} tiles of {tile} x {w_k.shape[1]} superblocks): a tile "
         f"passes {passed:.1f} superblocks; W, min_tn differ from the plain version on {off} entries; with the "
         f"{OPEN_K} nearest swept and the closest t as bound {int(open_k2.sum())} rays are open, open, W, min_tn "
-        f"differ on {off2} entries (bar: 0 and 0, min_tn bit for bit); plain {plain_ms:.1f} ms")
-    if off or off2:
+        f"differ on {off2} entries; the sweep order (order, count, tnear) differs from the plain twin's on {off3} "
+        f"entries, {ties} passed entries tied with the one before (bar: 0, 0 and 0, min_tn and tnear bit for bit); "
+        f"plain {plain_ms:.1f} ms")
+    if off or off2 or off3:
         raise AssertionError(f"K9 on {name} rays disagrees with its plain version")
-    return plain_ms, passed
+    return plain_ms, passed, sort_ops
 
 
 def check_cones(scene, rays, name, subset=None):
@@ -1475,14 +1565,14 @@ def cone_rows(scene, b1, sh, where: str):
         tile, nsb = b1["order"].tile, pc.sbounds.shape[1]
         n_tiles = -(-n // tile)
         live = int((tmax > tmin).sum())
-        plain_ms, passed = b1["open_w"]
+        plain_ms, passed, sort_ops = b1["open_w"]
         rows.append(dict(
             kernel="open_w", at=f"{where}, bounce-1 rays in tiles of {tile}", shape=(n, nsb, tile, 0),
             ms=time_ms(lambda: KO.open_w(o, d, tmin, tmax, pc.sbounds, tile=tile)),
             order_ms=time_ms(lambda: KO.sweep_order(o, d, tmin, tmax, pc.sbounds, tile)),
             plain_ms=plain_ms,
-            bound_bytes=ray_bytes(tmin, tmax, None, 1) + nsb * 24 + n_tiles * nsb * 5,
-            bound_ops_s=live * nsb * KO.SLAB_FLOPS / F32_OPS_PER_S,
+            bound_bytes=ray_bytes(tmin, tmax, None, 1) + nsb * 24 + n_tiles * nsb * 13 + n_tiles * 4,
+            bound_ops_s=(live * nsb * KO.SLAB_FLOPS + sort_ops) / F32_OPS_PER_S,
             max_abs_err=0.0, library_ms=None, superblocks_passed_per_tile=passed,
         ))
     return rows
@@ -1519,6 +1609,14 @@ def phase_hair_kernels(scene, params, cfg: Config, subset_lanes=None):
     b1 = check_cones(scene, bounce1, f"{cfg.name} bounce-1", subset)
     sh = check_cones(scene, shadow, f"{cfg.name} shadow", subset)
     rows += cone_rows(scene, b1, sh, where)
+    if b1["order"] is not None:
+        # K9 where the boxes are no multiple of 32 and more than a block's threads (the scene's three
+        # times over: every key tied with its copies') and the rays no multiple of the tile
+        o, d, tmin, tmax, pc = b1["args"]
+        cut = lambda a: a[:n - 37].contiguous()  # noqa: E731
+        check_open_w(pc, tuple(cut(c) for c in o), tuple(cut(c) for c in d), cut(tmin), cut(tmax), cut(b1["t"]),
+                     f"{cfg.name} bounce-1 (the first {n - 37}) x its superblocks three times over",
+                     sbounds=torch.cat([pc.sbounds] * 3, dim=1).contiguous())
 
     # ---- K4 on this scene's tables
     rows.append(gather_row(scene.attr_table, prims, f"{cfg.name} attr_table at the camera hits"))
@@ -1645,8 +1743,8 @@ def main() -> int:
 
     # ---- 7. results
     print(json.dumps({"main_path": main_cornell, "golden_ssim": ssim_cornell}), flush=True)
-    print(json.dumps({"main_path": main_box, "golden_ssim": ssim_box,
-                      "bvh_any_vs_bruteforce_lanes_differing_frac": box_differ}), flush=True)
+    print(json.dumps({"main_path": main_box, "golden_ssim": ssim_box, "bvh_any_vs_bruteforce": box_differ}),
+          flush=True)
     print(json.dumps({"flat_scene": {k: v for k, v in flat.items() if k != "kernels"}}), flush=True)
     print_kernel_lines(rows, main_cornell)
     print_kernel_lines(flat["kernels"])
@@ -1676,11 +1774,12 @@ def main() -> int:
             **{f"launches_{m['scene']}": m["launch_counts"][name] for m in mains},
         }
         entry.update({k: mine[0][0][k] for k in numbers})
+        entry.update({k: mine[0][0][k] for k in ("order_ms",) if k in mine[0][0]})
         entry.update({k: mine[0][0][k] for k in WALK_KEYS if k in mine[0][0]})
         # plain_lanes: the lanes the plain version ran on, where they are fewer than the kernel's
         entry["shapes"] = [dict(at=r["at"], shape=list(r["shape"]), launches=shape_launches(m, r) if m else 0,
                                 **{k: r[k] for k in numbers},
-                                **{k: r[k] for k in ("dense_bound_ms", "device_ms", "schedule") if k in r},
+                                **{k: r[k] for k in ("dense_bound_ms", "device_ms", "schedule", "order_ms") if k in r},
                                 **{k: r[k] for k in ("plain_lanes",) if r.get(k, r["shape"][0]) != r["shape"][0]})
                            for r, m in mine]
         kernels.append(entry)

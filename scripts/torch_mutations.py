@@ -25,7 +25,16 @@ Mutants:
                   rays, tmax at a leaf box's lowered tnear, make such rays);
   margin_zero     the box test's pad and slack set to 0 in both twins
                   (csrc/common.cuh and ops/slab.py): the reference's exact
-                  test; the grazing soup must catch it.
+                  test; the grazing soup must catch it;
+  k6_margin_zero  K6 alone back on the reference's exact slab test, in the
+                  kernel and in its plain twin (the walk ops/bvh.py runs
+                  with margin=True): the brute-force check of the grazing
+                  phase must catch it inside the margin's domain;
+  k9_ties_high    K9's sort orders equal keys by the higher index first: the
+                  order check against the plain twin must catch it;
+  k4_vec_short    K4's 16-byte row path drops the last word of each row's
+                  last chunk: the bit-equality at the main path's widths
+                  must catch it.
 """
 
 from __future__ import annotations
@@ -54,6 +63,27 @@ MUTANTS = {
         ("strelka_tpu_torch/csrc/common.cuh", "kStrelkaSlack = 0x1p-20f", "kStrelkaSlack = 0.0f"),
         ("strelka_tpu_torch/ops/slab.py", "PAD = 2.0 ** -13", "PAD = 0.0"),
         ("strelka_tpu_torch/ops/slab.py", "SLACK = 2.0 ** -20", "SLACK = 0.0"),
+    ],
+    "k6_margin_zero": [
+        ("strelka_tpu_torch/csrc/bvh.cu",
+         """            const float tnear = strelka_slab_safe(lx, ly, lz, hx, hy, hz, strelka_box_scale(lx, ly, lz, hx, hy, hz), o0,
+                                                  o1, o2, inv0, inv1, inv2, om, tn, tx);""",
+         """            const float tnear = [&] {
+                const float x0 = (lx - o0) * inv0, x1 = (hx - o0) * inv0;
+                const float y0 = (ly - o1) * inv1, y1 = (hy - o1) * inv1;
+                const float z0 = (lz - o2) * inv2, z1 = (hz - o2) * inv2;
+                const float t0 = fmaxf(fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)), fminf(z0, z1)), tn);
+                const float t1 = fminf(fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)), fmaxf(z0, z1)), tx);
+                return t0 <= t1 ? t0 : INFINITY;
+            }();"""),
+        ("strelka_tpu_torch/ops/bvh.py", "hit_box = slab.slab_tnear(oc, dc, tmn, best_t, boxes)[:, 0] < float(\"inf\")",
+         "hit_box = slab.slab_tnear(oc, dc, tmn, best_t, boxes, pad=0.0, slack=0.0)[:, 0] < float(\"inf\")"),
+    ],
+    "k9_ties_high": [
+        ("strelka_tpu_torch/csrc/open_w.cu", "(k == key && f < e)", "(k == key && f > e)"),
+    ],
+    "k4_vec_short": [
+        ("strelka_tpu_torch/csrc/gather.cu", "col[(f + 3) * kLanes] = v.w;", "if (f + 4 < cols) col[(f + 3) * kLanes] = v.w;"),
     ],
 }
 LEFT_OUT = shutil.ignore_patterns("build", "_build", ".git", "__pycache__")

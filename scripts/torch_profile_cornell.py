@@ -41,10 +41,8 @@ KERNELS = {
     "tri_thread_kernel<true": "intersect_any",
     "tri_thread_kernelILb1E": "intersect_any",
     "gather_rows_t_kernel": "gather_rows_t",
-    "bvh_kernel<false>": "bvh_closest",
-    "bvh_kernelILb0E": "bvh_closest",  # the same, where the profiler keeps the mangled name
-    "bvh_kernel<true>": "bvh_any",
-    "bvh_kernelILb1E": "bvh_any",
+    "bvh_closest_kernel": "bvh_closest",
+    "bvh_any_kernel": "bvh_any",
     "cone_kernel<false": "cone_closest",
     "cone_kernelILb0E": "cone_closest",
     "cone_kernel<true": "cone_any",

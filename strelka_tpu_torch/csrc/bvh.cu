@@ -39,16 +39,21 @@
 // is a chain of dependent loads a ray. Design: one ray per thread, the ray
 // and its best hit in registers, the stack in local memory (L1).
 //
-// K6, any hit: the reference's own walk, strelka_tpu/ops/bvh.py:
-// intersect_bvh (plain version: ops/bvh.py:intersect_bvh_plain), the
+// K6, any hit: the reference's walk, strelka_tpu/ops/bvh.py:intersect_bvh
+// (plain version: ops/bvh.py:intersect_bvh_plain with margin=True), the
 // stackless skip-link walk in DFS order over the packed 32-byte rows of
 // pack_nodes (bb_min, bb_max, skip, start << 3 | count) read as two 16-byte
-// loads: per step the ray tests its node's box with the reference's exact
-// slab test (1 / (|d| > 1e-20 ? d : 1e-20), tnear <= tfar with equality, the
-// far end its tmax), tests a leaf's up to 4 triangles in order and stops at
-// the first hit, and goes to node + 1 (entered an internal node) or
-// skip[node]. box_field is full of axis-aligned faces whose leaf boxes have
-// zero thickness; a slab test rounded differently would drop their hits.
+// loads: per step the ray tests its node's box with the port's box test
+// (common.cuh:strelka_slab_safe, the box's scale from the row's six bounds,
+// the far end the ray's tmax; entered where the lowered tnear is finite and
+// the box is not inverted, as ops/slab.py:slab_tnear decides), tests a
+// leaf's up to 4 triangles in order and stops at the first hit, and goes to
+// node + 1 (entered an internal node) or skip[node]. The reference's exact
+// slab test drops a hit that Möller–Trumbore's rounding puts just outside
+// its leaf's box (a grazing ray at the shared edges of a coplanar grid);
+// the margin keeps every hit the walk's triangle test accepts at a
+// normalised determinant of ops/slab.py:NU_MIN or more. Any hit needs no
+// order, so the walk stays the reference's.
 
 #include "common.cuh"
 
@@ -67,28 +72,27 @@ __global__ void __launch_bounds__(kThreads) bvh_any_kernel(StrelkaRays rays, con
     const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const float tn = rays.tmin[i];
-    float best_t = rays.tmax[i];
+    const float tx = rays.tmax[i];
     int best_p = -1;
-    if (best_t > tn) {
+    if (tx > tn) {
         const float o0 = rays.ox[i], o1 = rays.oy[i], o2 = rays.oz[i];
         const float d0 = rays.dx[i], d1 = rays.dy[i], d2 = rays.dz[i];
         const int ex = rays.exclude ? rays.exclude[i] : -1;
         const float inv0 = 1.0f / (fabsf(d0) > 1e-20f ? d0 : 1e-20f);
         const float inv1 = 1.0f / (fabsf(d1) > 1e-20f ? d1 : 1e-20f);
         const float inv2 = 1.0f / (fabsf(d2) > 1e-20f ? d2 : 1e-20f);
+        const float om = fmaxf(fmaxf(fabsf(o0), fabsf(o1)), fabsf(o2));
         const int last_tri = tris.count - 1;
         int node = 0;
         while (node < n_nodes) {
             const int4 a = __ldg(nodes + 2 * static_cast<long long>(node));
             const int4 b = __ldg(nodes + 2 * static_cast<long long>(node) + 1);
-            // slab test: (bound - o) * inv_d per axis
-            const float x0 = (__int_as_float(a.x) - o0) * inv0, x1 = (__int_as_float(a.w) - o0) * inv0;
-            const float y0 = (__int_as_float(a.y) - o1) * inv1, y1 = (__int_as_float(b.x) - o1) * inv1;
-            const float z0 = (__int_as_float(a.z) - o2) * inv2, z1 = (__int_as_float(b.y) - o2) * inv2;
-            const float tnear = fmaxf(fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)), fminf(z0, z1)), tn);
-            const float tfar = fminf(fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)), fmaxf(z0, z1)), best_t);
+            const float lx = __int_as_float(a.x), ly = __int_as_float(a.y), lz = __int_as_float(a.z);
+            const float hx = __int_as_float(a.w), hy = __int_as_float(b.x), hz = __int_as_float(b.y);
+            const float tnear = strelka_slab_safe(lx, ly, lz, hx, hy, hz, strelka_box_scale(lx, ly, lz, hx, hy, hz), o0,
+                                                  o1, o2, inv0, inv1, inv2, om, tn, tx);
             const int skip = b.z;
-            if (!(tnear <= tfar)) {
+            if (tnear == INFINITY || !(lx <= hx)) {
                 node = skip;
                 continue;
             }
@@ -107,7 +111,7 @@ __global__ void __launch_bounds__(kThreads) bvh_any_kernel(StrelkaRays rays, con
                 float t, u, v;
                 if (strelka_ray_tri(__ldg(pv), __ldg(pv + 1), __ldg(pv + 2), __ldg(p1), __ldg(p1 + 1),
                                     __ldg(p1 + 2), __ldg(p2), __ldg(p2 + 1), __ldg(p2 + 2), o0, o1, o2, d0, d1, d2,
-                                    tn, best_t, t, u, v)) {
+                                    tn, tx, t, u, v)) {
                     best_p = prim;
                     break;
                 }

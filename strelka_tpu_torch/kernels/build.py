@@ -61,8 +61,8 @@ SIGNATURES = {
     "strelka_cone_any": [_VP] * 11 + [_I32] * 4 + [_VP, _VP, _I32, _I64, _I32] + [_VP] * 5,
     # any hit, cull, near to far, list cap; blocks per SM, threads a block
     "strelka_cone_occupancy": [_I32] * 4 + [_VP, _VP],
-    # 8 ray components, superblock boxes, nsb, d2, r2t, tile, n; open, W, min_tn, stream
-    "strelka_open_w": [_VP] * 9 + [_I32, _VP, _VP, _I32, _I64] + [_VP] * 4,
+    # 8 ray components, superblock boxes, nsb, d2, r2t, tile, n; open, W, min_tn, order, tnear, count, stream
+    "strelka_open_w": [_VP] * 9 + [_I32, _VP, _VP, _I32, _I64] + [_VP] * 7,
     "strelka_error_string": [_I32],
 }
 

@@ -10,9 +10,11 @@ K5 walks each ray's tree near to far over the child table
 a per-thread stack of ops/bvh.py:STACK entries; its plain version is
 `ops/bvh.py:intersect_bvh_ordered_plain` (the same order, test and
 counters), and its result is the dense sweep's (t, prim) on every lane.
-K6 runs the reference's stackless DFS walk over the packed rows; its plain
-version is `ops/bvh.py:intersect_bvh_plain`, the CPU reference's
-`intersect_bvh` in PyTorch. Both are held to equality with their plain
+K6 runs the reference's stackless DFS walk over the packed rows with the
+port's box test (ops/slab.py:slab_tnear); its plain version is
+`ops/bvh.py:intersect_bvh_plain(margin=True)`, the CPU reference's
+`intersect_bvh` in PyTorch with that test (its default keeps the
+reference's exact one). Both are held to equality with their plain
 versions.
 
 Rays as for K2/K3: o and d are (x, y, z) triples of [N] f32 tensors,
@@ -42,7 +44,7 @@ def closest_plain(o, d, tmin, tmax, exclude, bvh: DeviceBvh, v0, e1, e2, mask, r
 def any_plain(o, d, tmin, tmax, exclude, bvh: DeviceBvh, v0, e1, e2, mask, ray_mask: int):
     """Plain K6 -> occluded [N] bool."""
     prim = intersect_bvh_plain(o, d, tmin, tmax, exclude, bvh, v0, e1, e2, mask, ray_mask, any_hit=True,
-                               name="bvh_any")[1]
+                               margin=True, name="bvh_any")[1]
     return prim >= 0
 
 

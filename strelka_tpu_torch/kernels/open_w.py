@@ -17,8 +17,11 @@ lowered tnear < bound, tmin < bound and the box is not inverted. Returns
 min_tn holds the test's lowered tnears: a superblock that holds a ray's
 hit is never left out of its tile's row. The cone sweeps
 (kernels/cones.py) take their near-to-far superblock order from W and
-min_tn: `sweep_order`. The plain version takes pallas_open_w's exact test,
-bit for bit, when asked (`exact=True`); the kernel has no such mode.
+min_tn: `sweep_order`, each tile's passed boxes by (min_tn, index) with
+-0.0 taken as +0.0, then the others by index. One launch of the kernel
+computes W, min_tn, open and that order; `open_w` and `sweep_order` are two
+wrappers over it. The plain version takes pallas_open_w's exact test, bit
+for bit, when asked (`exact=True`); the kernel has no such mode.
 
 Rays: o and d are (x, y, z) triples of [N] f32 tensors, tmin/bound [N] f32.
 sbounds [8, nsb] f32 (lo.xyz, hi.xyz, two unused rows); d2 [n_tiles, nsb]
@@ -37,6 +40,7 @@ from strelka_tpu_torch.ops import slab
 
 BIG = 1e16
 MAX_TILE = 1024
+MAX_SMEM = 232448  # the H100's shared memory a block (csrc/open_w.cu:kMaxSmem)
 # f32 operations of one (ray, box) pair: 6 differences, 6 products, 6 minima
 # and maxima of the pairs, 6 folds into tnear and tfar, 2 comparisons (the
 # box's own lo <= hi is not the pair's)
@@ -94,6 +98,20 @@ def open_w_plain(o, d, tmin, bound, sbounds, d2=None, r2t=None, tile: int = MAX_
     return open_.reshape(-1)[:n], torch.cat(w_cols, dim=1), torch.cat(tn_cols, dim=1)
 
 
+def smem_bytes(nsb: int, tile: int) -> int:
+    """Shared memory a block of the kernel takes (csrc/open_w.cu:smem_bytes):
+    the tile's rays, 40 bytes each, 16 bytes a box (min_tn, the passed
+    list's key and index, the box's place) and a count a warp."""
+    return 40 * tile + 16 * nsb + 4 * (MAX_TILE // 32)
+
+
+def check_shared(nsb: int, tile: int) -> None:
+    """Raise where a block's shared memory does not hold the tile's rays and its row's sort."""
+    if smem_bytes(nsb, tile) > MAX_SMEM:
+        raise ValueError(f"open_w: {nsb} superblocks in tiles of {tile} need {smem_bytes(nsb, tile)} bytes of shared "
+                         f"memory a block; the card has {MAX_SMEM}")
+
+
 def _check(o, d, tmin, bound, sbounds, d2, r2t, tile: int) -> None:
     K.require_cuda(tmin, "open_w")
     n = tmin.shape[0]
@@ -106,6 +124,7 @@ def _check(o, d, tmin, bound, sbounds, d2, r2t, tile: int) -> None:
     if (sbounds.dtype != torch.float32 or sbounds.dim() != 2 or sbounds.shape[0] != 8 or sbounds.shape[1] < 1
             or not sbounds.is_contiguous() or sbounds.device != dev):
         raise ValueError(f"open_w: superblock boxes must be contiguous [8, nsb] f32 on {dev}")
+    check_shared(sbounds.shape[1], tile)
     if (d2 is None) != (r2t is None):
         raise ValueError("open_w: d2 and r2t go together")
     if d2 is not None:
@@ -115,10 +134,8 @@ def _check(o, d, tmin, bound, sbounds, d2, r2t, tile: int) -> None:
                 raise ValueError(f"open_w: d2 [{n_tiles}, {nsb}] and r2t [{n_tiles}] must be contiguous f32 on {dev}")
 
 
-def open_w(o, d, tmin, bound, sbounds, d2=None, r2t=None, tile: int = MAX_TILE):
-    """K9 -> (open [N] bool, W [n_tiles, nsb] bool, min_tn [n_tiles, nsb] f32)."""
-    if tmin.device.type == "cpu":
-        return open_w_plain(o, d, tmin, bound, sbounds, d2, r2t, tile)
+def _launch(o, d, tmin, bound, sbounds, d2, r2t, tile: int):
+    """One launch of K9 -> (open, W, min_tn, SweepOrder)."""
     _check(o, d, tmin, bound, sbounds, d2, r2t, tile)
     n, nsb = tmin.shape[0], sbounds.shape[1]
     n_tiles = -(-n // tile)
@@ -126,22 +143,43 @@ def open_w(o, d, tmin, bound, sbounds, d2=None, r2t=None, tile: int = MAX_TILE):
     open_ = torch.empty(n, dtype=torch.bool, device=dev)
     w = torch.empty((n_tiles, nsb), dtype=torch.bool, device=dev)
     tn = torch.empty((n_tiles, nsb), dtype=torch.float32, device=dev)
+    order = torch.empty((n_tiles, nsb), dtype=torch.int32, device=dev)
+    tnear = torch.empty((n_tiles, nsb), dtype=torch.float32, device=dev)
+    count = torch.empty(n_tiles, dtype=torch.int32, device=dev)
     if n:
         rc = build.load().strelka_open_w(
             *(a.data_ptr() for a in (*o, *d, tmin, bound)), sbounds.data_ptr(), nsb,
             d2.data_ptr() if d2 is not None else None, r2t.data_ptr() if r2t is not None else None, tile, n,
-            open_.data_ptr(), w.data_ptr(), tn.data_ptr(), build.stream_ptr(dev),
+            *(a.data_ptr() for a in (open_, w, tn, order, tnear, count)), build.stream_ptr(dev),
         )
         build.check(rc, "strelka_open_w")
         K.count_launch("open_w", (n, nsb, tile, int(d2 is not None)))  # rays, boxes, tile, open flag
-    return open_, w, tn
+    return open_, w, tn, SweepOrder(order, count, tile, tnear)
+
+
+def open_w(o, d, tmin, bound, sbounds, d2=None, r2t=None, tile: int = MAX_TILE):
+    """K9 -> (open [N] bool, W [n_tiles, nsb] bool, min_tn [n_tiles, nsb] f32)."""
+    if tmin.device.type == "cpu":
+        return open_w_plain(o, d, tmin, bound, sbounds, d2, r2t, tile)
+    return _launch(o, d, tmin, bound, sbounds, d2, r2t, tile)[:3]
+
+
+def sweep_order_plain(o, d, tmin, tmax, sbounds, tile: int) -> SweepOrder:
+    """Plain K9's sweep order: open_w_plain, then each tile's passed boxes by
+    (min_tn, index), -0.0 taken as +0.0 (a radix sort on the card orders
+    -0.0 before +0.0, a comparison sort takes them as equal), then the
+    others by index; with the min_tn entries themselves in that order and
+    the passed boxes' count."""
+    _, w, tn = open_w_plain(o, d, tmin, tmax, sbounds, tile=tile)
+    order = torch.sort(torch.where(w, tn + 0.0, float("inf")), dim=1, stable=True).indices
+    return SweepOrder(order.to(torch.int32), w.sum(dim=1, dtype=torch.int32), tile, tn.gather(1, order))
 
 
 def sweep_order(o, d, tmin, tmax, sbounds, tile: int) -> SweepOrder:
     """The cone sweeps' order per ray tile from K9: the superblocks some ray
     of the tile passes, by the least entry distance among the tile's rays
     (of equal distances the lower index first), then the others; with those
-    distances in the same order."""
-    _, w, tn = open_w(o, d, tmin, tmax, sbounds, tile=tile)
-    tnear, order = torch.sort(tn, dim=1, stable=True)
-    return SweepOrder(order.to(torch.int32), w.sum(dim=1, dtype=torch.int32), tile, tnear)
+    distances in the same order. One launch on the card."""
+    if tmin.device.type == "cpu":
+        return sweep_order_plain(o, d, tmin, tmax, sbounds, tile)
+    return _launch(o, d, tmin, tmax, sbounds, None, None, tile)[3]

@@ -449,6 +449,7 @@ def _tri_test(o, d, v0, e1, e2, tmin, tmax):
 def intersect_bvh_plain(
     o, d, tmin, tmax, exclude, bvh: DeviceBvh, v0, e1, e2, mask, ray_mask: int,
     any_hit: bool = False, prime_t: Optional[torch.Tensor] = None, counts: bool = False, name: str = "",
+    margin: bool = False,
 ):
     """Lockstep stackless traversal over the threaded BVH -> (t, prim, u, v).
 
@@ -466,7 +467,11 @@ def intersect_bvh_plain(
 
     prime_t starts best t at min(prime_t, tmax) instead of at tmax (used to
     count the nodes a ray must visit given its final t). counts=True appends a
-    TraversalCounts to the result."""
+    TraversalCounts to the result.
+
+    The box test is the reference's exact slab test (`_slab_test`), or with
+    margin=True the port's (ops/slab.py:slab_tnear: entered where the
+    lowered tnear is finite), which kernel K6 runs."""
     if name:
         K.note_plain(name, tmin.device)
     n = tmin.shape[0]
@@ -499,8 +504,13 @@ def intersect_bvh_plain(
         lane_active = node < n_nodes
         nodec = torch.clamp(node, max=n_nodes - 1).to(torch.int64)
         row = bvh.nodes[nodec]  # [m, 8]: bb_min, bb_max, skip, start << 3 | count
-        box = row[:, 0:6].view(torch.float32).unbind(1)
-        hit_box = _slab_test(box[0:3], box[3:6], oc, inv_d, tmn, best_t)
+        if margin:
+            boxes = torch.zeros((8, m, 1), dtype=torch.float32, device=dev)
+            boxes[0:6, :, 0] = row[:, 0:6].view(torch.float32).T
+            hit_box = slab.slab_tnear(oc, dc, tmn, best_t, boxes)[:, 0] < float("inf")
+        else:
+            box = row[:, 0:6].view(torch.float32).unbind(1)
+            hit_box = _slab_test(box[0:3], box[3:6], oc, inv_d, tmn, best_t)
         cnt = row[:, 7] & ((1 << _COUNT_BITS) - 1)
         is_leaf = cnt > 0
         proc_leaf = lane_active & is_leaf & hit_box

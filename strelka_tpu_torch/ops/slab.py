@@ -82,13 +82,16 @@ def slab_enters(o, d, tmin, tmax, bounds):
     return slab_tnear(o, d, tmin, tmax, bounds) < float("inf")
 
 
-def normalised_det(d, e1, e2):
+def normalised_det(d, e1, e2, paired: bool = False):
     """|d . (e1 x e2)| / (|d| |e1| |e2|) in f64 for rays d [R] (x, y, z) and
-    triangles e1, e2 [T, 3] -> [R, T]: the sine of the triangle's angle at
-    v0 times the cosine of the ray's angle to its normal. The margin covers
-    every hit at NU_MIN or above."""
+    triangles e1, e2 [T, 3] -> [R, T], or with `paired` one triangle a ray
+    (e1, e2 [R, 3]) -> [R]: the sine of the triangle's angle at v0 times the
+    cosine of the ray's angle to its normal. The margin covers every hit at
+    NU_MIN or above."""
     dd = torch.stack([c.double() for c in d], dim=1)
     n = torch.linalg.cross(e1.double(), e2.double())
-    den = torch.linalg.norm(dd, dim=1)[:, None] * (torch.linalg.norm(e1.double(), dim=1)
-                                                   * torch.linalg.norm(e2.double(), dim=1))[None, :]
+    sides = torch.linalg.norm(e1.double(), dim=1) * torch.linalg.norm(e2.double(), dim=1)
+    if paired:
+        return torch.abs((dd * n).sum(dim=1)) / torch.clamp(torch.linalg.norm(dd, dim=1) * sides, min=1e-300)
+    den = torch.linalg.norm(dd, dim=1)[:, None] * sides[None, :]
     return torch.abs(dd @ n.T) / torch.clamp(den, min=1e-300)

@@ -46,3 +46,17 @@ def test_gather_matches_vec_gather_rows_t(cols):
     ref = JV.gather_rows_t(jnp.asarray(table), jnp.asarray(idx))
     out = KG.gather_rows_t(torch.tensor(table), torch.tensor(idx))
     np.testing.assert_array_equal(_bits(out.numpy()), _bits(ref))
+
+
+@pytest.mark.parametrize("cols,n,offset", KG.GATHER_EDGES)
+def test_gather_edge_shapes_match_vec_gather_rows_t(cols, n, offset):
+    rng = np.random.default_rng(cols * 7 + n % 97 + offset)
+    rows = 300
+    buf = rng.normal(size=offset + rows * cols).astype(np.float32)
+    table = torch.tensor(buf)[offset:].view(rows, cols)
+    assert table.is_contiguous() and table.storage_offset() == offset
+    idx = rng.integers(0, rows, n).astype(np.int32)
+    ref = JV.gather_rows_t(jnp.asarray(table.numpy()), jnp.asarray(idx))
+    out = KG.gather_rows_t_plain(table, torch.tensor(idx))
+    assert out.shape == (cols, n) and out.is_contiguous()
+    np.testing.assert_array_equal(_bits(out.numpy()), _bits(ref))
