@@ -12,7 +12,12 @@ Phases (any failure raises and the script exits non-zero):
   2. Cornell (flat scene, kernels K1-K4): hold each kernel against its plain
      PyTorch version on the card at every shape the Cornell main path
      gives it (512x512, 4 spp: 2^20 rays a bounce) and time both (CUDA
-     events, median); K2/K3, culled by the scene's 32-triangle group boxes,
+     events, median; K1 also on the device alone, replayed from a CUDA
+     graph, and the wrapper's host time a call); K1 bit for bit at both
+     dimension lists of a launch at every depth, and at lists that reach
+     every instance of the kernel (unordered and repeated dimensions), and
+     its instruction mix from `cuobjdump -sass` (no constant-memory load
+     in its fold); K2/K3, culled by the scene's 32-triangle group boxes,
      on the camera, bounce-1, bounce-0 NEE shadow and shadow-style rays (and
      on the camera rays against the table twice over, every hit a tie)
      against the dense plain versions, their cull=False mode and the
@@ -38,16 +43,19 @@ Phases (any failure raises and the script exits non-zero):
      cull=False bit for bit, and the reference's DFS walk wherever that walk
      keeps the dense hit) on the camera and bounce-1 rays and on the tie
      table (the tree's triangles twice over, one copy a half), K6 against
-     its plain twin and against K3 in cull=False mode (inside the margin's
+     its plain twin (its near-to-far any-hit walk: occlusion and per-ray
+     counters equal) and against K3 in cull=False mode (inside the margin's
      domain; the lanes outside it counted) on the camera, bounce-1 and
      shadow rays, and the two golden-config renders compared;
   4. box_field(grid=48), 411,652 triangles on a BVH (kernels K1, K4, K5,
      K6): K5 against its three oracles on the scene's camera and bounce-1
      rays, K6 against its plain twin and against K3 brute force
      (cull=False, inside the margin's domain) on all three (2^19 lanes
-     each), their times and bounds (K5's
-     row with its boxes tested a ray beside what a ray needs and beside
-     the DFS walk's, its stack depth, registers and local memory), K1 at
+     each), their times and bounds (K5's and K6's rows with the boxes, K6's
+     also the child rows, and triangles they test a ray beside what a ray
+     needs and beside the DFS walk's, the stack depth, registers and local
+     memory; K6's bound counted from the reference's DFS walk with the
+     margin, its time also on the device alone), K1 at
      2^19 sample indices, K4 at this scene's
      two tables (attr_table [411776, 68] and light_table [2, 20]); the
      golden config
@@ -153,6 +161,8 @@ REPLACES = {
 }
 OPEN_K = 16  # superblocks a tile has swept when the open flag is asked (the reference's CONE_RESIDUAL_K)
 # what a walking kernel's entry in the kernels line carries beside the numbers of every entry
+# what an entry of a kernel's "shapes" carries beside those numbers where its row has it
+SHAPE_KEYS = ("dense_bound_ms", "device_ms", "host_us", "schedule", "order_ms")
 WALK_KEYS = ("nodes_per_ray", "ideal_nodes_per_ray", "primed_nodes_per_ray", "dfs_nodes_per_ray", "stack_depth",
              "registers", "local_bytes")
 
@@ -237,26 +247,49 @@ def graph_ms(fn, calls: int = 20, samples: int = 10) -> float:
     return statistics.median(times)
 
 
-def sobol_lane_ops(dims: int) -> dict:
-    """Instructions one K1 lane needs (csrc/sobol.cu), by the pipe that runs
-    them, each in its fewest sm_90 instructions. A scramble (of the index,
-    then one per dimension) is 2 bit reversals, an add, 4 multiplies by a
-    constant and 4 xors. The fold is, per bit, one instruction for the bit's
-    mask and one three-input LOP3 per dimension (acc ^ (mask & column)). The
-    output is, per dimension, a conversion, a multiply by 2^-32 (f32, half
-    an IMAD slot) and a clamp (min)."""
-    scrambles = 1 + dims
+def sobol_lane_ops(dims: tuple) -> dict:
+    """Instructions one K1 lane needs for the dimension list `dims`
+    (csrc/sobol.cu), by the pipe that runs them, each in its fewest sm_90
+    instructions: the function's count, not the kernel's. A scramble (of
+    the index, then one per distinct dimension) is 2 bit reversals, an add,
+    4 multiplies by a constant and 4 xors. The fold of dimension 0, whose
+    matrix is the identity read backwards, is one bit reversal; every other
+    distinct dimension costs one LOP3 a bit, predicated on that bit of
+    the index (acc ^ column, the column an immediate). Where such a
+    dimension is drawn, the 32 predicates take ceil(32 / 7) R2P, each
+    setting seven, shared by every dimension. Each output row is a
+    conversion, a multiply by 2^-32 (f32, half an IMAD slot) and a clamp
+    (min)."""
+    distinct = set(dims)
+    folded = len(distinct - {0})
+    scrambles = 1 + len(distinct)
     return {
-        "alu": scrambles * (1 + 4) + 32 * (1 + dims) + dims,
-        "fma": scrambles * 4 + dims / 2,
-        "xu": scrambles * 2 + dims,
+        "alu": scrambles * (1 + 4) + ((-(-32 // 7)) if folded else 0) + 32 * folded + len(dims),
+        "fma": scrambles * 4 + len(dims) / 2,
+        "xu": scrambles * 2 + (1 if 0 in distinct else 0) + len(dims),
     }
 
 
-def sobol_bound_s(n: int, dims: int) -> float:
+def sobol_bound_s(n: int, dims: tuple) -> float:
     """K1's operation bound: the busiest pipe's instructions over its rate."""
     ops = sobol_lane_ops(dims)
     return max(n * ops[p] / (PIPE_RATE[p] * SM_CLOCKS_PER_S) for p in ops)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time of one fn() call in microseconds: `calls` calls queued back
+    to back with no synchronize between them (the device keeps up at these
+    shapes, so the queue never blocks the host)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
 
 
 def cornell_scene(device):
@@ -310,14 +343,13 @@ def main_path_rays(scene, params, device, cfg: Config):
     px, py = (idx % cfg.width).repeat(cfg.spp), (idx // cfg.width).repeat(cfg.spp)
     s_of_ray = torch.arange(cfg.spp, dtype=torch.int64, device=device).repeat_interleave(n)
     sample_idx = S.make_sample_index(px, py, s_of_ray, MAX_SAMPLE_COUNT)
-    jxy = S.random_dims(sample_idx, 0, (0, 1))
-    origin, direction = I.generate_camera_rays(params, px, py, jxy[0], jxy[1], cfg.width, cfg.height)
+    dims = S.random_dims(sample_idx, 0, (0, 1, 2, 3, 4))  # the depth-0 draw: rows 0 and 1 are the camera jitter
+    origin, direction = I.generate_camera_rays(params, px, py, dims[0], dims[1], cfg.width, cfg.height)
     m = sample_idx.shape[0]
     tmin = torch.zeros(m, dtype=torch.float32, device=device)
     tmax = torch.full((m,), 1e16, dtype=torch.float32, device=device)
     hit = intersect_closest(scene, origin, direction, tmin, tmax, RAY_MASK_PRIMARY)
     # bounce 0 shading, as trace_paths does it, to get the bounce-1 rays
-    dims = S.random_dims(sample_idx, 0, (0, 1, 2, 3, 4))
     inside = torch.zeros(m, dtype=torch.bool, device=device)
     position, frame, light_id, rows = I._gather_surface(scene, hit, inside)
     mat = I._material_from_rows(rows[ATTR_MAT_ROW:ATTR_LIGHT_ROW])
@@ -604,13 +636,16 @@ def intersect_rows(scene, closest, anys, where: str):
     return rows
 
 
-JITTER_DIMS, BOUNCE_DIMS = (0, 1), (0, 1, 2, 3, 4)  # the two dimension lists render_launch asks K1 for
+# BOUNCE_DIMS: the list render_launch asks K1 for at every depth (depth 0's rows 0 and 1 are the camera
+# jitter); JITTER_DIMS: the jitter's two dimensions drawn alone (K1's instance for the set {0, 1})
+JITTER_DIMS, BOUNCE_DIMS = (0, 1), (0, 1, 2, 3, 4)
 
 
 def sobol_rows(sample_idx, cfg: Config, where: str):
-    """K1 against its plain version, bit for bit, at both calls a launch
-    makes: the pixel jitter (2 dimensions, depth 0) and a bounce's 5
-    dimensions at every depth; both timed."""
+    """K1 against its plain version, bit for bit, at a bounce's 5
+    dimensions at every depth (the draw of a launch: depth 0's rows 0 and 1
+    are its camera jitter) and at the jitter's 2 dimensions alone (depth
+    0); both timed: events, the device alone, the wrapper's host time."""
     import torch
 
     from strelka_tpu_torch.kernels import sobol as KS
@@ -628,10 +663,99 @@ def sobol_rows(sample_idx, cfg: Config, where: str):
     return [dict(
         kernel="sobol", at=f"{where}, {len(dims)} dimensions", shape=(n, len(dims)),
         ms=time_ms(lambda: KS.random_dims(sample_idx, depth, dims)),
+        device_ms=graph_ms(lambda: KS.random_dims(sample_idx, depth, dims)),
+        host_us=host_us(lambda: KS.random_dims(sample_idx, depth, dims)),
         plain_ms=time_ms(lambda: KS.random_dims_plain(sample_idx, depth, dims), samples=5, inner=2),
-        bound_bytes=n * 8 + len(dims) * n * 4, bound_ops_s=sobol_bound_s(n, len(dims)),
+        bound_bytes=n * 8 + len(dims) * n * 4, bound_ops_s=sobol_bound_s(n, dims),
         max_abs_err=0.0, library_ms=None,
     ) for dims, depth in ((BOUNCE_DIMS, 1), (JITTER_DIMS, 0))]
+
+
+def sobol_lists():
+    """Dimension lists that reach every instance of K1 (one per non-empty
+    set of dimensions): each set ascending, descending, and with its first
+    dimension drawn again (up to 5 rows)."""
+    lists = []
+    for s in range(1, 32):
+        dims = tuple(d for d in range(5) if s >> d & 1)
+        lists += [dims, dims[::-1]] + ([dims + dims[:1]] if len(dims) < 5 else [])
+    return lists
+
+
+def check_sobol_lists(dev):
+    """K1 bit for bit against its plain version at every list of
+    sobol_lists() on 4,099 sample indices (a partial last block) at depths
+    0 and 3: every instance of the kernel, unordered and repeated
+    dimensions included."""
+    import numpy as np
+    import torch
+
+    from strelka_tpu_torch.kernels import sobol as KS
+
+    idx = torch.tensor(np.random.default_rng(9).integers(0, 2 ** 32, 4099), dtype=torch.int64, device=dev)
+    lists = sobol_lists()
+    for dims in lists:
+        for depth in (0, 3):
+            a = KS.random_dims(idx, depth, dims)
+            b = KS.random_dims_plain(idx, depth, dims)
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise AssertionError(f"K1 differs from its plain version at dims {dims}, depth {depth}")
+    log(f"K1 bit-equal (tolerance: none) at {len(lists)} dimension lists reaching all 31 instances, 4,099 indices, "
+        f"depths 0 and 3")
+
+
+SASS_KIND = {  # sm_90 opcode -> the pipe sobol_lane_ops counts it on (others: "other")
+    "LOP3": "alu", "SHF": "alu", "IADD3": "alu", "ISETP": "alu", "SEL": "alu", "LEA": "alu", "FMNMX": "alu",
+    "IMNMX": "alu", "PLOP3": "alu", "MOV": "alu", "VIADD": "alu", "R2P": "alu", "IMAD": "fma", "FMUL": "fma",
+    "BREV": "xu", "I2F": "xu", "I2FP": "xu",
+    "LDC": "ldc", "ULDC": "ldc", "LDG": "mem", "STG": "mem",
+}
+
+
+def sobol_sass():
+    """K1's instruction mix from `cuobjdump -sass` of the built object, for
+    the instances of the main path's list (dimensions 0-4: set 31) and of
+    the jitter's alone (0 and 1: set 3): a lane issues each instruction once
+    (no loop is left). Fails if
+    an LDC reads a __constant__ array (a bank other than the parameters'
+    c[0x0]) or any constant word through a register index: the fold's
+    columns are immediates. Returns {set: {"ops": opcode counts, "kinds":
+    counts by pipe, "ldc": LDC operands}}."""
+    import collections
+    import re
+    import shutil
+
+    from strelka_tpu_torch.kernels import build
+
+    obj = os.path.join(build.BUILD_ROOT, build._digest(), "sobol.o")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", obj], stdout=subprocess.PIPE, text=True, check=True, timeout=120).stdout
+    insn = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)\s*([^;]*);")
+    out = {}
+    for m in re.finditer(r"Function : (\S+)(.*?)(?=Function :|\Z)", sass, re.S):
+        inst = re.search(r"random_dims_kernelILj(\d+)E", m.group(1))
+        if not inst or int(inst.group(1)) not in (3, 31):
+            continue
+        ops, ldc, pred_lop3 = collections.Counter(), [], 0
+        for addr, pred, op, args in insn.findall(m.group(2)):
+            base = op.split(".")[0]
+            if base == "NOP" or (base == "BRA" and args.strip() == f"0x{addr.lstrip('0')}"):
+                continue  # the end's padding
+            ops[base] += 1
+            pred_lop3 += base == "LOP3" and bool(pred)
+            if base in ("LDC", "ULDC"):
+                ldc.append(args.split(",")[-1].strip())
+        kinds = collections.Counter(SASS_KIND.get(op, "other") for op in ops.elements())
+        bad = [a for a in ldc if not a.startswith("c[0x0]") or re.search(r"\[U?R\d+", a.split("]", 1)[1])]
+        out[int(inst.group(1))] = dict(ops=dict(ops), kinds=dict(kinds), ldc=ldc, predicated_lop3=pred_lop3)
+        log(f"K1 SASS, instance {inst.group(1)} ({'dimensions 0-4' if inst.group(1) == '31' else 'dimensions 0, 1'}): "
+            f"{sum(ops.values())} instructions a lane, by pipe {dict(kinds)}, {pred_lop3} predicated LOP3, "
+            f"LDC/ULDC operands {ldc}; by opcode {dict(ops)}")
+        if bad:
+            raise AssertionError(f"K1 instance {inst.group(1)} loads constant memory in its fold: {bad}")
+    if sorted(out) != [3, 31]:
+        raise AssertionError(f"K1's instances 3 and 31 are not in {obj}: found {sorted(out)}")
+    return out
 
 
 def twice_over(scene):
@@ -673,8 +797,8 @@ def grazing_scene(tris, dev):
     flat = types.SimpleNamespace(v0=t(tris[0]), e1=t(tris[1]), e2=t(tris[2]), geom_mask=t(tris[3]),
                                  tri_bounds=t(KI.tri_group_bounds(*tris)), device=dev)
     threaded, perm, _, _ = timed_build(*tris[:3])
-    leaf = [a[perm] for a in tris]
-    tree = types.SimpleNamespace(v0=t(leaf[0]), e1=t(leaf[1]), e2=t(leaf[2]), geom_mask=t(leaf[3]),
+    leaf = [t(a[perm]) for a in tris]
+    tree = types.SimpleNamespace(v0=leaf[0], e1=leaf[1], e2=leaf[2], geom_mask=leaf[3],
                                  bvh=device_bvh(threaded, dev), device=dev)
     return flat, tree, perm
 
@@ -734,8 +858,12 @@ def phase_kernels(scene, params):
     sample_idx, camera, bounce1, shadow, prims, _, _ = main_path_rays(scene, params, dev, CORNELL)
     where = "cornell 2^20 lanes x 640 triangles"
 
-    # ---- K1: both calls of a launch, every depth of the main path, bit-equal
+    # ---- K1: both lists of a launch, every depth of the main path, bit-equal; every instance; its SASS
     rows = sobol_rows(sample_idx, CORNELL, "cornell")
+    check_sobol_lists(dev)
+    sass = sobol_sass()
+    for r in rows:
+        r["sass_kinds"] = sass[31 if r["shape"][1] == 5 else 3]["kinds"]
 
     # ---- K2 / K3: camera, bounce-1 and the bounce-0 NEE shadow rays (2^20 each)
     check_intersect(scene, camera, RAY_MASK_PRIMARY, "camera")
@@ -1014,26 +1142,33 @@ def check_k5(scene, rays, ray_mask, name, domain: bool = False):
 
 
 def check_bvh_vs_plain(scene, rays, ray_mask, name):
-    """K6 against its plain twin on one ray set (ops/bvh.py:
-    intersect_bvh_plain with margin=True: the same walk, box test and
-    arithmetic), so occlusion must be EQUAL on every lane. Returns (args,
-    the plain walk's TraversalCounts, plain ms)."""
+    """K6 against its plain twin on one ray set (kernels/bvh.py:any_plain,
+    ops/bvh.py:intersect_bvh_ordered_plain with any_hit=True: the same
+    near-to-far walk over the child table, box test, order and arithmetic):
+    occlusion EQUAL on every lane, and the per-ray counts of child boxes and
+    triangles tested equal. The main path's instance (stats=False) must
+    equal the one held here (stats=True). Returns (args, the twin's per-ray
+    OrderedCounts, plain ms)."""
     import torch
 
     from strelka_tpu_torch.kernels import bvh as KB
-    from strelka_tpu_torch.ops.bvh import intersect_bvh_plain
 
     args = bvh_args(scene, rays, ray_mask)
-    out_p, plain_ms = timed_once_ms(lambda: intersect_bvh_plain(*args, any_hit=True, counts=True, margin=True,
-                                                                name="bvh_any"))
-    p_p, walk = out_p[1], out_p[4]
-    occ = held(lambda: KB.bvh_any(*args))
+    (occ_p, walk), plain_ms = timed_once_ms(lambda: KB.any_plain(*args, counts=True))
+    occ, boxes, tris = held(lambda: KB.bvh_any(*args, stats=True))
+    main = held(lambda: KB.bvh_any(*args))
     torch.cuda.synchronize()
-    bad = int((occ != (p_p >= 0)).sum())
-    if bad:
-        raise AssertionError(f"K6 on {name}: {bad} occlusion results differ from the plain traversal")
-    log(f"K6 on {name} rays ({occ.shape[0]}): occlusion equal to its plain twin ({int(occ.sum())} "
-        f"occluded; tolerance: none); plain walk {walk.steps} steps, {plain_ms:.0f} ms")
+    bad = int((occ != occ_p).sum())
+    bad_main = int((main != occ).sum())
+    counts_off = int(((boxes != walk.nodes) | (tris != walk.tris)).sum())
+    live = max(int((args[3] > args[2]).sum()), 1)
+    log(f"K6 on {name} rays ({occ.shape[0]}, {live} live, {int(occ.sum())} occluded): lanes off its plain twin "
+        f"{bad}, the main path's instance off the stats one {bad_main}, per-ray box and triangle counts off "
+        f"{counts_off} (bar: 0, tolerance: none); a live ray fetches {float(boxes.sum()) / 2 / live:.2f} child rows "
+        f"and tests {float(tris.sum()) / live:.2f} triangles; plain {plain_ms:.0f} ms")
+    if bad or bad_main or counts_off:
+        raise AssertionError(f"K6 on {name}: {bad} lanes off its plain twin, {bad_main} off between its two "
+                             f"instances, {counts_off} counts off")
     return args, walk, plain_ms
 
 
@@ -1104,16 +1239,18 @@ def bvh_rows(scene, b1, sh, where: str):
     """K5/K6 rows: times on the bounce-1 (K5, a check_k5 result) and shadow
     (K6, a check_bvh_vs_plain result) rays, and the bound from what these
     rays need: the nodes whose box overlaps [tmin, final t] and the
-    triangles of such leaves that pass mask and exclude (K6: up to the first
-    occluder in the kernel's order). The operations count every such visit
+    triangles of such leaves that pass mask and exclude (K6: those of the
+    reference's DFS walk with the margin, up to its first occluder, whatever
+    walk K6 runs). The operations count every such visit
     at the reference's slab test (the margin's operations are the kernel's
     overhead, not the function's work); the bytes count
     each such node row (32 bytes) and triangle (40) once, whatever the
     layout a kernel reads and the number of rays that need it, and the
-    rays as `ray_bytes` does. K5's row has its own walk's counts (boxes and
-    triangles tested a live ray, from its per-ray counters, equal to its
-    plain version's), the DFS walk's beside them, its stack depth and its
-    registers and local memory a thread."""
+    rays as `ray_bytes` does. K5's and K6's rows have their own walks' counts
+    (boxes, K6 also child rows, and triangles tested a live ray, from their
+    per-ray counters, equal to their plain versions'), the DFS walk's beside
+    them, the stack depth and the registers and local memory a thread;
+    K6's also its time replayed from a CUDA graph (device_ms)."""
     import torch
 
     from strelka_tpu_torch.kernels import bvh as KB
@@ -1122,7 +1259,9 @@ def bvh_rows(scene, b1, sh, where: str):
     from strelka_tpu_torch.ops.bvh import SLAB_FLOPS, STACK, intersect_bvh_plain
 
     b1_args, b1_walk = b1["args"], b1["dfs"]
-    sh_args, sh_walk, sh_plain_ms = sh
+    sh_args, sh_k6, sh_plain_ms = sh
+    # K6's yardstick: the reference's DFS walk with the margin (whatever walk K6 runs)
+    sh_walk = intersect_bvh_plain(*sh_args, any_hit=True, counts=True, margin=True)[4]
     n = b1_args[2].shape[0]
     live_b1 = int((b1_args[3] > b1_args[2]).sum())
     live_sh = int((sh_args[3] > sh_args[2]).sum())
@@ -1133,18 +1272,23 @@ def bvh_rows(scene, b1, sh, where: str):
     primed = float(KB.closest_plain(*b1_args[:3], cut, *b1_args[4:], counts=True)[4].nodes.sum()) / live_b1
     nodes_k5, tris_k5 = float(b1["nodes"].sum()) / live_b1, float(b1["tris"].sum()) / live_b1
     res = kernel_resources(build.ptxas_report(), "bvh_closest_kernelILb0E")
+    res6 = kernel_resources(build.ptxas_report(), "bvh_any_kernelILb0E")
     log(f"K5 on the bounce-1 rays ({live_b1} live of {n}): its near-to-far walk tests {nodes_k5:.1f} boxes and "
         f"{tris_k5:.2f} triangles a live ray (the DFS walk of K6 and the reference: "
         f"{b1_walk.nodes_visited / live_b1:.1f} and {b1_walk.tri_tests / live_b1:.2f}); given the final t a ray needs "
         f"{ideal.nodes_overlapped / live_b1:.1f} nodes (boxes overlapping [tmin, t]) and "
         f"{ideal.tri_tests / live_b1:.2f} triangles, and K5's walk given it from the start tests {primed:.1f} boxes; "
         f"stack {scene.bvh.depth} of {STACK} entries deep; {res}")
-    log(f"K6 on the shadow rays ({live_sh} live of {n}): the kernel's order visits "
-        f"{sh_walk.nodes_visited / max(live_sh, 1):.1f} nodes and tests "
-        f"{sh_walk.tri_tests / max(live_sh, 1):.2f} triangles a live ray, "
-        f"{sh_walk.nodes_overlapped / max(live_sh, 1):.1f} of the nodes overlapped")
+    k6_rows = float(sh_k6.nodes.sum()) / 2 / max(live_sh, 1)
+    k6_tris = float(sh_k6.tris.sum()) / max(live_sh, 1)
+    log(f"K6 on the shadow rays ({live_sh} live of {n}): its near-to-far walk fetches {k6_rows:.2f} child rows "
+        f"({2 * k6_rows:.1f} boxes) and tests {k6_tris:.2f} triangles a live ray; the DFS walk (the reference's, "
+        f"with the margin) visits {sh_walk.nodes_visited / max(live_sh, 1):.1f} nodes and tests "
+        f"{sh_walk.tri_tests / max(live_sh, 1):.2f} triangles, {sh_walk.nodes_overlapped / max(live_sh, 1):.1f} of "
+        f"its nodes overlapped")
     log(f"tree these rays need: K5 {ideal.nodes_touched} of {scene.bvh.num_nodes} nodes and {ideal.tris_touched} "
-        f"of {scene.v0.shape[0]} triangles; K6 {sh_walk.nodes_touched} nodes and {sh_walk.tris_touched} triangles")
+        f"of {scene.v0.shape[0]} triangles; K6 (the DFS walk) {sh_walk.nodes_touched} nodes and "
+        f"{sh_walk.tris_touched} triangles")
     shape = (n, scene.bvh.num_nodes, scene.v0.shape[0])
     rows = [
         dict(
@@ -1165,14 +1309,17 @@ def bvh_rows(scene, b1, sh, where: str):
         dict(
             kernel="bvh_any", at=where + ", shadow rays", shape=shape,
             ms=time_ms(lambda: KB.bvh_any(*sh_args), samples=10, inner=3),
+            device_ms=graph_ms(lambda: KB.bvh_any(*sh_args), calls=10),
             plain_ms=sh_plain_ms,
             bound_bytes=ray_bytes(*sh_args[2:5], 1) + sh_walk.nodes_touched * 32 + sh_walk.tris_touched * 40,
             bound_ops_s=(sh_walk.nodes_overlapped * SLAB_FLOPS + sh_walk.tri_tests * MT_FLOPS) / F32_OPS_PER_S,
             max_abs_err=0.0, library_ms=None,
-            nodes_per_ray=sh_walk.nodes_visited / max(live_sh, 1),
+            rows_per_ray=k6_rows, nodes_per_ray=2 * k6_rows, tris_per_ray=k6_tris,
+            dfs_nodes_per_ray=sh_walk.nodes_visited / max(live_sh, 1),
             ideal_nodes_per_ray=sh_walk.nodes_overlapped / max(live_sh, 1),
-            tris_per_ray=sh_walk.tri_tests / max(live_sh, 1),
-            ideal_tris_per_ray=sh_walk.tri_tests / max(live_sh, 1),
+            dfs_tris_per_ray=sh_walk.tri_tests / max(live_sh, 1),
+            stack_depth=scene.bvh.depth, stack_entries=STACK, registers=res6.get("registers"),
+            local_bytes=res6.get("stack_frame_bytes"), spill_bytes=res6.get("spill_store_bytes"),
             live_rays=live_sh, nodes_needed=sh_walk.nodes_touched, tris_needed=sh_walk.tris_touched,
         ),
     ]
@@ -1779,7 +1926,7 @@ def main() -> int:
         # plain_lanes: the lanes the plain version ran on, where they are fewer than the kernel's
         entry["shapes"] = [dict(at=r["at"], shape=list(r["shape"]), launches=shape_launches(m, r) if m else 0,
                                 **{k: r[k] for k in numbers},
-                                **{k: r[k] for k in ("dense_bound_ms", "device_ms", "schedule", "order_ms") if k in r},
+                                **{k: r[k] for k in SHAPE_KEYS if k in r},
                                 **{k: r[k] for k in ("plain_lanes",) if r.get(k, r["shape"][0]) != r["shape"][0]})
                            for r, m in mine]
         kernels.append(entry)

@@ -8,7 +8,7 @@ Run on a machine with one CUDA card, from the root of a checkout:
 `--a` and `--b` are checkouts (B defaults to this one); each run builds its
 own kernels under its checkout. Every run's output goes to `--out`
 (a_1.log, b_1.log, b_2.log, a_2.log), and the script prints one JSON line
-per run and row of the triangle, gather, BVH and cone kernels (ms, bound_ms,
+per run and row of the Sobol, triangle, gather, BVH and cone kernels (ms, bound_ms,
 launches, the groups, nodes or sub-blocks a live ray sweeps where the line
 has them), one per run and main path (ms per launch, padded Mrays/s) and last
 the card's name and power limit. It exits non-zero if a run fails.
@@ -28,9 +28,10 @@ KEEP = ("ms", "bound_ms", "plain_ms", "launches", "sub_blocks_per_ray", "needed_
         "lane_efficiency", "fixed_lane_efficiency", "list_walk_ms", "ascending_ms", "schedule", "device_ms", "warp_ms",
         "thread_ms", "warp_device_ms", "thread_device_ms", "dense_bound_ms", "groups_per_ray", "needed_groups_per_ray",
         "nodes_per_ray", "ideal_nodes_per_ray", "primed_nodes_per_ray", "dfs_nodes_per_ray", "tris_per_ray",
-        "stack_depth", "registers", "local_bytes", "order_ms", "library_ms", "zeros_ms")
-KERNELS = ("intersect_closest", "intersect_any", "gather_rows_t", "bvh_closest", "bvh_any", "cone_closest", "cone_any",
-           "open_w")
+        "stack_depth", "registers", "local_bytes", "order_ms", "library_ms", "zeros_ms", "host_us", "rows_per_ray",
+        "dfs_tris_per_ray")
+KERNELS = ("sobol", "intersect_closest", "intersect_any", "gather_rows_t", "bvh_closest", "bvh_any", "cone_closest",
+           "cone_any", "open_w")
 
 
 def summarise(tag: str, out: str) -> list:

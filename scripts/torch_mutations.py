@@ -27,9 +27,16 @@ Mutants:
                   (csrc/common.cuh and ops/slab.py): the reference's exact
                   test; the grazing soup must catch it;
   k6_margin_zero  K6 alone back on the reference's exact slab test, in the
-                  kernel and in its plain twin (the walk ops/bvh.py runs
-                  with margin=True): the brute-force check of the grazing
-                  phase must catch it inside the margin's domain;
+                  kernel and in its plain twin (the near-to-far walk of
+                  ops/bvh.py with any_hit=True; K5's stays on the margin):
+                  the brute-force check of the grazing phase must catch it
+                  inside the margin's domain;
+  k6_no_push      K6 drops the farther child instead of pushing it, in the
+                  kernel and in its plain twin: the check against K3
+                  cull=False must catch it;
+  k1_column_flip  one bit of one compiled-in column of K1 (dimension 2, bit
+                  5) flipped: K1's bit-equality with its plain version must
+                  catch it;
   k9_ties_high    K9's sort orders equal keys by the higher index first: the
                   order check against the plain twin must catch it;
   k4_vec_short    K4's 16-byte row path drops the last word of each row's
@@ -65,19 +72,33 @@ MUTANTS = {
         ("strelka_tpu_torch/ops/slab.py", "SLACK = 2.0 ** -20", "SLACK = 0.0"),
     ],
     "k6_margin_zero": [
-        ("strelka_tpu_torch/csrc/bvh.cu",
-         """            const float tnear = strelka_slab_safe(lx, ly, lz, hx, hy, hz, strelka_box_scale(lx, ly, lz, hx, hy, hz), o0,
-                                                  o1, o2, inv0, inv1, inv2, om, tn, tx);""",
-         """            const float tnear = [&] {
-                const float x0 = (lx - o0) * inv0, x1 = (hx - o0) * inv0;
-                const float y0 = (ly - o1) * inv1, y1 = (hy - o1) * inv1;
-                const float z0 = (lz - o2) * inv2, z1 = (hz - o2) * inv2;
-                const float t0 = fmaxf(fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)), fminf(z0, z1)), tn);
-                const float t1 = fminf(fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)), fmaxf(z0, z1)), tx);
-                return t0 <= t1 ? t0 : INFINITY;
-            }();"""),
-        ("strelka_tpu_torch/ops/bvh.py", "hit_box = slab.slab_tnear(oc, dc, tmn, best_t, boxes)[:, 0] < float(\"inf\")",
-         "hit_box = slab.slab_tnear(oc, dc, tmn, best_t, boxes, pad=0.0, slack=0.0)[:, 0] < float(\"inf\")"),
+        ("strelka_tpu_torch/csrc/common.cuh", "constexpr float kStrelkaPad = 0x1p-13f;",
+         """__device__ __forceinline__ float strelka_slab_exact(float lx, float ly, float lz, float hx, float hy, float hz,
+                                                    float, float o0, float o1, float o2, float inv0, float inv1,
+                                                    float inv2, float, float tn, float tfar) {
+    const float x0 = (lx - o0) * inv0, x1 = (hx - o0) * inv0;
+    const float y0 = (ly - o1) * inv1, y1 = (hy - o1) * inv1;
+    const float z0 = (lz - o2) * inv2, z1 = (hz - o2) * inv2;
+    const float t0 = fmaxf(fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)), fminf(z0, z1)), tn);
+    const float t1 = fminf(fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)), fmaxf(z0, z1)), tfar);
+    return t0 <= t1 ? t0 : INFINITY;
+}
+constexpr float kStrelkaPad = 0x1p-13f;"""),
+        ("strelka_tpu_torch/csrc/bvh.cu", "float tl = strelka_slab_safe(__int_as_float(a.x)",
+         "float tl = strelka_slab_exact(__int_as_float(a.x)"),
+        ("strelka_tpu_torch/csrc/bvh.cu", "float tr = strelka_slab_safe(__int_as_float(b.z)",
+         "float tr = strelka_slab_exact(__int_as_float(b.z)"),
+        ("strelka_tpu_torch/ops/bvh.py",
+         "tn = slab.slab_tnear([c[a] for c in oc], [c[a] for c in dc], tmn[a], best_t[a], boxes)",
+         "tn = slab.slab_tnear([c[a] for c in oc], [c[a] for c in dc], tmn[a], best_t[a], boxes, "
+         "**(dict(pad=0.0, slack=0.0) if any_hit else {}))"),
+    ],
+    "k6_no_push": [
+        ("strelka_tpu_torch/csrc/bvh.cu", "                    stack[sp++] = left ? e.y : e.x;\n", ""),
+        ("strelka_tpu_torch/ops/bvh.py", "sp[pa] += 1", "sp[pa] += 0 if any_hit else 1"),
+    ],
+    "k1_column_flip": [
+        ("strelka_tpu_torch/csrc/sobol.cu", "0x5C000000u", "0x5C000001u"),
     ],
     "k9_ties_high": [
         ("strelka_tpu_torch/csrc/open_w.cu", "(k == key && f < e)", "(k == key && f > e)"),

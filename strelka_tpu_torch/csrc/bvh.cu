@@ -39,21 +39,27 @@
 // is a chain of dependent loads a ray. Design: one ray per thread, the ray
 // and its best hit in registers, the stack in local memory (L1).
 //
-// K6, any hit: the reference's walk, strelka_tpu/ops/bvh.py:intersect_bvh
-// (plain version: ops/bvh.py:intersect_bvh_plain with margin=True), the
-// stackless skip-link walk in DFS order over the packed 32-byte rows of
-// pack_nodes (bb_min, bb_max, skip, start << 3 | count) read as two 16-byte
-// loads: per step the ray tests its node's box with the port's box test
-// (common.cuh:strelka_slab_safe, the box's scale from the row's six bounds,
-// the far end the ray's tmax; entered where the lowered tnear is finite and
-// the box is not inverted, as ops/slab.py:slab_tnear decides), tests a
-// leaf's up to 4 triangles in order and stops at the first hit, and goes to
-// node + 1 (entered an internal node) or skip[node]. The reference's exact
-// slab test drops a hit that Möller–Trumbore's rounding puts just outside
-// its leaf's box (a grazing ray at the shared edges of a coplanar grid);
-// the margin keeps every hit the walk's triangle test accepts at a
-// normalised determinant of ops/slab.py:NU_MIN or more. Any hit needs no
-// order, so the walk stays the reference's.
+// K6, any hit: occlusion on every lane, as the dense any-hit sweep finds it
+// inside the box test's domain. Its walk (plain version:
+// ops/bvh.py:intersect_bvh_ordered_plain with any_hit=True, the same
+// order, test and counters) is K5's over the same child table: both child
+// boxes tested against [tmin, tmax], the nearer entered child taken (of
+// equal tnear the left), the farther pushed on a per-thread stack of kStack
+// entries (the wrapper refuses a deeper tree); a leaf's triangles are
+// tested in order and the first hit Möller–Trumbore accepts ends the walk,
+// as does an empty stack. Best t stays tmax until that hit, so a pop never
+// drops an entry and the stack holds references only. The order may change
+// which occluder is found first, not whether there is one. Bound on the
+// H100: the bytes of the node rows and triangles the reference's DFS walk
+// with the margin (ops/bvh.py:intersect_bvh_plain, K6's former walk)
+// needs, read once; the walk is a chain of dependent loads a ray. Design:
+// one ray a thread; one row fetch (four 16-byte loads) decides two
+// children, so a ray makes about half the dependent fetches of the DFS
+// walk over 32-byte rows, and reads the boxes' scales instead of computing
+// them; the triangles as 48-byte rows (kernels/bvh.py:tri_rows: v0, e1, e2 as
+// three 16-byte loads, the geometry mask's bits in a spare word), which in
+// one A/B call beat the four arrays of v0, e1, e2 and mask (PERF.md
+// section 6).
 
 #include "common.cuh"
 
@@ -65,15 +71,35 @@ constexpr float kMiss = 1e16f;
 constexpr int kCountBits = 3;
 constexpr int kCountMask = (1 << kCountBits) - 1;
 
-// K6: the stackless DFS walk, stopping at the first hit.
-__global__ void __launch_bounds__(kThreads) bvh_any_kernel(StrelkaRays rays, const int4* __restrict__ nodes,
-                                                           int n_nodes, StrelkaTris tris, int ray_mask, long long n,
-                                                           unsigned char* __restrict__ occ_out) {
+// One triangle of the 48-byte row table: v0, e1, e2 as three 16-byte
+// loads, the geometry mask's bits in the third row's second word. Returns 0
+// where the mask does not match the ray's, 1 for a miss, 2 for a hit.
+__device__ __forceinline__ int strelka_ray_tri_row(const float4* __restrict__ rows, int prim, int ray_mask,
+                                                   float o0, float o1, float o2, float d0, float d1, float d2,
+                                                   float tn, float tx) {
+    const float4* r = rows + 3 * static_cast<long long>(prim);
+    const float4 a = __ldg(r), b = __ldg(r + 1), c = __ldg(r + 2);
+    if ((__float_as_int(c.y) & ray_mask) == 0) return 0;
+    float t, u, v;
+    return strelka_ray_tri(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, o0, o1, o2, d0, d1, d2, tn, tx, t, u, v) ? 2
+                                                                                                                : 1;
+}
+
+// K6: the near-to-far walk over the child table, stopping at the first
+// hit. nodes_out / tris_out (kStats): child boxes and triangles tested per
+// ray.
+template <bool kStats>
+__global__ void __launch_bounds__(kThreads) bvh_any_kernel(StrelkaRays rays, const int4* __restrict__ rows,
+                                                           const float4* __restrict__ tri_rows, int ntri,
+                                                           int ray_mask, long long n,
+                                                           unsigned char* __restrict__ occ_out,
+                                                           int* __restrict__ nodes_out, int* __restrict__ tris_out) {
     const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const float tn = rays.tmin[i];
     const float tx = rays.tmax[i];
-    int best_p = -1;
+    bool occluded = false;
+    int n_nodes = 0, n_tris = 0;
     if (tx > tn) {
         const float o0 = rays.ox[i], o1 = rays.oy[i], o2 = rays.oz[i];
         const float d0 = rays.dx[i], d1 = rays.dy[i], d2 = rays.dz[i];
@@ -82,44 +108,57 @@ __global__ void __launch_bounds__(kThreads) bvh_any_kernel(StrelkaRays rays, con
         const float inv1 = 1.0f / (fabsf(d1) > 1e-20f ? d1 : 1e-20f);
         const float inv2 = 1.0f / (fabsf(d2) > 1e-20f ? d2 : 1e-20f);
         const float om = fmaxf(fmaxf(fabsf(o0), fabsf(o1)), fabsf(o2));
-        const int last_tri = tris.count - 1;
-        int node = 0;
-        while (node < n_nodes) {
-            const int4 a = __ldg(nodes + 2 * static_cast<long long>(node));
-            const int4 b = __ldg(nodes + 2 * static_cast<long long>(node) + 1);
-            const float lx = __int_as_float(a.x), ly = __int_as_float(a.y), lz = __int_as_float(a.z);
-            const float hx = __int_as_float(a.w), hy = __int_as_float(b.x), hz = __int_as_float(b.y);
-            const float tnear = strelka_slab_safe(lx, ly, lz, hx, hy, hz, strelka_box_scale(lx, ly, lz, hx, hy, hz), o0,
-                                                  o1, o2, inv0, inv1, inv2, om, tn, tx);
-            const int skip = b.z;
-            if (tnear == INFINITY || !(lx <= hx)) {
-                node = skip;
-                continue;
-            }
-            const int cnt = b.w & kCountMask;
-            if (cnt == 0) {
-                node = node + 1;
-                continue;
-            }
-            const int start = b.w >> kCountBits;
-            for (int k = 0; k < cnt; ++k) {
-                const int prim = min(start + k, last_tri);
-                if ((__ldg(tris.mask + prim) & ray_mask) == 0 || prim == ex) continue;
-                const float* pv = tris.v0 + 3 * static_cast<long long>(prim);
-                const float* p1 = tris.e1 + 3 * static_cast<long long>(prim);
-                const float* p2 = tris.e2 + 3 * static_cast<long long>(prim);
-                float t, u, v;
-                if (strelka_ray_tri(__ldg(pv), __ldg(pv + 1), __ldg(pv + 2), __ldg(p1), __ldg(p1 + 1),
-                                    __ldg(p1 + 2), __ldg(p2), __ldg(p2 + 1), __ldg(p2 + 2), o0, o1, o2, d0, d1, d2,
-                                    tn, tx, t, u, v)) {
-                    best_p = prim;
-                    break;
+        const int last_tri = ntri - 1;
+        int stack[kStack];
+        int sp = 0;
+        int node = 0;  // a reference: row << 3 (internal) or start << 3 | count (leaf)
+        while (true) {
+            if ((node & kCountMask) == 0) {
+                const int4* r = rows + 4 * static_cast<long long>(node >> kCountBits);
+                const int4 a = __ldg(r), b = __ldg(r + 1), c = __ldg(r + 2), e = __ldg(r + 3);
+                // the row's layout as K5 reads it; both boxes against [tmin, tmax]
+                float tl = strelka_slab_safe(__int_as_float(a.x), __int_as_float(a.y), __int_as_float(a.z),
+                                             __int_as_float(a.w), __int_as_float(b.x), __int_as_float(b.y),
+                                             __int_as_float(e.z), o0, o1, o2, inv0, inv1, inv2, om, tn, tx);
+                float tr = strelka_slab_safe(__int_as_float(b.z), __int_as_float(b.w), __int_as_float(c.x),
+                                             __int_as_float(c.y), __int_as_float(c.z), __int_as_float(c.w),
+                                             __int_as_float(e.w), o0, o1, o2, inv0, inv1, inv2, om, tn, tx);
+                if (!(__int_as_float(a.x) <= __int_as_float(a.w))) tl = INFINITY;  // an inverted box
+                if (!(__int_as_float(b.z) <= __int_as_float(c.y))) tr = INFINITY;
+                if (kStats) n_nodes += 2;
+                const bool in_l = tl != INFINITY, in_r = tr != INFINITY;
+                if (in_l && in_r) {
+                    const bool left = tl <= tr;
+                    stack[sp++] = left ? e.y : e.x;
+                    node = left ? e.x : e.y;
+                    continue;
                 }
+                if (in_l || in_r) {
+                    node = in_l ? e.x : e.y;
+                    continue;
+                }
+            } else {
+                const int start = node >> kCountBits, cnt = node & kCountMask;
+                for (int k = 0; k < cnt; ++k) {
+                    const int prim = min(start + k, last_tri);
+                    if (prim == ex) continue;
+                    const int res = strelka_ray_tri_row(tri_rows, prim, ray_mask, o0, o1, o2, d0, d1, d2, tn, tx);
+                    if (res == 0) continue;  // the geometry mask does not match the ray's
+                    if (kStats) ++n_tris;
+                    occluded = res == 2;
+                    if (occluded) break;
+                }
+                if (occluded) break;
             }
-            node = best_p >= 0 ? n_nodes : skip;
+            if (sp == 0) break;  // an empty stack ends the walk
+            node = stack[--sp];
         }
     }
-    occ_out[i] = best_p >= 0 ? 1 : 0;
+    occ_out[i] = occluded ? 1 : 0;
+    if (kStats) {
+        nodes_out[i] = n_nodes;
+        tris_out[i] = n_tris;
+    }
 }
 
 // K5: the near-to-far walk over the child table. nodes_out / tris_out
@@ -256,17 +295,26 @@ extern "C" int strelka_bvh_closest(const void* ox, const void* oy, const void* o
     STRELKA_RETURN_LAUNCH_STATUS();
 }
 
-// Rays as above; nodes: [n_nodes, 8] int32 packed rows (ops/bvh.py:pack_nodes),
-// 16-byte aligned; the same triangles. Output: occlusion as uint8
-// (torch.bool) [n].
+// Rays as above; rows: the child table as for K5, depth at most kStack;
+// tri_rows: [ntri, 12] f32, the triangles in leaf order as 48-byte rows
+// (kernels/bvh.py:tri_rows: v0, e1, e2, the mask's bits, 0, 0), 16-byte
+// aligned. Output: occlusion as uint8 (torch.bool) [n]; nodes and tris
+// int32 [n] (child boxes and triangles tested per ray), or both null.
 extern "C" int strelka_bvh_any(const void* ox, const void* oy, const void* oz, const void* dx, const void* dy,
                                const void* dz, const void* tmin, const void* tmax, const void* exclude,
-                               const void* nodes, int n_nodes, const void* v0, const void* e1, const void* e2,
-                               const void* mask, int ray_mask, long long n, int ntri, void* occ_out,
-                               void* stream) {
-    if (n_nodes < 1 || ntri < 1) return static_cast<int>(cudaErrorInvalidValue);
-    bvh_any_kernel<<<strelka_blocks(n, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        strelka_make_rays(ox, oy, oz, dx, dy, dz, tmin, tmax, exclude), static_cast<const int4*>(nodes), n_nodes,
-        strelka_make_tris(v0, e1, e2, mask, ntri), ray_mask, n, static_cast<unsigned char*>(occ_out));
+                               const void* rows, int n_rows, int depth, const void* tri_rows, int ray_mask,
+                               long long n, int ntri, void* occ_out, void* nodes_out, void* tris_out, void* stream) {
+    if (n_rows < 1 || ntri < 1 || depth > kStack) return static_cast<int>(cudaErrorInvalidValue);
+    const StrelkaRays r = strelka_make_rays(ox, oy, oz, dx, dy, dz, tmin, tmax, exclude);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const unsigned int blocks = strelka_blocks(n, kThreads);
+    const int4* table = static_cast<const int4*>(rows);
+    const float4* tr = static_cast<const float4*>(tri_rows);
+    unsigned char* occ = static_cast<unsigned char*>(occ_out);
+    if (nodes_out)
+        bvh_any_kernel<true><<<blocks, kThreads, 0, st>>>(r, table, tr, ntri, ray_mask, n, occ,
+                                                           static_cast<int*>(nodes_out), static_cast<int*>(tris_out));
+    else
+        bvh_any_kernel<false><<<blocks, kThreads, 0, st>>>(r, table, tr, ntri, ray_mask, n, occ, nullptr, nullptr);
     STRELKA_RETURN_LAUNCH_STATUS();
 }

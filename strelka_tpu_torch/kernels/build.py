@@ -53,7 +53,8 @@ SIGNATURES = {
     # 8 ray components, exclude, child rows; rows, depth; v0, e1, e2, mask; ray mask, n, ntri; t, prim, u, v,
     # nodes, tris, stream
     "strelka_bvh_closest": [_VP] * 10 + [_I32, _I32] + [_VP] * 4 + [_I32, _I64, _I32] + [_VP] * 7,
-    "strelka_bvh_any": [_VP] * 10 + [_I32] + [_VP] * 4 + [_I32, _I64, _I32] + [_VP] * 2,
+    # 8 ray components, exclude, child rows; rows, depth; triangle rows; ray mask, n, ntri; occ, nodes, tris, stream
+    "strelka_bvh_any": [_VP] * 10 + [_I32, _I32, _VP, _I32, _I64, _I32] + [_VP] * 4,
     "strelka_gather_rows_t": [_VP, _VP, _VP, _I64, _I32, _I32, _VP],
     # 8 ray components, cone geometry, boxes, superblock boxes; m_pad, nb, super, cull, (K7) near to far; order,
     # count, its tile, (K7) the order's tnears, list cap; n, blocks; ray counter, outputs, stats, slots, stream

@@ -2,11 +2,14 @@
 
 Replaces the Pallas kernel `strelka_tpu/ops/sampler.py:random_dims_pallas`.
 `random_dims(sample_idx, depth, dims)` -> [D, N] f32, bit-equal to the JAX
-`random_dims`. The CUDA source is csrc/sobol.cu; the plain version below
-is the same bit math on int64 tensors that carry u32 values.
+`random_dims`. The CUDA source is csrc/sobol.cu (one kernel instance per
+set of dimensions drawn, the direction numbers compiled in); the plain
+version below is the same bit math on int64 tensors that carry u32 values.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -140,6 +143,15 @@ def random_dims_plain(sample_idx: torch.Tensor, depth: int, dims: tuple) -> torc
     return torch.clamp(result.to(torch.float32) * (2.0 ** -32), max=FLOAT_ONE_MINUS_EPS)
 
 
+@functools.lru_cache(maxsize=256)
+def launch_args(depth: int, dims: tuple) -> tuple:
+    """(scramble seed, dims packed 4 bits a row) of one (depth, dims): the
+    C entry's scalar arguments, computed once per pair, not per call."""
+    if not 1 <= len(dims) <= 5 or any(not 0 <= d < 5 for d in dims):
+        raise ValueError(f"random_dims: dims {dims} must be 1..5 values in [0, 5)")
+    return scramble_seed(depth), sum(d << (4 * i) for i, d in enumerate(dims))
+
+
 def random_dims(sample_idx: torch.Tensor, depth: int, dims: tuple) -> torch.Tensor:
     """K1: dims are already folded to [0, 5)."""
     if sample_idx.device.type == "cpu":
@@ -147,20 +159,13 @@ def random_dims(sample_idx: torch.Tensor, depth: int, dims: tuple) -> torch.Tens
     K.require_cuda(sample_idx, "random_dims")
     if sample_idx.dtype != torch.int64 or sample_idx.dim() != 1 or not sample_idx.is_contiguous():
         raise ValueError("random_dims: sample_idx must be a contiguous 1-D int64 tensor")
-    if not 1 <= len(dims) <= 5 or any(not 0 <= d < 5 for d in dims):
-        raise ValueError(f"random_dims: dims {dims} must be 1..5 values in [0, 5)")
+    seed, packed = launch_args(depth, dims)
     n = sample_idx.shape[0]
     out = torch.empty((len(dims), n), dtype=torch.float32, device=sample_idx.device)
     if n == 0:
         return out
-    packed = 0
-    for i, d in enumerate(dims):
-        packed |= d << (4 * i)
-    lib = build.load()
-    rc = lib.strelka_random_dims(
-        sample_idx.data_ptr(), out.data_ptr(), n, scramble_seed(depth), len(dims), packed,
-        build.stream_ptr(sample_idx.device),
-    )
+    rc = build.load().strelka_random_dims(sample_idx.data_ptr(), out.data_ptr(), n, seed, len(dims), packed,
+                                          build.stream_ptr(sample_idx.device))
     build.check(rc, "random_dims")
     K.count_launch("sobol", (n, len(dims)))  # n sample indices, dimensions
     return out

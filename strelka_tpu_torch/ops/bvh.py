@@ -14,12 +14,13 @@ format as the reference:
     skip[i], and skip[last] == n ends the walk. In this layout the left
     child of i is i + 1 and the right child is skip[i + 1].
 
-`intersect_bvh_plain` is the plain version of kernel K6 (kernels/bvh.py,
-csrc/bvh.cu): the reference's lockstep stackless walk, operation for
-operation in f32, over component-array rays. Kernel K5 walks near to far
-over a second table made from the same tree, `child_rows` (each internal
-node's two child boxes and references in one 64-byte row), with a short
-stack; `intersect_bvh_ordered_plain` is its plain version.
+`intersect_bvh_plain` is the reference's lockstep stackless walk,
+operation for operation in f32, over component-array rays (with
+margin=True on the port's box test: the yardstick of kernel K6's bound).
+Kernels K5 and K6 (kernels/bvh.py, csrc/bvh.cu) walk near to far over a
+second table made from the same tree, `child_rows` (each internal node's
+two child boxes and references in one 64-byte row), with a short stack;
+`intersect_bvh_ordered_plain` is their plain version (K6: any_hit=True).
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ _COUNT_BITS = 3  # packed node row: count <= MAX_LEAF fits; start < 2^28
 # box (lo xyz, hi xyz), the right child's box, the two child references and
 # the two boxes' scales (ops/slab.py:box_scale) as f32 bits
 CHILD_COLS = 16
-STACK = 64  # entries of K5's per-thread stack (csrc/bvh.cu:kStack); a deeper tree is refused
+STACK = 64  # entries of K5's and K6's per-thread stack (csrc/bvh.cu:kStack); a deeper tree is refused
 
 
 class BvhNodes(NamedTuple):
@@ -74,16 +75,16 @@ class ThreadedBvh(NamedTuple):
 class DeviceBvh:
     """A ThreadedBvh on one device as the packed node rows of `pack_nodes`,
     the child table made from them (`child_rows`) with the tree's depth,
-    and how the tree came to be. Kernel K6 and its plain version read the
-    packed rows, K5 and its plain version the child table; the ThreadedBvh
-    fields are views of the rows (start and count are unpacked on each
-    access)."""
+    and how the tree came to be. Kernels K5 and K6 and their
+    plain versions walk the child table, the reference's DFS walk
+    (`intersect_bvh_plain`) the packed rows; the ThreadedBvh fields are
+    views of the rows (start and count are unpacked on each access)."""
 
     nodes: torch.Tensor  # [n,8] i32: pack_nodes rows
     builder: str = "carried"  # "native", "numpy", or "carried" (arrays from elsewhere)
     build_seconds: float = 0.0
     children: Optional[torch.Tensor] = None  # [m, CHILD_COLS] i32: child_rows of `nodes`, K5's table
-    depth: int = 0  # internal nodes on the longest root-to-leaf path: the stack K5's walk needs
+    depth: int = 0  # internal nodes on the longest root-to-leaf path: the stack K5's and K6's walks need
 
     @property
     def num_nodes(self) -> int:
@@ -587,9 +588,11 @@ def _child_boxes(rows):
 
 
 def intersect_bvh_ordered_plain(o, d, tmin, tmax, exclude, bvh: DeviceBvh, v0, e1, e2, mask, ray_mask: int,
-                                counts: bool = False, name: str = ""):
+                                counts: bool = False, name: str = "", any_hit: bool = False):
     """Kernel K5's walk in plain PyTorch -> (t, prim, u, v), each [N]; with
-    counts=True also an OrderedCounts.
+    counts=True also an OrderedCounts. With any_hit=True, kernel K6's walk:
+    the same order and box test, a ray ends at the first triangle that
+    Möller–Trumbore accepts, and (t, prim, u, v) are that hit's.
 
     Each live ray (tmax > tmin) starts at the root's row of bvh.children.
     At an internal node it tests both child boxes with the port's box test
@@ -604,7 +607,11 @@ def intersect_bvh_ordered_plain(o, d, tmin, tmax, exclude, bvh: DeviceBvh, v0, e
     empty stack ends the walk. prim indexes the leaf-ordered triangles, -1
     on a miss (t = 1e16, u = v = 0). The lanes step in lockstep, one action
     each a step (bookkeeping only: every lane's sequence of actions and its
-    arithmetic are the kernel's)."""
+    arithmetic are the kernel's).
+
+    any_hit: the leaf's triangles are tested in order up to the first hit
+    (counted), which ends the ray's walk; best t stays tmax until then, so
+    every box is tested against [tmin, tmax] and no pop drops an entry."""
     if name:
         K.note_plain(name, tmin.device)
     n = tmin.shape[0]
@@ -668,6 +675,8 @@ def intersect_bvh_ordered_plain(o, d, tmin, tmax, exclude, bvh: DeviceBvh, v0, e
                 cand = (k < cnt) & ((mask[pi] & ray_mask) != 0)
                 if l_ex is not None:
                     cand = cand & (prim != l_ex)
+                if any_hit:
+                    cand = cand & (lp < 0)  # the leaf is left at its first hit
                 tested += cand.to(torch.int32)
                 t, u, v, hit = _tri_test(lo, ld, v0[pi], e1[pi], e2[pi], tmn[b], tmx[b])
                 better = hit & cand & ((t < lt) | ((t == lt) & (prim < lp)))
@@ -675,7 +684,7 @@ def intersect_bvh_ordered_plain(o, d, tmin, tmax, exclude, bvh: DeviceBvh, v0, e
                 lu, lv = torch.where(better, u, lu), torch.where(better, v, lv)
             best_t[b], best_p[b], best_u[b], best_v[b] = lt, lp, lu, lv
             tris[b] += tested
-            node[b] = -1
+            node[b] = torch.where(lp >= 0, -2, -1).to(torch.int32) if any_hit else -1  # any hit: the walk ends
         # ---- pops: one entry a step; an entry beyond best t is dropped
         done = a.shape[0] + b.shape[0]
         c = torch.nonzero(node == -1)[:, 0]

@@ -254,9 +254,15 @@ def trace_paths(
     shadow_ray_tmin: float,
     material_ray_tmin: float,
     debug: int,
+    depth0_dims: torch.Tensor,
     collect_stats: bool = False,
 ):
     """One path per entry -> (radiance Vec3, first_event [N], stats).
+
+    depth0_dims: the depth-0 draw of dimensions (0, 1, 2, 3, 4) at
+    sample_idx ([5, N], as S.random_dims gives it), which the caller has
+    drawn already (render_launch takes the camera jitter from its rows 0
+    and 1).
 
     stats (collect_stats) counts the lanes alive at each closest sweep and
     the shadow rays actually cast, summed over bounces (0-d tensors); a
@@ -288,7 +294,7 @@ def trace_paths(
         # the 5 folded Sobol dimensions of this bounce in one draw (K1);
         # dimension = Dim % 5, so eBSDF2 and eLightId share dim 2, as in
         # the reference (RandomSampler.h:224)
-        dim_rows = S.random_dims(sample_idx, depth, (0, 1, 2, 3, 4))
+        dim_rows = depth0_dims if depth == 0 else S.random_dims(sample_idx, depth, (0, 1, 2, 3, 4))
         rnd = lambda dim: dim_rows[int(dim) % 5]  # noqa: E731
 
         if collect_stats:
@@ -490,8 +496,11 @@ def render_launch(
     s_of_ray = torch.arange(spl, dtype=torch.int64, device=dev).repeat_interleave(n)
     sample_index = (int(params.subframe_index) + s_of_ray) & S.M32
     sample_idx = S.make_sample_index(px, py, sample_index, max_sample_count)
-    jxy = S.random_dims(sample_idx, 0, (Dim.ePixelX, Dim.ePixelY))
-    origin, direction = generate_camera_rays(params, px, py, jxy[0], jxy[1], width, height)
+    # the depth-0 draw once (K1): its rows ePixelX and ePixelY are the camera
+    # jitter, and trace_paths takes the whole draw for its first bounce
+    dims0 = S.random_dims(sample_idx, 0, (0, 1, 2, 3, 4))
+    origin, direction = generate_camera_rays(params, px, py, dims0[Dim.ePixelX % 5], dims0[Dim.ePixelY % 5],
+                                             width, height)
     radiance, first_event, stats = trace_paths(
         scene, params, sample_idx, origin, direction,
         max_depth=max_depth,
@@ -499,6 +508,7 @@ def render_launch(
         shadow_ray_tmin=shadow_ray_tmin,
         material_ray_tmin=material_ray_tmin,
         debug=debug,
+        depth0_dims=dims0,
         collect_stats=collect_stats,
     )
     # [spl*n] components -> [spl, n] -> reduce over samples

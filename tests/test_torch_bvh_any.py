@@ -1,9 +1,13 @@
-"""Kernel K6's walk on the port's box test, on the CPU.
+"""The any-hit walks on the port's box test, on the CPU.
 
 K6 itself runs only on the card (chip_smoke.py holds it there against its
-plain twin and against K3 `cull=False`); here its plain twin,
-`ops/bvh.py:intersect_bvh_plain(margin=True)` (what `kernels/bvh.py:bvh_any`
-takes on CPU tensors), is held:
+plain twin and against K3 `cull=False`). Here the two walks of the port's
+box test are held: K6's plain twin, the near-to-far walk
+`ops/bvh.py:intersect_bvh_ordered_plain(any_hit=True)` (what
+`kernels/bvh.py:bvh_any` takes on CPU tensors; tests/test_torch_bvh_any_walk.py
+holds it further), and the reference's DFS walk with the margin,
+`intersect_bvh_plain(margin=True)` (K6's former walk, and the yardstick
+of its bound):
 
 - against the dense any-hit (K3 `cull=False`'s plain version over the same
   triangles) on every lane of two grazing soups (`scene/grazing.py`: rays at
@@ -84,6 +88,7 @@ def test_no_lane_of_the_grazing_soup_differs_from_the_dense_any_hit(mask, seed):
     dense = KI.intersect_any(*flat, ray_mask, cull=False)
     assert int(dense.sum()) > 200
     assert torch.equal(occ, dense)
+    assert torch.equal(TB.intersect_bvh_plain(*tree, ray_mask, any_hit=True, margin=True)[1] >= 0, dense)
 
 
 def test_the_exact_walk_loses_grazing_occlusion_that_the_margin_keeps():
@@ -107,13 +112,14 @@ def test_margin_walk_on_coplanar_grids_at_any_pose(seed, log_scale, log_offset, 
     dense any-hit on every lane with a hit inside the box test's domain;
     the lanes outside it are counted."""
     flat, tree = _case(*G.plane_case(seed, 10.0 ** log_scale, 10.0 ** log_offset, nx, nz, overlap, sin_min))
-    occ = KB.bvh_any(*tree, RAY_MASK_PRIMARY)
     dense = KI.intersect_any(*flat, RAY_MASK_PRIMARY, cull=False)
     outside = _outside_domain(flat, RAY_MASK_PRIMARY)
-    off = occ != dense
-    assert not (off & ~outside).any()
-    assert not (occ & ~dense).any()  # a walk tests the same triangles: it can lose a hit, never make one
-    note(f"{int(outside.sum())} lanes outside the domain, {int(off.sum())} differ")
+    for occ in (KB.bvh_any(*tree, RAY_MASK_PRIMARY),
+                TB.intersect_bvh_plain(*tree, RAY_MASK_PRIMARY, any_hit=True, margin=True)[1] >= 0):
+        off = occ != dense
+        assert not (off & ~outside).any()
+        assert not (occ & ~dense).any()  # a walk tests the same triangles: it can lose a hit, never make one
+        note(f"{int(outside.sum())} lanes outside the domain, {int(off.sum())} differ")
 
 
 @pytest.mark.parametrize("soup", ["grazing-2", "coplanar-2", "dups-1", "random-3", "box_field"])
@@ -129,7 +135,8 @@ def test_margin_walk_holds_every_lane_the_exact_walk_finds_occluded(soup):
         kind, seed = soup.split("-")
         tree = _case(*G.soup_case(kind, int(seed)))[1]
     for ray_mask in MASKS.values():
-        occ = KB.bvh_any(*tree, ray_mask)
         exact = TB.intersect_bvh_plain(*tree, ray_mask, any_hit=True)[1] >= 0
         assert int(exact.sum()) > 20
-        assert not (exact & ~occ).any()
+        dfs = TB.intersect_bvh_plain(*tree, ray_mask, any_hit=True, margin=True)[1] >= 0
+        for occ in (KB.bvh_any(*tree, ray_mask), dfs):
+            assert not (exact & ~occ).any()

@@ -116,3 +116,66 @@ def test_count_launch_counts_by_name_and_by_shape():
     assert K.launch_shapes == {("sobol", (8, 5)): 2, ("sobol", (8, 2)): 1}
     K.reset_counts()
     assert K.launch_counts["sobol"] == 0 and not K.launch_shapes
+
+
+@pytest.mark.parametrize("dims", [(4, 3, 2, 1, 0), (2, 2), (3, 0, 3, 1, 1), (4,), (1, 4), (0,)])
+def test_random_dims_any_list_bit_equal(dims):
+    """Lists in any order and with repeats (K1 has one instance per set of
+    dimensions drawn and writes each to the rows that name it)."""
+    idx = _indices(30 + len(dims))
+    ref = np.asarray(JS.random_dims(jnp.asarray(idx), 2, dims))
+    out = TS.random_dims(_t(idx), 2, dims).numpy()
+    assert out.shape == (len(dims), idx.size)
+    np.testing.assert_array_equal(_bits(out), _bits(ref))
+
+
+def test_kernel_launch_arguments_once_per_depth_and_dims():
+    from strelka_tpu_torch.kernels import sobol as KS
+
+    seed, packed = KS.launch_args(3, (0, 1, 2, 3, 4))
+    assert seed == KS.scramble_seed(3) and packed == 0x43210
+    assert KS.launch_args(3, (0, 1, 2, 3, 4)) is KS.launch_args(3, (0, 1, 2, 3, 4))  # cached
+    assert KS.launch_args(0, (1, 1)) == (KS.scramble_seed(0), 0x11)
+    for bad in ((), (5,), (0, 1, 2, 3, 4, 0)):
+        with pytest.raises(ValueError, match="dims"):
+            KS.launch_args(0, bad)
+
+
+def test_camera_jitter_is_rows_0_and_1_of_the_depth0_draw(monkeypatch):
+    """render_launch draws depth 0 once: its camera jitter (ePixelX, ePixelY)
+    is rows 0 and 1 of the (0, 1, 2, 3, 4) draw, bit for bit the (0, 1)
+    draw it used to make, and trace_paths takes the whole draw for its
+    first bounce."""
+    from strelka_tpu_torch.ops import integrator as I
+    from strelka_tpu_torch.render.device_scene import build_device_scene
+    from strelka_tpu_torch.scene import testscenes as TTS
+
+    idx = _t(_indices(40, 512))
+    both = TS.random_dims(idx, 0, (0, 1, 2, 3, 4))
+    jitter = TS.random_dims(idx, 0, (TS.SampleDimension.ePixelX, TS.SampleDimension.ePixelY))
+    assert torch.equal(both[0:2].view(torch.int32), jitter.view(torch.int32))
+
+    host = TTS.cornell_box()
+    scene = build_device_scene(host, device="cpu")
+    cam = host.get_camera(0)
+    cam.update_aspect_ratio(1.0)
+    params = I.LaunchParams(0, np.asarray(cam.clip_to_view(), np.float32), np.asarray(cam.view_to_world(), np.float32),
+                            np.full(3, 6.25e-4, np.float32), np.zeros(3, np.float32))
+    kw = dict(width=4, height=4, samples_per_launch=2, max_sample_count=100000, max_depth=2, enable_accumulation=True)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as tests/test_torch_render.py: torch's CPU first-call sqrt fault (ROADMAP C)
+    try:
+        with monkeypatch.context() as m:
+            calls, cams = [], []
+            real_dims, real_cam = I.S.random_dims, I.generate_camera_rays
+            m.setattr(I.S, "random_dims", lambda i, depth, dims: calls.append(
+                (int(depth), tuple(int(d) for d in dims), real_dims(i, depth, dims))) or calls[-1][2])
+            m.setattr(I, "generate_camera_rays", lambda p, px, py, jx, jy, w, h: cams.append((jx, jy)) or real_cam(
+                p, px, py, jx, jy, w, h))
+            I.render_launch(scene, params, I.make_frame_state(4, 4, "cpu"), **kw)
+    finally:
+        torch.set_num_threads(threads)
+    assert [c[:2] for c in calls] == [(0, (0, 1, 2, 3, 4)), (1, (0, 1, 2, 3, 4))]
+    (jx, jy), = cams
+    assert torch.equal(jx.view(torch.int32), calls[0][2][0].view(torch.int32))
+    assert torch.equal(jy.view(torch.int32), calls[0][2][1].view(torch.int32))
