@@ -88,7 +88,27 @@ Phases (any failure raises and the script exits non-zero):
      the sub-blocks and cones a ray tests beside what it needs (counted in
      plain PyTorch); the main path at 384x384, 2 spp, depth 4 (1 warm-up + 2
      timed launches), no golden;
-  7. print the kernels' JSON line, the card's name and power limit, and
+  7. coffeetable (data/scenes/coffeetable.usda through the port's
+     UsdLoader: 64 triangles padded to 128, flat, 2 lights; kernels K1-K4):
+     K1 at its 2^19 sample indices, K2/K3 on its camera, bounce-1 and
+     shadow rays (2^19 x 128: 4 groups, one ray a thread) held as on
+     Cornell, K4 on both tables ([128, 68] attr, [2, 20] light) bit for
+     bit; the golden config (64x64, 4 spp x 16 launches) against
+     goldens/coffeetable_golden.png; the main path at 512x512, 2 spp, depth
+     4 (1 warm-up + 8 timed launches);
+  8. kitchen (data/gen/kitchen/kitchen.usdc through the crate reader and
+     UsdLoader: 105,168 triangles on a BVH, 10 materials, 4 textures in a
+     u8 atlas, 4 lights; kernels K1, K4, K5, K6 and the texture path): the
+     load's seconds and whether the native crate codec decoded; K5 against
+     its three oracles on the camera and bounce-1 rays (the dense sweep and
+     the DFS walk inside the margin's domain, the lanes outside it
+     counted), K6 against its
+     plain twin and K3 brute force (inside the margin's domain) on the
+     camera, bounce-1 and shadow rays, with the walk counters; K4 on both
+     tables ([105,216, 68] attr, [4, 20] light); the golden config (64x64,
+     2 spp x 8 launches) against goldens/kitchen_golden.png; the main path
+     at 512x512, 2 spp, depth 4 (1 warm-up + 4 timed launches);
+  9. print the kernels' JSON line, the card's name and power limit, and
      last the {"ok": true, ...} line.
 
 It exits non-zero without a result where there is no CUDA device or no
@@ -126,6 +146,11 @@ BOX = Config("box_field", 512, 512, 2, 4, 4, ("sobol", "bvh_closest", "bvh_any",
 _HAIR_KERNELS = ("sobol", "intersect_closest", "intersect_any", "gather_rows_t", "cone_closest", "cone_any")
 HAIR = Config("hair_patch", 384, 384, 2, 4, 4, _HAIR_KERNELS)  # bench.py:238
 HAIR_LONG = Config("hair_long", 384, 384, 2, 4, 2, _HAIR_KERNELS + ("open_w",))  # bench.py:239
+COFFEE = Config("coffeetable", 512, 512, 2, 4, 8, CORNELL.kernels)  # bench.py:233
+KITCHEN = Config("kitchen", 512, 512, 2, 4, 4, BOX.kernels)  # bench.py:237
+COFFEE_GOLDEN = (64, 64, 4, 16)  # bench.GOLDEN_CONFIGS["coffeetable"]
+KITCHEN_GOLDEN = (64, 64, 2, 8)  # bench.GOLDEN_CONFIGS["kitchen"]
+COFFEETABLE_USD = os.path.join("data", "scenes", "coffeetable.usda")
 HAIR_CURVES = {"hair_patch": 256, "hair_long": 20000}  # bench.build_host_scene
 HAIR_GOLDEN = (64, 64, 4, 16)  # bench.GOLDEN_CONFIGS["hair_patch"]
 PLAIN_SUBSET = 1 << 14  # lanes of hair_long held against the plain dense sweep
@@ -327,7 +352,7 @@ def main_path_rays(scene, params, device, cfg: Config):
     rays, the camera hits' prims, the sampled light ids and (a scene with
     curves) the material ids of the camera rays' curve hits, of the first
     launch of a main path (the shapes the kernels see there), taken as
-    trace_paths makes them."""
+    trace_paths makes them (a textured scene's lookups included)."""
     import torch
 
     from strelka_tpu_torch.ops import bsdf as B
@@ -351,8 +376,12 @@ def main_path_rays(scene, params, device, cfg: Config):
     hit = intersect_closest(scene, origin, direction, tmin, tmax, RAY_MASK_PRIMARY)
     # bounce 0 shading, as trace_paths does it, to get the bounce-1 rays
     inside = torch.zeros(m, dtype=torch.bool, device=device)
-    position, frame, light_id, rows = I._gather_surface(scene, hit, inside)
+    position, frame, light_id, rows, uv = I._gather_surface(scene, hit, inside)
     mat = I._material_from_rows(rows[ATTR_MAT_ROW:ATTR_LIGHT_ROW])
+    if scene.textures is not None:
+        mat, frame = I.shade_textures(scene, mat, frame, rows[ATTR_MAT_ROW:ATTR_LIGHT_ROW], uv,
+                                      torch.where(hit.prim >= 0, hit.t, 0.0),
+                                      I.ray_cone_spread(params, cfg.height), sample_idx, 0)
     is_curve = torch.zeros(m, dtype=torch.bool, device=device)
     seg_mat = None
     if scene.has_curves:
@@ -1806,6 +1835,101 @@ def phase_hair(dev, t_start):
     return rows, main_hair, ssim_hair, long_rows, main_long
 
 
+# ---------------------------------------------------------------------------
+# USD scenes: coffeetable (text stage, flat) and kitchen (crate, BVH, textures)
+# ---------------------------------------------------------------------------
+
+
+def usd_host(path: str):
+    """A USD stage through the port's UsdLoader -> (host scene, seconds)."""
+    from strelka_tpu_torch.loaders.usd import UsdLoader
+    from strelka_tpu_torch.scene.scene import Scene
+
+    t0 = time.perf_counter()
+    host = Scene()
+    if not UsdLoader().load(path, host):
+        raise AssertionError(f"{path} failed to load")
+    return host, time.perf_counter() - t0
+
+
+def phase_coffeetable(dev, t_start):
+    """Phase 7 -> (rows, main path, golden SSIM)."""
+    from strelka_tpu_torch.render.device_scene import RAY_MASK_PRIMARY, RAY_MASK_SHADOW, build_device_scene
+
+    path = os.path.join(REPO, COFFEETABLE_USD)
+    host, load_s = usd_host(path)
+    scene = build_device_scene(host, device=dev)
+    ntri = scene.v0.shape[0]
+    log(f"coffeetable: {COFFEETABLE_USD} loaded in {load_s:.3f} s; {scene.num_triangles} triangles ({ntri} padded), "
+        f"{scene.num_lights} lights, {scene.mat_table.shape[0]} material rows, flat: {scene.bvh is None}, "
+        f"textures: {scene.textures is not None}")
+    if scene.bvh is not None or scene.textures is not None or ntri != 128:
+        raise AssertionError("coffeetable must build flat, untextured, 128 triangles padded")
+    params = launch_params(host, COFFEE.width, COFFEE.height, 0)
+    sample_idx, camera, bounce1, shadow, prims, lid, _ = main_path_rays(scene, params, dev, COFFEE)
+    n = sample_idx.shape[0]
+    rows = sobol_rows(sample_idx, COFFEE, "coffeetable")
+    check_intersect(scene, camera, RAY_MASK_PRIMARY, "coffeetable camera")
+    b1 = check_intersect(scene, bounce1, RAY_MASK_PRIMARY, "coffeetable bounce-1")
+    sh = check_intersect(scene, shadow, RAY_MASK_SHADOW, "coffeetable shadow")
+    rows += intersect_rows(scene, b1, ((sh, "shadow"),), f"coffeetable {n} lanes x {ntri} triangles")
+    rows.append(gather_row(scene.attr_table, prims, "coffeetable attr_table at the camera hits"))
+    rows.append(gather_row(scene.light_table, lid, "coffeetable light_table at the sampled light ids"))
+    finish_bounds(rows)
+    ssim = phase_golden(usd_host(path)[0], dev, "coffeetable_golden.png", COFFEE.kernels, COFFEE_GOLDEN)
+    main = phase_main_path(scene, host, COFFEE)
+    main.update(load_seconds=load_s)
+    log(f"[{time.perf_counter() - t_start:.0f} s] coffeetable phases done")
+    return rows, main, ssim
+
+
+def phase_kitchen(dev, t_start):
+    """Phase 8 -> (rows, main path, golden SSIM, K6 brute-force summary)."""
+    from strelka_tpu_torch import native
+    from strelka_tpu_torch.ops.bvh import STACK
+    from strelka_tpu_torch.render.device_scene import RAY_MASK_PRIMARY, RAY_MASK_SHADOW, build_device_scene
+    from strelka_tpu_torch.scene.kitchen import ensure_kitchen
+
+    path = ensure_kitchen()
+    host, load_s = usd_host(path)
+    native_codec = native.get_library() is not None
+    t0 = time.perf_counter()
+    scene = build_device_scene(host, device=dev)
+    build_s = time.perf_counter() - t0
+    atlas = scene.textures
+    log(f"kitchen: {os.path.relpath(path, REPO)} loaded in {load_s:.3f} s (crate codec: "
+        f"{'native' if native_codec else 'Python'}); device tables in {build_s:.2f} s: {scene.num_triangles} "
+        f"triangles ({scene.v0.shape[0]} padded), {scene.num_lights} lights, {scene.mat_table.shape[0]} material "
+        f"rows, texture columns {scene.tex_columns}, atlas {tuple(atlas.data.shape)} {atlas.data.dtype} with "
+        f"{atlas.rects.shape[0]} rects; BVH of {scene.bvh.num_nodes} nodes ({scene.bvh.builder} builder, "
+        f"{scene.bvh.build_seconds:.2f} s), {scene.bvh.depth} internal nodes deep (K5's and K6's stack holds {STACK})")
+    if scene.bvh is None or atlas is None or scene.num_triangles != 105168 or scene.num_lights != 4:
+        raise AssertionError("kitchen must build on a BVH with a texture atlas: 105,168 triangles, 4 lights")
+    params = launch_params(host, KITCHEN.width, KITCHEN.height, 0)
+    sample_idx, camera, bounce1, shadow, prims, lid, _ = main_path_rays(scene, params, dev, KITCHEN)
+    where = f"kitchen 2^19 lanes x {scene.v0.shape[0]} triangles"
+    rows = sobol_rows(sample_idx, KITCHEN, "kitchen")
+    # an interior's bounce rays graze its walls: K5 is held to the dense sweep inside the margin's domain
+    check_k5(scene, camera, RAY_MASK_PRIMARY, "kitchen camera", domain=True)
+    b1 = check_k5(scene, bounce1, RAY_MASK_PRIMARY, "kitchen bounce-1", domain=True)
+    sets = ((camera, RAY_MASK_PRIMARY, "camera"), (bounce1, RAY_MASK_PRIMARY, "bounce-1"),
+            (shadow, RAY_MASK_SHADOW, "shadow"))
+    *_, sh = [check_bvh_vs_plain(scene, r, mask, f"kitchen {label}") for r, mask, label in sets]  # K6's row: shadow
+    differ = bruteforce_summary([check_bvh_vs_bruteforce(scene, r, mask, f"kitchen {label}", cap=1e-4)
+                                 for r, mask, label in sets])
+    rows += bvh_rows(scene, b1, sh, where)
+    rows.append(gather_row(scene.attr_table, prims, "kitchen attr_table at the camera hits"))
+    rows.append(gather_row(scene.light_table, lid, "kitchen light_table at the sampled light ids"))
+    finish_bounds(rows)
+    ssim = phase_golden(usd_host(path)[0], dev, "kitchen_golden.png", KITCHEN.kernels, KITCHEN_GOLDEN)
+    main = phase_main_path(scene, host, KITCHEN)
+    main.update(load_seconds=load_s, native_crate_codec=native_codec, device_tables_seconds=build_s,
+                bvh_nodes=scene.bvh.num_nodes, bvh_depth=scene.bvh.depth, bvh_builder=scene.bvh.builder,
+                bvh_build_seconds=scene.bvh.build_seconds, atlas_shape=list(atlas.data.shape))
+    log(f"[{time.perf_counter() - t_start:.0f} s] kitchen phases done")
+    return rows, main, ssim, differ
+
+
 def print_kernel_lines(rows, main=None):
     """One JSON line per (kernel, shape) row; `main` is the result of the main
     path whose launches at that shape are given beside it."""
@@ -1888,7 +2012,11 @@ def main() -> int:
     del box
     hair_rows, main_hair, ssim_hair, long_rows, main_long = phase_hair(dev, t_start)
 
-    # ---- 7. results
+    # ---- 7, 8. the USD scenes: coffeetable (K1-K4), kitchen (K1, K4, K5/K6, textures)
+    coffee_rows, main_coffee, ssim_coffee = phase_coffeetable(dev, t_start)
+    kitchen_rows, main_kitchen, ssim_kitchen, kitchen_differ = phase_kitchen(dev, t_start)
+
+    # ---- 9. results
     print(json.dumps({"main_path": main_cornell, "golden_ssim": ssim_cornell}), flush=True)
     print(json.dumps({"main_path": main_box, "golden_ssim": ssim_box, "bvh_any_vs_bruteforce": box_differ}),
           flush=True)
@@ -1900,18 +2028,24 @@ def main() -> int:
     print(json.dumps({"main_path": main_long}), flush=True)
     print_kernel_lines(hair_rows, main_hair)
     print_kernel_lines(long_rows, main_long)
+    print(json.dumps({"main_path": main_coffee, "golden_ssim": ssim_coffee}), flush=True)
+    print(json.dumps({"main_path": main_kitchen, "golden_ssim": ssim_kitchen,
+                      "bvh_any_vs_bruteforce": kitchen_differ}), flush=True)
+    print_kernel_lines(coffee_rows, main_coffee)
+    print_kernel_lines(kitchen_rows, main_kitchen)
 
     # one entry per kernel: its numbers at the first shape it was timed at
     # (K1-K4 at Cornell's, K5/K6 at box_field's, K7/K8 at hair_patch's, K9 at hair_long's) and
-    # launches over the four main-path runs; "shapes" lists every shape a main path or the flat
+    # launches over the six main-path runs; "shapes" lists every shape a main path or the flat
     # scene gave it, each with its own numbers and its launches there
     from strelka_tpu_torch.kernels import KERNEL_NAMES
 
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     tagged = ([(r, main_cornell) for r in rows] + [(r, None) for r in flat["kernels"]]
               + [(r, main_box) for r in box_rows] + [(r, main_hair) for r in hair_rows]
-              + [(r, main_long) for r in long_rows])
-    mains = (main_cornell, main_box, main_hair, main_long)
+              + [(r, main_long) for r in long_rows] + [(r, main_coffee) for r in coffee_rows]
+              + [(r, main_kitchen) for r in kitchen_rows])
+    mains = (main_cornell, main_box, main_hair, main_long, main_coffee, main_kitchen)
     kernels = []
     for name in KERNEL_NAMES:
         mine = [(r, m) for r, m in tagged if r["kernel"] == name]

@@ -3,20 +3,25 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 scripts/torch_profile_cornell.py [--scene cornell|box_field|hair_patch|hair_long] [--launches 2]
-                                             [--out build/profile]
+    python3 scripts/torch_profile_cornell.py [--scene cornell|box_field|hair_patch|hair_long|coffeetable|kitchen]
+                                             [--launches 2] [--out build/profile]
 
 Builds a scene of chip_smoke.py's main paths on the card (its scene, launch
 parameters and render_launch arguments: cornell at 512x512, 4 spp, depth 4,
-box_field(grid=48) on its BVH at 512x512, 2 spp, depth 4, or
+box_field(grid=48) on its BVH at 512x512, 2 spp, depth 4,
 hair_patch(n_curves=256) / hair_patch(n_curves=20000) at 384x384, 2 spp,
-depth 4), runs one
+depth 4, or the USD stages through the port's UsdLoader: coffeetable at
+512x512, 2 spp, depth 4, kitchen (the crate reader, a BVH, textures) at
+512x512, 2 spp, depth 4), runs one
 warm-up render_launch, then traces --launches more under torch.profiler
 (CPU and CUDA activities). Prints one JSON line: wall time per launch,
 device kernel time per launch split into the hand-written kernels and
 everything else (the plain PyTorch shading), the device's idle share over
 the traced window, the CUDA kernel launches per render launch, and the
-card's name and power limit. Writes the top of the kernel table and a
+card's name and power limit. On a textured scene each bounce's texture
+block (ops/integrator.py:shade_textures) runs under a profiler range, and
+the device time of the kernels it launched is given per launch
+(`texture_device_ms_per_launch`, a part of the "everything else"). Writes the top of the kernel table and a
 Chrome trace under --out/<scene>.
 """
 
@@ -30,6 +35,7 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TEXTURE_RANGE = "texture_path"
 KERNELS = {
     "random_dims_kernel": "sobol",
     "tri_warp_kernel<false": "intersect_closest",
@@ -53,13 +59,14 @@ KERNELS = {
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("cornell", "box_field", "hair_patch", "hair_long"), default="cornell")
+    ap.add_argument("--scene", choices=("cornell", "box_field", "hair_patch", "hair_long", "coffeetable", "kitchen"),
+                    default="cornell")
     ap.add_argument("--launches", type=int, default=2)
     ap.add_argument("--out", default=os.path.join(REPO, "build", "profile"))
     args = ap.parse_args()
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     if not torch.cuda.is_available():
         print("torch_profile_cornell: no CUDA device", file=sys.stderr)
@@ -73,6 +80,12 @@ def main() -> int:
     if args.scene == "cornell":
         cfg = C.CORNELL
         host, scene = C.cornell_scene(torch.device("cuda"))
+    elif args.scene in ("coffeetable", "kitchen"):
+        from strelka_tpu_torch.scene.kitchen import ensure_kitchen
+
+        cfg = C.COFFEE if args.scene == "coffeetable" else C.KITCHEN
+        host, _ = C.usd_host(os.path.join(REPO, C.COFFEETABLE_USD) if args.scene == "coffeetable" else ensure_kitchen())
+        scene = build_device_scene(host, device=torch.device("cuda"))
     elif args.scene == "box_field":
         cfg = C.BOX
         host = TS.box_field(grid=C.BOX_GRID)
@@ -82,6 +95,13 @@ def main() -> int:
         host = TS.hair_patch(n_curves=C.HAIR_CURVES[cfg.name])
         scene = build_device_scene(host, device=torch.device("cuda"))
     kw = C.main_path_kw(cfg)
+    shade_textures = I.shade_textures
+
+    def traced_textures(*a, **k):
+        with record_function(TEXTURE_RANGE):
+            return shade_textures(*a, **k)
+
+    I.shade_textures = traced_textures  # trace_paths looks it up in the module at each bounce
     state = I.make_frame_state(cfg.height, cfg.width, scene.device)
     state, _ = I.render_launch(scene, C.launch_params(host, cfg.width, cfg.height, 0), state, **kw)  # warm-up, build
     torch.cuda.synchronize()
@@ -96,7 +116,12 @@ def main() -> int:
     per_kernel = {name: 0.0 for name in cfg.kernels}
     other_us, n_kernels = 0.0, 0
     spans = []
+    texture_us = 0.0
     for ev in prof.events():
+        if ev.name == TEXTURE_RANGE:
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                texture_us += ev.device_time_total  # the kernels its ops launched
+            continue
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         dur = ev.time_range.elapsed_us()
@@ -133,6 +158,7 @@ def main() -> int:
         "wall_ms_per_launch": wall / n * 1e3,
         "device_ms_per_launch": {k: v / n / 1e3 for k, v in per_kernel.items()},
         "device_other_ms_per_launch": other_us / n / 1e3,
+        "texture_device_ms_per_launch": texture_us / n / 1e3 if scene.textures is not None else None,
         "cuda_kernels_per_launch": n_kernels / n,
         "device_idle_share": (1.0 - busy_us / window_us) if window_us > 0 else None,
         "traced_device_events": n_kernels,

@@ -1,9 +1,9 @@
 """Material system — the equivalent of the MDL pipeline (layer L2).
 
 Copied from the JAX package (strelka_tpu/materials.py); host numpy only.
-Textures and MaterialX networks are not in this slice of the port: a
-material that names a texture, or a MaterialX document, raises
-NotImplementedError.
+A texture parameter loads its file through the manager's TextureManager
+(textures.py). MaterialX documents are not in the port yet: a material
+whose description carries MaterialX code raises NotImplementedError.
 
 The reference compiles MDL/MaterialX source to per-material PTX through the
 MDL SDK (src/materialmanager/: createModule -> createMaterialInstance ->
@@ -255,9 +255,10 @@ class MaterialManager:
             if _BOOL_PARAMS[name] is not None:
                 setattr(mat, _BOOL_PARAMS[name], bool(value))
         elif name in _TEXTURE_PARAMS:
-            if isinstance(value, str):
-                raise NotImplementedError("textures: later slice, ROADMAP A.7")
-            setattr(mat, _TEXTURE_PARAMS[name], -1)
+            tex_id = -1
+            if self.texture_manager is not None and isinstance(value, str):
+                tex_id = self.texture_manager.load(value, srgb=(name == "diffuse_texture"))
+            setattr(mat, _TEXTURE_PARAMS[name], tex_id)
         elif name in ("uv_scale", "st_scale"):
             mat.uv_scale = np.asarray(value, np.float32).reshape(2)
         elif name in ("uv_offset", "st_offset"):

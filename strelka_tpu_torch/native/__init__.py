@@ -1,13 +1,13 @@
 """Native (C++) host components of the port, loaded via ctypes.
 
-The port's copy of strelka_tpu/native for the BVH builder (the crate codec
-waits for the USD loaders). `bvh_builder.cpp` is compiled on first use with
-g++ into `strelka_tpu_torch/_build/native/<hash>/`, never beside the
+The port's copy of strelka_tpu/native: the BVH builder and the USD crate
+codec (LZ4 blocks and pxr integer coding). The sources are compiled on first
+use with g++ into `strelka_tpu_torch/_build/native/<hash>/`, never beside the
 sources: the hash covers the source, the flags and this host's CPU flags
 (the build is -march=native, as the reference's, so that both packages
 build the same tree on the same host). Where no toolchain is present the
-entry returns None and the caller takes the numpy builder, as the
-reference does.
+entry returns None and the caller takes the numpy builder or the Python
+decoder, as the reference does.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ _LIB_TRIED = False
 _SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD_ROOT = os.path.join(os.path.dirname(_SRC_DIR), "_build", "native")
 _LIB_NAME = "libstrelka_native.so"
-_SOURCES = ["bvh_builder.cpp"]
+_SOURCES = ["bvh_builder.cpp", "crate_codec.cpp"]
 _FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 
 
@@ -84,6 +84,16 @@ def get_library():
         except OSError as e:
             log.warning("native library load failed: {}", e)
             return None
+        lib.strelka_lz4_decompress.restype = ctypes.c_int64
+        lib.strelka_lz4_decompress.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+        ]
+        lib.strelka_int_decode.restype = ctypes.c_int64
+        lib.strelka_int_decode.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_void_p,
+        ]
         lib.strelka_build_bvh.restype = ctypes.c_int64
         lib.strelka_build_bvh.argtypes = [
             ctypes.POINTER(ctypes.c_float),
@@ -153,3 +163,47 @@ def native_build_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray, max_leaf: i
         count=count[:n_nodes].copy(),
     )
     return nodes, perm
+
+
+def native_lz4_decompress(src: bytes, dst_size: int):
+    """C++ LZ4 block decode -> bytes of exactly dst_size (None = unavailable,
+    raises ValueError on malformed input)."""
+    lib = get_library()
+    if lib is None:
+        return None
+    dst = np.empty(max(dst_size, 1), np.uint8)
+    n = lib.strelka_lz4_decompress(
+        src, len(src), dst.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), dst_size
+    )
+    if n < 0:
+        raise ValueError("lz4: malformed block (native)")
+    if n != dst_size:
+        raise ValueError(f"lz4: decoded {n} bytes, expected {dst_size}")
+    return dst[:dst_size].tobytes()
+
+
+def native_lz4_decompress_lenient(src: bytes, dst_cap: int):
+    """As native_lz4_decompress but with only an upper bound on output size."""
+    lib = get_library()
+    if lib is None:
+        return None
+    dst = np.empty(max(dst_cap, 1), np.uint8)
+    n = lib.strelka_lz4_decompress(
+        src, len(src), dst.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), dst_cap
+    )
+    if n < 0:
+        raise ValueError("lz4: malformed block (native)")
+    return dst[:n].tobytes()
+
+
+def native_int_decode(buf: bytes, n: int, wide: bool):
+    """C++ pxr integer-compression decode -> np.int32/int64 array (None =
+    native lib unavailable)."""
+    lib = get_library()
+    if lib is None:
+        return None
+    out = np.empty(n, np.int64 if wide else np.int32)
+    rc = lib.strelka_int_decode(buf, len(buf), n, 1 if wide else 0, out.ctypes.data)
+    if rc != 0:
+        raise ValueError("integer-compression: malformed stream (native)")
+    return out

@@ -14,8 +14,15 @@ winner to the exact swept envelope (ops/curve_refine.py), the curve's
 shading frame and material row (a second K4 gather, of mat_table) and the
 cone shadow sweep (K8), and turns on the fibre lobes of ops/hair.py.
 
-The port follows the JAX package's CPU path for scenes without textures:
-row-major sample order, barycentrics from the intersector, prim ids in the
+A scene with textures (DeviceScene.textures) adds, per bounce, the ray
+cone's footprint at the hit and the texture lookups of shade_textures:
+one-texel stochastic trilinear by default, its uniforms hashed from the
+sample index, the ray's slot, the bounce and the lookup slot, so that the
+port draws the texels the JAX package draws. A scene without textures takes
+none of this.
+
+The port follows the JAX package's CPU path: row-major sample order,
+barycentrics from the intersector, prim ids in the
 scene's triangle order (BVH leaf order), the curve parameter u from the
 winning cone's axial root, no wavefront sort. Reference quirks kept for
 image parity:
@@ -31,6 +38,7 @@ image parity:
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -58,6 +66,7 @@ from strelka_tpu_torch.render.device_scene import (
     ATTR_MAT_ROW,
     ATTR_N,
     ATTR_T,
+    ATTR_UV,
     RAY_MASK_PRIMARY,
     RAY_MASK_SHADOW,
     DeviceScene,
@@ -140,7 +149,10 @@ def _gather_surface(scene: DeviceScene, hit: Hit, inside):
 
     ONE fat row gather (kernel K4) of the joined attr table per hit; the
     material and hit-light rows ride along. Returns (position, frame,
-    light_id, rows [68, N])."""
+    light_id, rows [68, N], uv), uv being None for a scene without textures
+    and else ((u, v), uv_density_log2): the interpolated texture
+    coordinates and the prim's log2 sqrt(uv area / world area), which the
+    mip selection adds to the ray cone's footprint."""
     prim = torch.clamp(hit.prim, min=0)
     rows = V.gather_rows_t(scene.attr_table, prim)
     wu, wv = hit.u, hit.v
@@ -152,14 +164,26 @@ def _gather_surface(scene: DeviceScene, hit: Hit, inside):
     t0d, t1d, t2d = (_oct_decode24(rows[ATTR_T + i]) for i in range(3))
     normal = V.normalize(n0d * w0 + n1d * wu + n2d * wv)
     tangent = V.normalize(t0d * w0 + t1d * wu + t2d * wv)
-    geom_normal = V.normalize(V.cross(e1, e2))
+    gcross = V.cross(e1, e2)
+    uv = None
+    if scene.textures is not None:
+        r = lambda i: rows[ATTR_UV + i]  # noqa: E731
+        uv_u = r(0) * w0 + r(2) * wu + r(4) * wv
+        uv_v = r(1) * w0 + r(3) * wu + r(5) * wv
+        # both areas share the 1/2 factor, so the parallelogram ratio is exact
+        uv_area2 = torch.abs((r(2) - r(0)) * (r(5) - r(1)) - (r(4) - r(0)) * (r(3) - r(1)))
+        world_area2 = V.length(gcross)
+        uv_density_log2 = 0.5 * (torch.log2(torch.clamp(uv_area2, min=1e-20))
+                                 - torch.log2(torch.clamp(world_area2, min=1e-20)))
+        uv = ((uv_u, uv_v), uv_density_log2)
+    geom_normal = V.normalize(gcross)
     flip = torch.where(inside, -1.0, 1.0)
     normal = normal * flip
     geom_normal = geom_normal * flip
     binormal = V.cross(normal, tangent)
     frame = B.ShadingFrame(normal=normal, tangent_u=tangent, tangent_v=binormal, geom_normal=geom_normal)
     light_id = rows[ATTR_LIGHT].to(torch.int32)
-    return position, frame, light_id, rows
+    return position, frame, light_id, rows, uv
 
 
 def _material_from_rows(rows) -> B.SurfaceParams:
@@ -177,6 +201,89 @@ def _material_from_rows(rows) -> B.SurfaceParams:
         emission_color=Vec3(rows[20], rows[21], rows[22]),
         thin_walled=rows[23] > 0.5,
     )
+
+
+def tex_stochastic() -> bool:
+    """One-texel stochastic filtering, resolved as the JAX package resolves
+    its `tex_stochastic` flag: STRELKA_TEX_STOCHASTIC if set, else on."""
+    env = os.environ.get("STRELKA_TEX_STOCHASTIC")
+    if env:
+        return env == "1"
+    return True
+
+
+def tex_uniforms(sample_idx: torch.Tensor, depth: int):
+    """The per-lane uniforms of the stochastic texture lookups at one
+    bounce: slot -> 3 x [N] f32 (level pick, x pick, y pick). Murmur hashes
+    keyed by (sample index, the ray's wavefront slot, bounce, lookup slot):
+    decorrelated from the Sobol dimensions and bit-equal to the JAX
+    package's draws. The u32 product wraps at 2^32 (mul32)."""
+    rid = torch.arange(sample_idx.shape[0], dtype=torch.int64, device=sample_idx.device)
+    seed = S.hash_combine(S.hash_u32(sample_idx), (S.mul32(rid, 2654435761) + depth) & S.M32)
+
+    def to_f(u):
+        return (u >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+    def rnd(slot: int):
+        h = S.hash_u32(S.hash_combine(seed, slot + 1))
+        # three components from one hash are too short: re-hash each
+        h2 = S.hash_u32(h ^ 0x68BC21EB)
+        h3 = S.hash_u32(h ^ 0x02E5BE93)
+        return (to_f(h), to_f(h2), to_f(h3))
+
+    return rnd
+
+
+def shade_textures(scene: DeviceScene, mat: B.SurfaceParams, frame: B.ShadingFrame, mat_rows, uv, t_hit,
+                   cone_spread: float, sample_idx: torch.Tensor, depth: int):
+    """Texture lookups modulating material params + normal mapping, at one
+    bounce (the tex_lookup path of the MDL runtime,
+    texture_support_cuda.h:287-528): the diffuse texture replaces the
+    constant color, roughness/metallic textures override their scalars (R
+    channel), a normal map perturbs the frame.
+
+    mat_rows: [24, N] material rows (12-15 texture ids, 16-19 the uv
+    transform); uv: _gather_surface's ((u, v), uv_density_log2). Lookups
+    are trilinear across the mip chain, the footprint the ray cone's at the
+    hit (cone_spread * t_hit, t_hit the path length so far) with the prim's
+    uv density and the uv transform's scale; one-texel stochastic by
+    default (tex_stochastic), its uniforms from tex_uniforms. Lookup slots
+    are 0 diffuse, 1 roughness, 2 metallic, 3 normal, as in the JAX
+    package; a column that no material row uses (scene.tex_columns) is not
+    looked up, which changes no lane: its ids are all -1."""
+    from strelka_tpu_torch.textures import sample_trilinear, sample_trilinear_stochastic
+
+    atlas = scene.textures
+    (uv_u, uv_v), uv_density_log2 = uv
+    uv_t = torch.stack([uv_u * mat_rows[16] + mat_rows[18], uv_v * mat_rows[17] + mat_rows[19]], -1)
+    lod_uv = torch.log2(torch.clamp(t_hit * cone_spread, min=1e-20)) + uv_density_log2
+    uv_scale = torch.clamp(torch.maximum(torch.abs(mat_rows[16]), torch.abs(mat_rows[17])), min=1e-8)
+    lod_t = lod_uv + torch.log2(uv_scale)
+    if tex_stochastic():
+        rnd = tex_uniforms(sample_idx, depth)
+        tex = lambda tid, slot: sample_trilinear_stochastic(atlas, tid, uv_t, lod_t, rnd(slot))  # noqa: E731
+    else:
+        tex = lambda tid, slot: sample_trilinear(atlas, tid, uv_t, lod_t)  # noqa: E731
+    cols = scene.tex_columns
+    if 12 in cols:
+        d_id = mat_rows[12].to(torch.int32)
+        diff = tex(d_id, 0)
+        mat = mat._replace(diffuse_color=V.where(d_id >= 0, Vec3(diff[:, 0], diff[:, 1], diff[:, 2]),
+                                                 mat.diffuse_color))
+    if 14 in cols:
+        r_id = mat_rows[14].to(torch.int32)
+        mat = mat._replace(roughness=torch.where(r_id >= 0, tex(r_id, 1)[:, 0], mat.roughness))
+    if 15 in cols:
+        mt_id = mat_rows[15].to(torch.int32)
+        mat = mat._replace(metallic=torch.where(mt_id >= 0, tex(mt_id, 2)[:, 0], mat.metallic))
+    if 13 in cols:
+        n_id = mat_rows[13].to(torch.int32)
+        nt = tex(n_id, 3)
+        n_ts = Vec3(nt[:, 0], nt[:, 1], nt[:, 2]) * 2.0 - 1.0
+        n_map = V.normalize(frame.tangent_u * n_ts.x + frame.tangent_v * n_ts.y + frame.normal * n_ts.z)
+        new_n = V.where(n_id >= 0, n_map, frame.normal)
+        frame = frame._replace(normal=new_n, tangent_v=V.cross(new_n, frame.tangent_u))
+    return mat, frame
 
 
 def _gather_material_by_id(scene: DeviceScene, mid) -> B.SurfaceParams:
@@ -255,9 +362,13 @@ def trace_paths(
     material_ray_tmin: float,
     debug: int,
     depth0_dims: torch.Tensor,
+    cone_spread: float,
     collect_stats: bool = False,
 ):
     """One path per entry -> (radiance Vec3, first_event [N], stats).
+
+    cone_spread: the ray cone's spread angle a unit of path length (an f32
+    value, ray_cone_spread), which sizes a textured scene's mip footprint.
 
     depth0_dims: the depth-0 draw of dimensions (0, 1, 2, 3, 4) at
     sample_idx ([5, N], as S.random_dims gives it), which the caller has
@@ -289,6 +400,9 @@ def trace_paths(
     stat_shadow = torch.zeros((), dtype=torch.float32, device=dev)
     has_curves = scene.has_curves
     enable_hair = has_curves or scene.has_hair
+    # ray-cone mip selection: the accumulated path length (footprint =
+    # cone_spread * t_total at the hit)
+    t_total = torch.zeros(n, dtype=torch.float32, device=dev) if scene.textures is not None else None
 
     for depth in range(max_depth):
         # the 5 folded Sobol dimensions of this bounce in one draw (K1);
@@ -315,7 +429,7 @@ def trace_paths(
         radiance = V.where(missed, radiance + throughput * Vec3(bg[0], bg[1], bg[2]), radiance)
         throughput = V.where(missed, V.full(n, 0.0, dev), throughput)
 
-        position, frame, raw_light_id, attr_rows = _gather_surface(scene, hit, inside)
+        position, frame, raw_light_id, attr_rows, uv = _gather_surface(scene, hit, inside)
         prim_light_id = torch.where(hit.prim >= 0, raw_light_id, -1)
         hit_light = alive & ~missed & (prim_light_id >= 0) & ~is_curve
         hit_surface = alive & ~missed & ~hit_light
@@ -335,7 +449,14 @@ def trace_paths(
         throughput = V.where(hit_light, V.full(n, 0.0, dev), throughput)
 
         # ---- __closesthit__radiance (surface shading)
-        mat = _material_from_rows(attr_rows[ATTR_MAT_ROW:ATTR_LIGHT_ROW])
+        mat_rows = attr_rows[ATTR_MAT_ROW:ATTR_LIGHT_ROW]
+        mat = _material_from_rows(mat_rows)
+        if scene.textures is not None:
+            # advance the ray cone to this hit (a curve hit by its cone t)
+            t_eff = torch.where(is_curve, chit.t, hit.t) if has_curves else hit.t
+            t_hit = t_total + torch.where(alive & ~missed, t_eff, 0.0)
+            mat, frame = shade_textures(scene, mat, frame, mat_rows, uv, t_hit, cone_spread, sample_idx, depth)
+            t_total = t_hit
         if has_curves:
             position, frame, mat = curve_surface(scene, chit, is_curve, origin, direction, inside, position, frame,
                                                  mat)
@@ -463,6 +584,14 @@ def trace_paths(
     return radiance, first_event, stats
 
 
+def ray_cone_spread(params: LaunchParams, height: int) -> float:
+    """The ray cone's spread a unit of path length: the per-pixel angle of
+    the projection, 2 |clip_to_view[1, 1]| / height (clip_to_view[1, 1] is
+    tan(fov_y / 2)), in f32 as the JAX package computes it."""
+    c2v = np.asarray(torch.as_tensor(params.clip_to_view).cpu(), np.float32)
+    return float(np.float32(2.0) * np.abs(c2v[1, 1]) / np.float32(height))
+
+
 def render_launch(
     scene: DeviceScene,
     params: LaunchParams,
@@ -509,6 +638,7 @@ def render_launch(
         material_ray_tmin=material_ray_tmin,
         debug=debug,
         depth0_dims=dims0,
+        cone_spread=ray_cone_spread(params, height),
         collect_stats=collect_stats,
     )
     # [spl*n] components -> [spl, n] -> reduce over samples

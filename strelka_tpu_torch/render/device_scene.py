@@ -31,8 +31,11 @@ Morton sort, which is a TPU layout). Curves are the exception: the JAX CPU
 build keeps the cones unsorted and sweeps them all, but the port's cone
 kernels cull by box, so it stores the cones Morton-sorted with the packed
 rows and sub-block boxes of the JAX package's TPU build (`pack_cones`; the
-device holds the rows cone-major, each value once). Textured materials are a
-later slice.
+device holds the rows cone-major, each value once).
+
+  textures       TextureAtlas the u8 sheet, rect rows and meta of the
+                              scene's textures (textures.py), or None: a
+                              scene without textures takes no texture path
 
 `device_scene_from_arrays` / `frame_state_from_arrays` carry the JAX
 package's state across: they take its DeviceScene or FrameState as a dict
@@ -54,6 +57,7 @@ from strelka_tpu_torch.kernels.intersect import tri_group_bounds
 from strelka_tpu_torch.ops import curves as C
 from strelka_tpu_torch.ops.bvh import DeviceBvh, ThreadedBvh, device_bvh, timed_build
 from strelka_tpu_torch.scene.scene import InstanceType, Scene
+from strelka_tpu_torch.textures import TextureAtlas, TextureManager, atlas_to_device
 from strelka_tpu_torch.utils.device import resolve_device
 
 GEOMETRY_MASK_TRIANGLE = 1
@@ -119,6 +123,10 @@ class DeviceScene:
     cone_sbounds: Optional[torch.Tensor] = None  # [8, nb / CONE_SUPER] f32 superblock boxes
     curve_refine: bool = True  # cone radii are inflated; hits are refined to the exact envelope
     has_hair: bool = False  # any material row is a hair material
+    textures: Optional[TextureAtlas] = None  # tensors on the scene's device
+    # which of the material rows' texture columns (12 diffuse, 13 normal,
+    # 14 roughness, 15 metallic) name a texture in any row
+    tex_columns: tuple = ()
 
     @property
     def device(self) -> torch.device:
@@ -340,8 +348,11 @@ def build_device_scene(
     geom_mask = _pad_to(cat["geom_mask"], padded, fill=0)
 
     mm = material_manager or MaterialManager()
+    if mm.texture_manager is None:
+        mm.texture_manager = TextureManager(search_path=scene.get_scene_dir())
     compiled = mm.compile_scene_materials(scene.materials)
     table, mat_remap = mm.generate_target_code_deduped(compiled)
+    atlas = mm.texture_manager.build_atlas()
     cat["material_id"] = mat_remap[np.clip(cat["material_id"], 0, len(mat_remap) - 1)]
     material_id = _pad_to(cat["material_id"], padded)
 
@@ -392,6 +403,7 @@ def build_device_scene(
         "light_table": light_np,
         "num_lights": len(scene.lights),
         "num_triangles": num_tri,
+        "textures": atlas,
         **bvh_arrays,
         **curve_arrays,
     }
@@ -417,11 +429,10 @@ def device_scene_from_arrays(arrays: dict, device) -> DeviceScene:
     module's) they are Morton-sorted and packed here. Either way the device
     gets the packed rows cone-major (`cone_geom`, `cone_attr`). `curve_refine`
     (default True, the reference's) says that the cones' radii are inflated
-    and the hits are to be refined. `textures` (a later slice) must be
-    absent or None."""
+    and the hits are to be refined. `textures`, if present, is the texture
+    atlas: a TextureAtlas, or a dict with its `data`, `rects`, `size` and
+    `meta` (the JAX atlas converted field by field)."""
     device = torch.device(device)
-    if "textures" in arrays and not _is_none(arrays["textures"]):
-        raise NotImplementedError("textures: later slice, ROADMAP A.7")
     at = np.asarray(arrays["attr_table"], np.float32)
     if at.shape[1] != ATTR_JOINED:
         raise ValueError(f"attr_table has {at.shape[1]} columns, expected the joined {ATTR_JOINED}")
@@ -442,8 +453,20 @@ def device_scene_from_arrays(arrays: dict, device) -> DeviceScene:
     if bvh is None:
         tri_bounds = torch.tensor(tri_group_bounds(*(np.asarray(arrays[k]) for k in ("v0", "e1", "e2", "geom_mask"))),
                                   device=device)
+    textures = arrays.get("textures")
+    if _is_none(textures):
+        textures = None
+    else:
+        if isinstance(textures, dict):
+            textures = TextureAtlas(*(textures.get(k) for k in ("data", "rects", "size", "meta")))
+        if not isinstance(textures, TextureAtlas):
+            raise TypeError(f"textures: the texture atlas as a TextureAtlas or a dict of its fields, not "
+                            f"{type(textures).__name__}")
+        textures = atlas_to_device(textures, device)
     return DeviceScene(
         bvh=bvh,
+        textures=textures,
+        tex_columns=tuple(c for c in range(12, 16) if textures is not None and (mat_table[:, c] >= 0).any()),
         tri_bounds=tri_bounds,
         has_hair=bool((mat_table[:, 0] == float(BsdfType.HAIR)).any()),
         **_curve_fields(arrays, device),

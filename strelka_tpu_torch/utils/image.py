@@ -80,8 +80,8 @@ def _unfilter(data: bytes, h: int, w: int, bpp: int) -> np.ndarray:
     return out.astype(np.uint8)
 
 
-def read_png(path: str) -> np.ndarray:
-    """8-bit, non-interlaced PNG -> [H, W, C] float32 in [0, 1]."""
+def _read_png_u8(path: str) -> np.ndarray:
+    """8-bit, non-interlaced PNG -> [H, W, C] uint8 (C = 1, 2, 3 or 4)."""
     with open(path, "rb") as f:
         blob = f.read()
     if blob[:8] != _PNG_SIG:
@@ -98,14 +98,33 @@ def read_png(path: str) -> np.ndarray:
             idat.append(data)
         elif kind == b"IEND":
             break
+    if hdr is None:
+        raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, ctype, _comp, _filt, interlace = hdr
     if depth != 8 or interlace != 0 or ctype not in _CHANNELS:
         raise ValueError(f"{path}: only 8-bit non-interlaced grey/RGB(A) PNGs are read")
     ch = _CHANNELS[ctype]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w, ch).reshape(h, w, ch)
-    if ch == 1:
+    return _unfilter(zlib.decompress(b"".join(idat)), h, w, ch).reshape(h, w, ch)
+
+
+def read_png(path: str) -> np.ndarray:
+    """8-bit, non-interlaced PNG -> [H, W, C] float32 in [0, 1]."""
+    px = _read_png_u8(path)
+    if px.shape[-1] == 1:
         px = px[..., 0]
     return px.astype(np.float32) / 255.0
+
+
+def read_png_rgba(path: str) -> np.ndarray:
+    """8-bit, non-interlaced PNG -> [H, W, 4] uint8, as PIL's convert("RGBA")
+    gives it: grey fills R, G and B, and a missing alpha is 255."""
+    px = _read_png_u8(path)
+    h, w, ch = px.shape
+    out = np.full((h, w, 4), 255, np.uint8)
+    out[..., :3] = px[..., :3] if ch >= 3 else px[..., :1]
+    if ch in (2, 4):
+        out[..., 3] = px[..., -1]
+    return out
 
 
 def ssim(a: np.ndarray, b: np.ndarray, data_range: float = 1.0) -> float:
