@@ -108,7 +108,27 @@ Phases (any failure raises and the script exits non-zero):
      tables ([105,216, 68] attr, [4, 20] light); the golden config (64x64,
      2 spp x 8 launches) against goldens/kitchen_golden.png; the main path
      at 512x512, 2 spp, depth 4 (1 warm-up + 4 timed launches);
-  9. print the kernels' JSON line, the card's name and power limit, and
+  9. the user's entry points, at the sizes their users run: each (kernel,
+     shape) they launch held first against its plain version (hold_at),
+     then (1) `python -m strelka_tpu_torch.app.cli -s builtin://cornell_box
+     -t 16 -f 4` in a subprocess at its defaults (1024x768, depth 4), its
+     PNG equal on every pixel to an in-process TorchRender render; the rest
+     in-process through main(argv), each with the launch counts set to 0
+     just before and read just after: (2) `--upscale 0.5` (traced at
+     512x384; the card's resize within 1e-6 of the CPU's on the same traced
+     image, the PNG equal to it), (3) `--multichip` (one band on one card,
+     its PNG equal to (1)'s), and shard_launch over the card four times
+     (192-row bands) bit-equal to the unbanded launch in accum and image,
+     no band tensor moved between devices, (4) box_field(grid=48) written
+     as a .glb (411,652 triangles on a BVH; its rect light in the sidecar)
+     through the CLI, with its load and BVH seconds, (5) the USD runner on
+     kitchen and coffeetable at 1024x768, each PNG equal to an in-process
+     render of the stage, (6) `--profile` on 2 Cornell frames, the K2/K3
+     kernel of Cornell's schedule among summarize_trace's top 10, (7) the
+     viewer, 4 frames at 640x480 streamed to a PNG; one JSON line an item
+     (wall seconds, ms a frame, FrameStats' Mray/s, TorchRender's ms a
+     launch at the same size, the card);
+ 10. print the kernels' JSON line, the card's name and power limit, and
      last the {"ok": true, ...} line.
 
 It exits non-zero without a result where there is no CUDA device or no
@@ -155,6 +175,7 @@ HAIR_CURVES = {"hair_patch": 256, "hair_long": 20000}  # bench.build_host_scene
 HAIR_GOLDEN = (64, 64, 4, 16)  # bench.GOLDEN_CONFIGS["hair_patch"]
 PLAIN_SUBSET = 1 << 14  # lanes of hair_long held against the plain dense sweep
 BOX_GRID = 48  # bench.build_host_scene("box_field"): 411,652 triangles
+BOX_TRIANGLES = 411652
 FLAT_GRID = 12  # 25,732 triangles: the range of the TPU's _flat/_mxu_flat kernels
 MAX_SAMPLE_COUNT = 100000  # as bench.py's render_launch
 EXPOSURE = [6.25e-4] * 3  # as bench.py's build_scene
@@ -1930,6 +1951,509 @@ def phase_kitchen(dev, t_start):
     return rows, main, ssim, differ
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the user's entry points (app/cli.py, app/usd_runner.py, app/viewer.py)
+# ---------------------------------------------------------------------------
+
+ENTRY = Config("entry_points", 1024, 768, 4, 4, 4, CORNELL.kernels)  # the CLI's defaults; -t 16 -f 4
+ENTRY_SPP = {"cli": (16, 4), "upscale": (16, 4), "gltf": (8, 2), "usd": (8, 2), "profile": (8, 4), "viewer": (4, 1)}
+VIEWER_SIZE = (640, 480)  # app/viewer.py's default
+TITLE = r"\[?([0-9.]+) ms\]? \[([0-9]+) spp\]"  # cli.py's and viewer.py's title, usd_runner.py's frame line
+
+
+def K_reset() -> None:
+    import torch
+
+    from strelka_tpu_torch import kernels as K
+
+    torch.cuda.synchronize()
+    K.reset_counts()
+
+
+def K_read():
+    """(launch counts, launch shapes) since K_reset; no plain version may have run on CUDA."""
+    import torch
+
+    from strelka_tpu_torch import kernels as K
+
+    torch.cuda.synchronize()
+    if any(K.plain_cuda_calls.values()):
+        raise AssertionError(f"a plain version ran on CUDA: {K.plain_cuda_calls}")
+    return dict(K.launch_counts), dict(K.launch_shapes)
+
+
+def hold_at(scene, host, w: int, h: int, spp: int, where: str) -> None:
+    """Every kernel a main path of `scene` launches, held bit for bit against
+    its plain version at the shapes a w x h x spp launch gives it (no
+    timing): K1 at both dimension lists of a launch; K2/K3 (a flat scene) or
+    K5/K6 (a BVH) on the camera, bounce-1 and bounce-0 shadow rays; K4 at the
+    attr and light tables. K2/K3 are held on every lane against the dense
+    plain sweep, K5/K6 against their plain twins (the dense checks of K5/K6
+    are phases 3, 4 and 8's)."""
+    import torch
+
+    from strelka_tpu_torch.kernels import bvh as KB
+    from strelka_tpu_torch.kernels import gather as KG
+    from strelka_tpu_torch.kernels import intersect as KI
+    from strelka_tpu_torch.kernels import sobol as KS
+    from strelka_tpu_torch.render.device_scene import RAY_MASK_PRIMARY, RAY_MASK_SHADOW
+
+    t0 = time.perf_counter()
+    cfg = Config(where, w, h, spp, ENTRY.depth, 0, ())
+    sample_idx, camera, bounce1, shadow, prims, lid, _ = main_path_rays(scene, launch_params(host, w, h, 0),
+                                                                        scene.device, cfg)
+    for dims, depths in ((JITTER_DIMS, (0,)), (BOUNCE_DIMS, range(cfg.depth))):
+        for depth in depths:
+            a = held(lambda: KS.random_dims(sample_idx, depth, dims))
+            if not torch.equal(a.view(torch.int32), KS.random_dims_plain(sample_idx, depth, dims).view(torch.int32)):
+                raise AssertionError(f"K1 differs from its plain version at depth {depth}, dims {dims} ({where})")
+    off = {}
+    for rays, mask, label in ((camera, RAY_MASK_PRIMARY, "camera"), (bounce1, RAY_MASK_PRIMARY, "bounce-1"),
+                              (shadow, RAY_MASK_SHADOW, "shadow")):
+        if scene.bvh is None:
+            args = flat_args(scene, rays, mask)
+            k2 = held(lambda: KI.intersect_closest(*args, bounds=scene.tri_bounds))
+            k3 = held(lambda: KI.intersect_any(*args, bounds=scene.tri_bounds))
+            off[label] = (int(closest_lanes(k2, KI.closest_plain(*args)).sum()), int((k3 != KI.any_plain(*args)).sum()))
+        else:
+            args = bvh_args(scene, rays, mask)
+            k5 = held(lambda: KB.bvh_closest(*args))
+            k6 = held(lambda: KB.bvh_any(*args))
+            off[label] = (closest_off(k5, KB.closest_plain(*args)), int((k6 != KB.any_plain(*args)).sum()))
+    for table, idx in ((scene.attr_table, prims), (scene.light_table, lid)):
+        idx = torch.clamp(idx, min=0).contiguous()
+        a = held(lambda: KG.gather_rows_t(table, idx))
+        off[f"K4 {tuple(table.shape)}"] = int(same_bits(a, KG.gather_rows_t_plain(table, idx)).sum())
+    torch.cuda.synchronize()
+    pair = "K2/K3" if scene.bvh is None else "K5/K6"
+    log(f"held at {where} ({w}x{h}, {spp} spp: {sample_idx.shape[0]} lanes x {scene.v0.shape[0]} triangles): K1 "
+        f"bit-equal at both dimension lists; lanes off the plain versions ({pair} by ray set, K4 by table): {off} "
+        f"(bar: 0, tolerance: none) in {time.perf_counter() - t0:.1f} s")
+    if any(v if isinstance(v, int) else any(v) for v in off.values()):
+        raise AssertionError(f"a kernel differs from its plain version at {where}: {off}")
+
+
+def frame_times(stdout: str):
+    """(ms, spp) of each frame line an app printed."""
+    import re
+
+    return [(float(ms), int(spp)) for ms, spp in re.findall(TITLE, stdout)]
+
+
+class AppRun(NamedTuple):
+    code: int
+    stdout: str
+    log: str
+    wall_s: float
+    counts: dict
+    shapes: dict
+
+
+def run_app(module: str, argv: list) -> AppRun:
+    """`module`.main(argv) in this process, its standard output and log
+    captured, with the launch counts set to 0 just before and read just after."""
+    import contextlib
+    import importlib
+    import io
+    import logging
+
+    import torch
+
+    from strelka_tpu_torch import kernels as K
+
+    main_fn = importlib.import_module(module).main
+    out, logs = io.StringIO(), io.StringIO()
+    handler = logging.StreamHandler(logs)
+    logger = logging.getLogger("Strelka")
+    logger.addHandler(handler)
+    try:
+        torch.cuda.synchronize()
+        K.reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            code = main_fn(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, shapes, plain = dict(K.launch_counts), dict(K.launch_shapes), dict(K.plain_cuda_calls)
+    finally:
+        logger.removeHandler(handler)
+    if code != 0:
+        raise AssertionError(f"{module} {argv} exited {code}: {logs.getvalue()[-2000:]}")
+    if any(plain.values()):
+        raise AssertionError(f"a plain version ran on CUDA in {module} {argv}: {plain}")
+    return AppRun(code, out.getvalue(), logs.getvalue(), wall, counts, shapes)
+
+
+def check_launches(run_counts: dict, shapes: dict, kernels: tuple, what: str) -> None:
+    """Every kernel of the path launched, each at a shape held before."""
+    missing = [k for k in kernels if not run_counts.get(k)]
+    unheld = sorted(k for k in shapes if k not in HELD)
+    if missing or unheld:
+        raise AssertionError(f"{what}: kernels not launched {missing}; launched at shapes not held against their "
+                             f"plain versions {unheld}")
+
+
+def card_name_and_power_limit() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60)
+    return smi.stdout.strip()
+
+
+def app_line(item: str, argv: list, wall_s: float, frames, w: int, h: int, depth: int = 4, **extra) -> dict:
+    """One item's JSON line: wall seconds, ms a frame (the app's own frame
+    lines: render and the copy of the frame to the host), and FrameStats'
+    Mray/s over those frames (2 x depth rays a sample of a w x h frame), all
+    of them and all but the first (which builds the device scene)."""
+    from strelka_tpu_torch.utils.profiling import FrameStats
+
+    stats, later = FrameStats(window=len(frames) or 1), FrameStats(window=len(frames) or 1)
+    prev = 0
+    for i, (ms, spp) in enumerate(frames):
+        for s in (stats, later) if i else (stats,):
+            s.add_frame(ms / 1e3, w * h * max(spp - prev, 0) * 2 * depth)
+        prev = spp
+    line = dict(entry_point=item, argv=argv, wall_s=wall_s, frames=len(frames), ms_per_frame=[ms for ms, _ in frames],
+                ms_per_frame_after_first=later.avg_ms or None, mrays_per_s=stats.mrays_per_sec,
+                mrays_per_s_after_first=later.mrays_per_sec, **extra)
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def reference_frames(host, w, h, spp_total, spp, *, search_path=None, upscale=None, frames=None):
+    """An in-process TorchRender render with the apps' settings -> (the last
+    frame [h, w, 4] on the card, ms a launch of each frame: render() to a
+    synchronize, no copy to the host, the TorchRender)."""
+    import torch
+
+    from strelka_tpu_torch.render.buffer import BufferDesc, BufferFormat
+    from strelka_tpu_torch.render.render import RenderFactory
+    from strelka_tpu_torch.settings import SharedContext, make_default_settings
+
+    s = make_default_settings(w, h)
+    s.set("render/pt/sppTotal", spp_total)
+    s.set("render/pt/spp", spp)
+    s.set("render/pt/depth", ENTRY.depth)
+    if upscale:
+        s.set("render/pt/enableUpscale", True)
+        s.set("render/pt/upscaleFactor", upscale)
+    if search_path:
+        s.set("resource/searchPath", search_path)
+    r = RenderFactory.create_render()
+    r.set_scene(host)
+    ctx = SharedContext(s)
+    r.set_shared_context(ctx)
+    r.init()
+    buf = r.create_buffer(BufferDesc(w, h, BufferFormat.FLOAT4))
+    ms = []
+    while ctx.subframe_index < spp_total and (frames is None or len(ms) < frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.render(buf)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return buf.device(), ms, r
+
+
+def png_u8(path: str):
+    import numpy as np
+
+    from strelka_tpu_torch.utils.image import read_png
+
+    return np.round(read_png(path) * 255.0).astype(np.uint8)
+
+
+def same_png(path: str, image, what: str) -> None:
+    """The PNG an app wrote equals to_uint8 of `image` ([H, W, 4] on the card), flipped as write_png writes it."""
+    import numpy as np
+
+    from strelka_tpu_torch.utils.image import to_uint8
+
+    want = to_uint8(image.cpu().numpy()[..., :3])[::-1]
+    got = png_u8(path)
+    off = int((got != want).any(axis=-1).sum()) if got.shape == want.shape else -1
+    log(f"{what}: {os.path.basename(path)} {got.shape} against the in-process render: {off} pixels off (bar: 0)")
+    if off:
+        raise AssertionError(f"{what}: the app's PNG differs from the in-process render on {off} pixels")
+
+
+def write_glb(host, path: str) -> int:
+    """A host scene as a binary glTF, as GltfLoader reads it: one mesh a
+    (geometry, material) pair with POSITION, NORMAL, TEXCOORD_0 and u32
+    indices, one node an instance (its matrix), one pbrMetallicRoughness
+    material a scene material (base colour, metallic, roughness), the camera
+    on a node of its own; the rect lights go to <name>_light.json (the
+    loader's sidecar; it has no other light). Returns the triangles written."""
+    import struct
+
+    import numpy as np
+
+    from strelka_tpu_torch.scene.scene import InstanceType
+    from strelka_tpu_torch.utils import math3d as m3
+
+    blob, views, accessors, meshes, nodes, prims = bytearray(), [], [], [], [], {}
+
+    def add(arr, comp, kind):
+        arr = np.ascontiguousarray(arr)
+        views.append({"buffer": 0, "byteOffset": len(blob), "byteLength": arr.nbytes})
+        blob.extend(arr.tobytes() + b"\0" * (-arr.nbytes % 4))
+        accessors.append({"bufferView": len(views) - 1, "componentType": comp, "count": arr.shape[0], "type": kind})
+        return len(accessors) - 1
+
+    tris = 0
+    for inst in host.instances:
+        if inst.type != InstanceType.eMesh:
+            continue
+        g = inst.geom_id
+        if g not in prims:
+            prims[g] = ({"POSITION": add(host.positions[g], 5126, "VEC3"), "NORMAL": add(host.normals[g], 5126, "VEC3"),
+                         "TEXCOORD_0": add(host.uvs[g], 5126, "VEC2")},
+                        add(host.indices[g].astype(np.uint32), 5125, "SCALAR"))
+        key = (g, inst.material_id)
+        if key not in prims:
+            attrs, idx = prims[g]
+            prims[key] = len(meshes)
+            meshes.append({"primitives": [{"attributes": attrs, "indices": idx, "material": inst.material_id}]})
+        nodes.append({"mesh": prims[key], "matrix": np.asarray(inst.transform, np.float64).T.reshape(-1).tolist()})
+        tris += len(host.indices[g]) // 3
+    cam = host.get_camera(0)
+    w, x, y, z = m3.quat_conjugate(cam.orientation)  # the loader conjugates a camera node's rotation back
+    nodes.append({"camera": 0, "translation": [float(v) for v in cam.position],
+                  "rotation": [float(x), float(y), float(z), float(w)]})
+    materials = []
+    for m in host.materials:
+        base = m.params.get("diffuse_color_constant", m.color if m.has_color else [0.8, 0.8, 0.8])
+        materials.append({"name": m.name, "alphaMode": "OPAQUE", "pbrMetallicRoughness": {
+            "baseColorFactor": [float(c) for c in base] + [1.0],
+            "metallicFactor": float(m.params.get("metallic_constant", 0.0)),
+            "roughnessFactor": float(m.params.get("reflection_roughness_constant", 1.0))}})
+    doc = {"asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": list(range(len(nodes)))}], "nodes": nodes,
+           "meshes": meshes, "materials": materials, "accessors": accessors, "bufferViews": views,
+           "buffers": [{"byteLength": len(blob)}],
+           "cameras": [{"type": "perspective", "name": cam.name,
+                        "perspective": {"yfov": float(np.radians(cam.fov)), "znear": 0.1, "zfar": 100000.0}}]}
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, 12 + 8 + len(js) + 8 + len(blob)))
+        f.write(struct.pack("<II", len(js), 0x4E4F534A) + js + struct.pack("<II", len(blob), 0x004E4942) + blob)
+    lights = [{"position": [float(v) for v in d.position], "orientation": [float(v) for v in d.orientation],
+               "width": float(d.width), "height": float(d.height), "color": [float(v) for v in d.color],
+               "intensity": float(d.intensity)} for d in host.light_descs if d.type == 0]
+    with open(os.path.splitext(path)[0] + "_light.json", "w") as f:
+        json.dump({"lights": lights}, f)
+    return tris
+
+
+def phase_entry_points(dev, t_start):
+    """Phase 9 -> (the JSON lines' items, the summed launch counts of the apps' counted runs)."""
+    import re
+    import shutil
+    import tempfile
+
+    import torch
+
+    from strelka_tpu_torch.app.cli import load_scene
+    from strelka_tpu_torch.loaders.usd import UsdLoader
+    from strelka_tpu_torch.parallel.sharding import make_band_state, shard_launch
+    from strelka_tpu_torch.render.device_scene import build_device_scene
+    from strelka_tpu_torch.render.render import resize_bilinear
+    from strelka_tpu_torch.scene import testscenes as TS
+    from strelka_tpu_torch.scene.kitchen import ensure_kitchen
+    from strelka_tpu_torch.scene.scene import Scene
+    from strelka_tpu_torch.kernels.intersect import pick_schedule
+    from strelka_tpu_torch.ops import integrator as I
+    from strelka_tpu_torch.utils.profiling import summarize_trace
+
+    t_phase = time.perf_counter()
+    card = card_name_and_power_limit()
+    log(f"entry points on {card}")
+    tmp = tempfile.mkdtemp(prefix="strelka_entry_")
+    w, h = ENTRY.width, ENTRY.height
+    size = [] if (w, h) == (1024, 768) else ["--width", str(w), "--height", str(h)]  # the apps' default size
+    items, total = [], {}
+
+    def line(*args, **kw):  # an item's JSON line, the card beside its numbers
+        items.append(app_line(*args, card=card, **kw))
+
+    def shown(argv):  # an item's arguments as its JSON line gives them: files in the temporary directory by name
+        return [a.replace(tmp, "<tmp>") if a.startswith(tmp) else os.path.relpath(a, REPO) if a.startswith(REPO) else a
+                for a in argv]
+
+    def counted(run: AppRun, kernels: tuple, what: str) -> None:
+        check_launches(run.counts, run.shapes, kernels, what)
+        for k, v in run.counts.items():
+            total[k] = total.get(k, 0) + v
+
+    try:
+        # ---- Cornell through the CLI: the kernels held at every shape the items give them
+        cornell = load_scene("builtin://cornell_box")
+        cscene = build_device_scene(cornell, device=dev)
+        for cw, ch, spp, where in ((w, h, 4, "the CLI's Cornell"),
+                                   (w // 2, h // 2, 4, "the CLI's Cornell at upscale 0.5 and in 4 bands"),
+                                   (*VIEWER_SIZE, 1, "the viewer's Cornell")):
+            hold_at(cscene, cornell, cw, ch, spp, where)
+
+        # 1. python -m strelka_tpu_torch.app.cli, Cornell, the defaults (1024x768, depth 4), 16 spp in 4 frames
+        png1 = os.path.join(tmp, "cli_cornell.png")
+        argv1 = ["-s", "builtin://cornell_box", "-t", "16", "-f", "4", "-o", png1, *size]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "strelka_tpu_torch.app.cli", *argv1], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, timeout=600)
+        wall1 = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+        sub_counts = json.loads(re.search(r"Kernel launches: (\{.*\})", proc.stderr).group(1))
+        check_launches(sub_counts, {}, CORNELL.kernels, "1. the CLI's subprocess (its shapes: the in-process render's)")
+        K_reset()
+        ref1, ref1_ms, _ = reference_frames(load_scene("builtin://cornell_box"), w, h, 16, 4)
+        check_launches(*K_read(), CORNELL.kernels, "the in-process Cornell render")
+        same_png(png1, ref1, f"1. CLI (python -m, a subprocess), Cornell {w}x{h} 16 spp in 4 frames")
+        for k, v in sub_counts.items():
+            total[k] = total.get(k, 0) + v
+        line("cli_cornell", shown(argv1), wall1, frame_times(proc.stdout), w, h,
+             launch_counts=sub_counts, schedule=pick_schedule(cscene.v0.shape[0], False),
+             torchrender_ms_per_launch=ref1_ms, image_mean=float(ref1[..., :3].mean()))
+
+        # 2. --upscale 0.5: traced at 512x384, resized to 1024x768
+        png2 = os.path.join(tmp, "cli_upscale.png")
+        argv2 = ["-s", "builtin://cornell_box", "-t", "16", "-f", "4", "--upscale", "0.5", "-o", png2, *size]
+        run = run_app("strelka_tpu_torch.app.cli", argv2)
+        counted(run, CORNELL.kernels, "2. CLI --upscale 0.5")
+        traced, traced_ms, _ = reference_frames(load_scene("builtin://cornell_box"), w // 2, h // 2, 16, 4)
+        on_card = resize_bilinear(traced, h, w)
+        resize_err = float((on_card.cpu() - resize_bilinear(traced.cpu(), h, w)).abs().max())
+        log(f"2. upscale: the card's resize of the {w // 2}x{h // 2} trace against the CPU's: max abs {resize_err:.3e} "
+            f"(bar: 1e-6)")
+        if resize_err > 1e-6 or tuple(traced.shape) != (h // 2, w // 2, 4):
+            raise AssertionError(f"upscale: resize off the CPU's by {resize_err}, traced {tuple(traced.shape)}")
+        same_png(png2, on_card, "2. CLI --upscale 0.5 (in-process)")
+        line("cli_upscale", shown(argv2), run.wall_s, frame_times(run.stdout), w, h,
+             launch_counts=run.counts, traced=[w // 2, h // 2], resize_max_abs_err=resize_err,
+             torchrender_ms_per_launch=traced_ms)
+
+        # 3. --multichip: one band on one card equals item 1; then 4 bands of 192 rows on the card repeated
+        png3 = os.path.join(tmp, "cli_multichip.png")
+        argv3 = ["-s", "builtin://cornell_box", "-t", "16", "-f", "4", "--multichip", "-o", png3, *size]
+        run = run_app("strelka_tpu_torch.app.cli", argv3)
+        counted(run, CORNELL.kernels, "3. CLI --multichip")
+        off3 = int((png_u8(png3) != png_u8(png1)).any(axis=-1).sum())
+        log(f"3. CLI --multichip on {torch.cuda.device_count()} card(s): {off3} pixels off item 1's PNG (bar: 0)")
+        if off3:
+            raise AssertionError(f"--multichip's image differs from the unbanded CLI's on {off3} pixels")
+        kw = dict(width=w, samples_per_launch=4, max_sample_count=16, max_depth=ENTRY.depth, enable_accumulation=True)
+        params = launch_params(cornell, w, h, 0)
+
+        def make_launch(local_h, full_h):
+            def launch(scene, params, state, py_offset):
+                state, planar = I.render_launch(scene, params, state, height=local_h, py_offset=py_offset,
+                                                full_height=full_h, **kw)
+                return state, planar.permute(1, 2, 0)
+            return launch
+
+        K_reset()
+        whole_state, whole = I.render_launch(cscene, params, I.make_frame_state(h, w, dev), height=h, **kw)
+        banded = shard_launch(make_launch, [dev] * 4, check_devices=True)
+        bands, image = banded(cscene, params, make_band_state(h, w, banded.devices))
+        torch.cuda.synchronize()
+        counts3, shapes3 = K_read()
+        check_launches(counts3, shapes3, CORNELL.kernels, "3. four bands")
+        off_img = int(same_bits(image, whole.permute(1, 2, 0)).sum())
+        off_acc = sum(int(same_bits(b.accum, whole_state.accum[:, i * (h // 4):(i + 1) * (h // 4)]).sum())
+                      for i, b in enumerate(bands.bands))
+        log(f"3. shard_launch over the card 4 times ({h // 4}-row bands, one launch {w}x{h} 4 spp): values off the "
+            f"unbanded launch: image {off_img}, accum {off_acc}; band tensors moved between devices "
+            f"{len(banded.crossings)} (bar: 0 for all three)")
+        if off_img or off_acc or banded.crossings:
+            raise AssertionError(f"four bands: image {off_img}, accum {off_acc} values off, "
+                                 f"crossings {banded.crossings}")
+        line("cli_multichip", shown(argv3), run.wall_s, frame_times(run.stdout), w, h,
+             launch_counts=run.counts, torchrender_ms_per_launch=ref1_ms,
+             bands_off=dict(image=off_img, accum=off_acc, crossings=len(banded.crossings)))
+
+        # 4. the CLI on a glTF: box_field(grid=48) as a .glb, 411,652 triangles on a BVH
+        glb = os.path.join(tmp, "box_field.glb")
+        t0 = time.perf_counter()
+        written = write_glb(TS.box_field(grid=BOX_GRID), glb)
+        write_s = time.perf_counter() - t0
+        gl_ref, gl_ms, rg = reference_frames(load_scene(glb), w, h, 8, 2, search_path=tmp, frames=2)
+        gscene = rg._device_scene
+        if gscene.bvh is None or gscene.num_triangles != BOX_TRIANGLES:
+            raise AssertionError(f"the glTF must build {BOX_TRIANGLES} triangles on a BVH: {gscene.num_triangles}")
+        hold_at(gscene, rg.get_scene(), w, h, 2, "the glTF box_field")
+        png4 = os.path.join(tmp, "cli_gltf.png")
+        argv4 = ["-s", glb, "-t", "8", "-f", "2", "-o", png4, *size]
+        run = run_app("strelka_tpu_torch.app.cli", argv4)
+        counted(run, BOX.kernels, "4. CLI on box_field.glb")
+        img4 = png_u8(png4)
+        load_s = float(re.search(r"Scene loaded in ([0-9.]+)s", run.log).group(1))
+        bvh_s = float(re.search(r"BVH built: .*, ([0-9.]+) s\)", run.log).group(1))
+        log(f"4. CLI on box_field.glb ({os.path.getsize(glb)} bytes, {written} triangles written in {write_s:.2f} s): "
+            f"loaded in {load_s:.3f} s, BVH built in {bvh_s:.2f} s; K5 {run.counts['bvh_closest']} and K6 "
+            f"{run.counts['bvh_any']} launches; PNG mean {img4.mean():.3f}")
+        if not img4.mean() > 0 or not bool(torch.isfinite(gl_ref).all()):
+            raise AssertionError("the glTF render is black or not finite")
+        line("cli_gltf", shown(argv4), run.wall_s, frame_times(run.stdout), w, h, launch_counts=run.counts,
+             triangles=gscene.num_triangles, load_s=load_s, bvh_build_s=bvh_s,
+             torchrender_ms_per_launch=gl_ms, png_mean=float(img4.mean()))
+        del gscene, rg, gl_ref
+
+        # 5. the USD runner (through the Hydra delegate): kitchen and coffeetable at 1024x768, 8 spp in 4 frames
+        for name, path, kernels in (("kitchen", ensure_kitchen(), BOX.kernels),
+                                    ("coffeetable", os.path.join(REPO, COFFEETABLE_USD), CORNELL.kernels)):
+            stage = Scene()
+            if not UsdLoader().load(path, stage):
+                raise AssertionError(f"{path} failed to load")
+            ref5, ms5, r5 = reference_frames(stage, w, h, 8, 2, search_path=os.path.dirname(os.path.abspath(path)))
+            hold_at(r5._device_scene, stage, w, h, 2, f"the USD runner's {name}")
+            png5 = os.path.join(tmp, f"usd_{name}.png")
+            argv5 = ["-s", path, "-t", "8", "-f", "2", "-o", png5, *size]
+            run = run_app("strelka_tpu_torch.app.usd_runner", argv5)
+            counted(run, kernels, f"5. usd_runner {name}")
+            same_png(png5, ref5, f"5. usd_runner {name} {w}x{h} 8 spp in 4 frames")
+            line(f"usd_runner_{name}", shown(argv5), run.wall_s, frame_times(run.stdout), w, h,
+                 launch_counts=run.counts, torchrender_ms_per_launch=ms5, image_mean=float(ref5[..., :3].mean()))
+            del r5, ref5
+
+        # 6. --profile on a 2-frame Cornell CLI run
+        trace = os.path.join(tmp, "profile")
+        argv6 = ["-s", "builtin://cornell_box", "-t", "8", "-f", "4", *size, "--profile", trace]
+        run = run_app("strelka_tpu_torch.app.cli", argv6)
+        counted(run, CORNELL.kernels, "6. CLI --profile")
+        top = summarize_trace(trace, top=10)
+        want = f"tri_{pick_schedule(cscene.v0.shape[0], False)}_kernel"
+        log(f"6. CLI --profile: summarize_trace's top 10: " + "; ".join(f"{n[:60]} {ms:.3f} ms" for n, ms in top))
+        if not any(want in name for name, _ in top):
+            raise AssertionError(f"the profile's top 10 does not name {want}: {top}")
+        line("cli_profile", shown(argv6), run.wall_s, frame_times(run.stdout), w, h,
+             launch_counts=run.counts, torchrender_ms_per_launch=ref1_ms,
+             profile_top10=[[n, ms] for n, ms in top], names=want)
+
+        # 7. the viewer: 4 frames at its 640x480 default, headless, the frame streamed to a PNG
+        png7 = os.path.join(tmp, "view.png")
+        argv7 = ["-s", "builtin://cornell_box", "--width", str(VIEWER_SIZE[0]), "--height", str(VIEWER_SIZE[1]),
+                 "--frames", "4", "--png-stream", png7]
+        from strelka_tpu_torch.display.display import HeadlessDisplay
+
+        title = HeadlessDisplay.set_window_title
+        HeadlessDisplay.set_window_title = lambda self, text: (title(self, text), print(text))  # its frame lines
+        try:
+            run = run_app("strelka_tpu_torch.app.viewer", argv7)
+        finally:
+            HeadlessDisplay.set_window_title = title
+        counted(run, CORNELL.kernels, "7. viewer")
+        if not os.path.exists(png7) or png_u8(png7).shape != (VIEWER_SIZE[1], VIEWER_SIZE[0], 3):
+            raise AssertionError("the viewer wrote no 640x480 PNG")
+        _, ref7_ms, _ = reference_frames(load_scene("builtin://cornell_box"), *VIEWER_SIZE, 512, 1, frames=4)
+        line("viewer", shown(argv7), run.wall_s, frame_times(run.stdout), *VIEWER_SIZE,
+             launch_counts=run.counts, torchrender_ms_per_launch=ref7_ms,
+             png_mean=float(png_u8(png7).mean()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[{time.perf_counter() - t_start:.0f} s] entry-point phase done in {time.perf_counter() - t_phase:.1f} s")
+    return items, dict(scene="entry_points", launch_counts=total)
+
+
 def print_kernel_lines(rows, main=None):
     """One JSON line per (kernel, shape) row; `main` is the result of the main
     path whose launches at that shape are given beside it."""
@@ -2016,7 +2540,10 @@ def main() -> int:
     coffee_rows, main_coffee, ssim_coffee = phase_coffeetable(dev, t_start)
     kitchen_rows, main_kitchen, ssim_kitchen, kitchen_differ = phase_kitchen(dev, t_start)
 
-    # ---- 9. results
+    # ---- 9. the user's entry points: the CLI, the USD runner, the viewer
+    entry_items, main_entry = phase_entry_points(dev, t_start)
+
+    # ---- 10. results
     print(json.dumps({"main_path": main_cornell, "golden_ssim": ssim_cornell}), flush=True)
     print(json.dumps({"main_path": main_box, "golden_ssim": ssim_box, "bvh_any_vs_bruteforce": box_differ}),
           flush=True)
@@ -2033,11 +2560,14 @@ def main() -> int:
                       "bvh_any_vs_bruteforce": kitchen_differ}), flush=True)
     print_kernel_lines(coffee_rows, main_coffee)
     print_kernel_lines(kitchen_rows, main_kitchen)
+    print(json.dumps({"entry_points": [{k: e[k] for k in ("entry_point", "wall_s", "ms_per_frame_after_first",
+                                                          "mrays_per_s", "mrays_per_s_after_first")}
+                                       for e in entry_items]}), flush=True)
 
     # one entry per kernel: its numbers at the first shape it was timed at
     # (K1-K4 at Cornell's, K5/K6 at box_field's, K7/K8 at hair_patch's, K9 at hair_long's) and
-    # launches over the six main-path runs; "shapes" lists every shape a main path or the flat
-    # scene gave it, each with its own numbers and its launches there
+    # launches over the six main-path runs and the entry points' runs; "shapes" lists every shape a
+    # main path or the flat scene gave it, each with its own numbers and its launches there
     from strelka_tpu_torch.kernels import KERNEL_NAMES
 
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2045,14 +2575,14 @@ def main() -> int:
               + [(r, main_box) for r in box_rows] + [(r, main_hair) for r in hair_rows]
               + [(r, main_long) for r in long_rows] + [(r, main_coffee) for r in coffee_rows]
               + [(r, main_kitchen) for r in kitchen_rows])
-    mains = (main_cornell, main_box, main_hair, main_long, main_coffee, main_kitchen)
+    mains = (main_cornell, main_box, main_hair, main_long, main_coffee, main_kitchen, main_entry)
     kernels = []
     for name in KERNEL_NAMES:
         mine = [(r, m) for r, m in tagged if r["kernel"] == name]
         entry = {
             "name": name, "route": "cuda", "source": REPLACES[name][1], "replaces": REPLACES[name][0],
-            "launches": sum(m["launch_counts"][name] for m in mains),
-            **{f"launches_{m['scene']}": m["launch_counts"][name] for m in mains},
+            "launches": sum(m["launch_counts"].get(name, 0) for m in mains),
+            **{f"launches_{m['scene']}": m["launch_counts"].get(name, 0) for m in mains},
         }
         entry.update({k: mine[0][0][k] for k in numbers})
         entry.update({k: mine[0][0][k] for k in ("order_ms",) if k in mine[0][0]})
@@ -2066,9 +2596,7 @@ def main() -> int:
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"total {time.perf_counter() - t_start:.0f} s")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60)
-    for line in smi.stdout.strip().splitlines():
+    for line in card_name_and_power_limit().splitlines():
         print(line.strip(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

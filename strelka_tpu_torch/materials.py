@@ -2,8 +2,7 @@
 
 Copied from the JAX package (strelka_tpu/materials.py); host numpy only.
 A texture parameter loads its file through the manager's TextureManager
-(textures.py). MaterialX documents are not in the port yet: a material
-whose description carries MaterialX code raises NotImplementedError.
+(textures.py); MaterialX documents go through loaders/mtlx.py.
 
 The reference compiles MDL/MaterialX source to per-material PTX through the
 MDL SDK (src/materialmanager/: createModule -> createMaterialInstance ->
@@ -177,7 +176,13 @@ class MaterialManager:
 
     def create_mtlx_module(self, mtlx_code: str):
         """MaterialX source -> parsed description (MtlxMdlCodeGen::translate)."""
-        raise NotImplementedError("MaterialX: later slice, ROADMAP A.7")
+        from strelka_tpu_torch.loaders.mtlx import parse_mtlx
+
+        try:
+            return parse_mtlx(mtlx_code)
+        except Exception as e:  # noqa: BLE001 — malformed docs fall back
+            log.warning("mtlx translate failed: {}", e)
+            return "mtlx"
 
     def create_material_instance(self, module, name: str) -> Dict:
         return {"module": module, "name": name, "params": {}}

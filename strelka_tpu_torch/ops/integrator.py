@@ -607,21 +607,32 @@ def render_launch(
     shadow_ray_tmin: float = 0.0,
     material_ray_tmin: float = 0.0,
     debug: int = 0,
+    py_offset: int | None = None,
+    full_height: int | None = None,
     collect_stats: bool = False,
 ):
     """__raygen__rg equivalent: run samples_per_launch paths per pixel, update
     the accumulators, return (new_state, hdr_image [3,H,W]) (+ stats).
 
-    Runs on the scene's device. Tonemapping is the Render layer's job."""
+    Runs on the scene's device. Tonemapping is the Render layer's job.
+
+    py_offset/full_height: a row band (parallel/sharding.py) renders the
+    [height, width] band of a [full_height, width] frame whose top row is
+    global row py_offset. The global row feeds the Sobol seed and the camera
+    NDC, so the bands of a frame equal the whole launch bit for bit; state
+    and image stay band-local."""
     dev = scene.device
     n = width * height
     spl = 1 if debug == 1 else samples_per_launch
+    fh = height if full_height is None else full_height
 
     # all samples of the launch ride ONE wavefront of spl*W*H rays, pixels
     # in row-major order (the CPU reference's order)
     idx = torch.arange(n, dtype=torch.int64, device=dev)
     px = (idx % width).repeat(spl)
     py = (idx // width).repeat(spl)
+    if py_offset is not None:
+        py = py + int(py_offset)
     s_of_ray = torch.arange(spl, dtype=torch.int64, device=dev).repeat_interleave(n)
     sample_index = (int(params.subframe_index) + s_of_ray) & S.M32
     sample_idx = S.make_sample_index(px, py, sample_index, max_sample_count)
@@ -629,7 +640,7 @@ def render_launch(
     # jitter, and trace_paths takes the whole draw for its first bounce
     dims0 = S.random_dims(sample_idx, 0, (0, 1, 2, 3, 4))
     origin, direction = generate_camera_rays(params, px, py, dims0[Dim.ePixelX % 5], dims0[Dim.ePixelY % 5],
-                                             width, height)
+                                             width, fh)
     radiance, first_event, stats = trace_paths(
         scene, params, sample_idx, origin, direction,
         max_depth=max_depth,
@@ -638,7 +649,7 @@ def render_launch(
         material_ray_tmin=material_ray_tmin,
         debug=debug,
         depth0_dims=dims0,
-        cone_spread=ray_cone_spread(params, height),
+        cone_spread=ray_cone_spread(params, fh),
         collect_stats=collect_stats,
     )
     # [spl*n] components -> [spl, n] -> reduce over samples

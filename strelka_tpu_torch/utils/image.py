@@ -29,8 +29,8 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", crc)
 
 
-def write_png(path: str, img: np.ndarray, flip: bool = True) -> None:
-    """img: [H,W,3|4] float (0..1) or uint8. Written as 8-bit RGB."""
+def encode_png(img: np.ndarray, flip: bool = True) -> bytes:
+    """img: [H,W,3|4] float (0..1) or uint8 -> the bytes of an 8-bit RGB PNG."""
     if img.dtype != np.uint8:
         img = to_uint8(img)
     if flip:
@@ -39,9 +39,13 @@ def write_png(path: str, img: np.ndarray, flip: bool = True) -> None:
     h, w = rgb.shape[:2]
     raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))  # filter 0 rows
     header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return _PNG_SIG + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(raw)) + _chunk(b"IEND", b"")
+
+
+def write_png(path: str, img: np.ndarray, flip: bool = True) -> None:
+    """img: [H,W,3|4] float (0..1) or uint8. Written as 8-bit RGB (encode_png)."""
     with open(path, "wb") as f:
-        f.write(_PNG_SIG + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(raw))
-                + _chunk(b"IEND", b""))
+        f.write(encode_png(img, flip))
 
 
 def _unfilter(data: bytes, h: int, w: int, bpp: int) -> np.ndarray:

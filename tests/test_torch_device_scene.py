@@ -90,18 +90,18 @@ def test_frame_state_round_trip():
 
 
 def test_later_slice_scenes_raise():
-    # MaterialX documents are the part of A.7 still to come; curves, hair
-    # materials and texture atlases build (an atlas is a TextureAtlas or a
-    # dict of its fields, not a bare sheet)
+    # curves, hair materials, texture atlases and (since loaders/mtlx.py)
+    # MaterialX documents build (an atlas is a TextureAtlas or a dict of its
+    # fields, not a bare sheet); the MaterialX row equals the JAX build's
     ds = build_device_scene(TTS.hair_patch(n_curves=4), device="cpu")
     assert ds.has_curves and ds.num_cones == 160 and ds.has_hair and ds.textures is None
     arrays = {f.name: getattr(ds, f.name) for f in dataclasses.fields(ds)}
     with pytest.raises(TypeError, match="atlas"):
         device_scene_from_arrays({**arrays, "textures": np.zeros((4, 4, 4), np.float32)}, "cpu")
-    host = TTS.cornell_box()
-    host.materials[0].type, host.materials[0].code = "mtlx", "<materialx version='1.38'/>"
-    with pytest.raises(NotImplementedError, match="A.7"):
-        build_device_scene(host, device="cpu")
+    host, jhost = TTS.cornell_box(), JTS.cornell_box()
+    for h in (host, jhost):
+        h.materials[0].type, h.materials[0].code = "mtlx", "<materialx version='1.38'/>"
+    _assert_bits_equal(jax_build(jhost).mat_table, build_device_scene(host, device="cpu").mat_table.numpy())
     # a scene above 1024 triangles does not raise: it gets a BVH
     assert build_device_scene(TTS.box_field(grid=3), device="cpu").bvh is not None
 
