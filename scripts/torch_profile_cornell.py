@@ -132,20 +132,7 @@ def main() -> int:
             per_kernel[short] = per_kernel.get(short, 0.0) + dur
         else:
             other_us += dur
-    busy_us = 0.0
-    if spans:
-        spans.sort()
-        cur_s, cur_e = spans[0]
-        for s, e in spans[1:]:
-            if s > cur_e:
-                busy_us += cur_e - cur_s
-                cur_s, cur_e = s, e
-            else:
-                cur_e = max(cur_e, e)
-        busy_us += cur_e - cur_s
-        window_us = max(e for _, e in spans) - spans[0][0]
-    else:
-        window_us = 0.0
+    busy_us, window_us = C.device_busy(spans)
     n = args.launches
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60)

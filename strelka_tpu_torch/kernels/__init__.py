@@ -11,6 +11,10 @@ define the launch (lanes, triangles, table rows, ...), so a caller can see
 at which shapes a path ran a kernel. `plain_cuda_calls` counts calls of a
 plain version on CUDA tensors, which only a comparison against the kernel
 makes (the main path never does). All are reset with `reset_counts()`.
+
+A CUDA graph replays its kernels without the wrappers' host code, so a
+capture takes what it counted (`take_counts`) and each replay adds it back
+(`add_counts`): the counts stay those of the kernels that ran.
 """
 
 from __future__ import annotations
@@ -46,3 +50,23 @@ def require_cuda(t, name: str) -> None:
     if t.device.type != "cuda":
         raise RuntimeError(f"{name}: tensor on {t.device}; the kernel takes CUDA tensors and "
                            "the plain version CPU tensors")
+
+
+def take_counts(fn):
+    """Run fn() -> (its result, the counts it added), and take those counts
+    back out: for a capture, which launches nothing."""
+    before = (dict(launch_counts), dict(launch_shapes), dict(plain_cuda_calls))
+    out = fn()
+    added = tuple({k: v - b.get(k, 0) for k, v in now.items() if v != b.get(k, 0)}
+                  for now, b in zip((launch_counts, launch_shapes, plain_cuda_calls), before))
+    add_counts(added, -1)
+    return out, added
+
+
+def add_counts(added, times: int = 1) -> None:
+    """Add `times` x the counts take_counts returned (a replay adds them once)."""
+    for counts, delta in zip((launch_counts, launch_shapes, plain_cuda_calls), added):
+        for k, v in delta.items():
+            counts[k] = counts.get(k, 0) + times * v
+            if counts[k] == 0 and counts is launch_shapes:
+                del counts[k]

@@ -87,14 +87,22 @@ class EventType:
 class LaunchParams(NamedTuple):
     """Per-launch values (subset of Params, OptixRenderParams.h:38-68).
 
-    Host values: an int and small arrays (numpy or CPU tensors); the launch
-    reads the matrices as scalars and uploads exposure/background itself."""
+    Each field is a host value (an int, a numpy array) or a tensor, on the
+    scene's device or not: render_launch takes it through torch.as_tensor
+    onto the device, which leaves a tensor already there as it is. With
+    tensors on the device the launch reads no value on the host, so a CUDA
+    graph captures it once for every value (render/render.py).
+
+    cone_spread: the ray cone's spread (ray_cone_spread's f32 value, computed
+    on the host); None computes it from clip_to_view, which reads that
+    matrix on the host."""
 
     subframe_index: int  # accumulated spp so far
     clip_to_view: np.ndarray  # [4,4] f32
     view_to_world: np.ndarray  # [4,4] f32
     exposure: np.ndarray  # [3] f32
     bg_color: np.ndarray  # [3] f32
+    cone_spread: object = None  # f32 value, or None
 
 
 class FrameState(NamedTuple):
@@ -113,21 +121,24 @@ def make_frame_state(height: int, width: int, device) -> FrameState:
     return FrameState(z3(), z3(), zc(), z3(), zc())
 
 
-def _f32_values(a) -> list:
-    """Host f32 values of a small array as Python floats (exact)."""
-    return np.asarray(torch.as_tensor(a).cpu(), np.float32).tolist()
+def f32_on(value, device) -> torch.Tensor:
+    """A launch value as an f32 tensor on `device` (a tensor already there
+    passes as it is)."""
+    return torch.as_tensor(value, dtype=torch.float32, device=device)
 
 
 def generate_camera_rays(params: LaunchParams, px, py, jx, jy, width: int, height: int):
-    """generateCameraRay (OptixRender.cu:38-58)."""
+    """generateCameraRay (OptixRender.cu:38-58). The matrices' entries are
+    0-d tensors: a 0-d f32 tensor times a tensor rounds as the f32 value
+    times it does, so the rays are those of the entries read on the host."""
     ndc_x = (px.to(torch.float32) + jx) / width * 2.0 - 1.0
     ndc_y = (py.to(torch.float32) + jy) / height * 2.0 - 1.0
-    c2v = _f32_values(params.clip_to_view)
-    view = Vec3(*(c2v[i][0] * ndc_x + c2v[i][1] * ndc_y + c2v[i][2] + c2v[i][3] for i in range(3)))
-    v2w = _f32_values(params.view_to_world)
+    c2v = f32_on(params.clip_to_view, px.device)
+    view = Vec3(*(c2v[i, 0] * ndc_x + c2v[i, 1] * ndc_y + c2v[i, 2] + c2v[i, 3] for i in range(3)))
+    v2w = f32_on(params.view_to_world, px.device)
     direction = V.normalize(V.matvec(v2w, view))
     ones = torch.ones_like(ndc_x)
-    origin = Vec3(v2w[0][3] * ones, v2w[1][3] * ones, v2w[2][3] * ones)
+    origin = Vec3(v2w[0, 3] * ones, v2w[1, 3] * ones, v2w[2, 3] * ones)
     return origin, direction
 
 
@@ -362,13 +373,14 @@ def trace_paths(
     material_ray_tmin: float,
     debug: int,
     depth0_dims: torch.Tensor,
-    cone_spread: float,
+    cone_spread,
     collect_stats: bool = False,
 ):
     """One path per entry -> (radiance Vec3, first_event [N], stats).
 
     cone_spread: the ray cone's spread angle a unit of path length (an f32
-    value, ray_cone_spread), which sizes a textured scene's mip footprint.
+    value or a 0-d f32 tensor, ray_cone_spread), which sizes a textured
+    scene's mip footprint.
 
     depth0_dims: the depth-0 draw of dimensions (0, 1, 2, 3, 4) at
     sample_idx ([5, N], as S.random_dims gives it), which the caller has
@@ -393,7 +405,7 @@ def trace_paths(
     # primitive the ray originates from: rejected BY ID in the intersector
     prev_prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
     num_lights = scene.num_lights
-    bg = _f32_values(params.bg_color)
+    bg = f32_on(params.bg_color, dev)
     tmin_mat = torch.full((n,), material_ray_tmin, dtype=torch.float32, device=dev)
     tmax_big = torch.full((n,), 1e16, dtype=torch.float32, device=dev)
     stat_closest = torch.zeros((), dtype=torch.float32, device=dev)
@@ -587,7 +599,9 @@ def trace_paths(
 def ray_cone_spread(params: LaunchParams, height: int) -> float:
     """The ray cone's spread a unit of path length: the per-pixel angle of
     the projection, 2 |clip_to_view[1, 1]| / height (clip_to_view[1, 1] is
-    tan(fov_y / 2)), in f32 as the JAX package computes it."""
+    tan(fov_y / 2)), in f32 as the JAX package computes it. On the host: on
+    CUDA, dividing a tensor by a Python number multiplies by its f32
+    reciprocal, which can be an ulp off this division."""
     c2v = np.asarray(torch.as_tensor(params.clip_to_view).cpu(), np.float32)
     return float(np.float32(2.0) * np.abs(c2v[1, 1]) / np.float32(height))
 
@@ -634,7 +648,8 @@ def render_launch(
     if py_offset is not None:
         py = py + int(py_offset)
     s_of_ray = torch.arange(spl, dtype=torch.int64, device=dev).repeat_interleave(n)
-    sample_index = (int(params.subframe_index) + s_of_ray) & S.M32
+    sub = torch.as_tensor(params.subframe_index, dtype=torch.int64, device=dev)
+    sample_index = (sub + s_of_ray) & S.M32
     sample_idx = S.make_sample_index(px, py, sample_index, max_sample_count)
     # the depth-0 draw once (K1): its rows ePixelX and ePixelY are the camera
     # jitter, and trace_paths takes the whole draw for its first bounce
@@ -649,7 +664,7 @@ def render_launch(
         material_ray_tmin=material_ray_tmin,
         debug=debug,
         depth0_dims=dims0,
-        cone_spread=ray_cone_spread(params, fh),
+        cone_spread=ray_cone_spread(params, fh) if params.cone_spread is None else params.cone_spread,
         collect_stats=collect_stats,
     )
     # [spl*n] components -> [spl, n] -> reduce over samples
@@ -670,25 +685,27 @@ def render_launch(
     d_mean = img(dsum) / torch.clamp(dcount2, min=1)
     s_mean = img(ssum) / torch.clamp(scount2, min=1)
 
-    exposure = torch.as_tensor(np.asarray(params.exposure, np.float32), device=dev).reshape(3, 1, 1)
-    sub = int(params.subframe_index)
+    exposure = f32_on(params.exposure, dev).reshape(3, 1, 1)
 
-    # --- diffuse/specular AOV accumulation (OptixRender.cu:157-210)
+    # --- diffuse/specular AOV accumulation (OptixRender.cu:157-210); the
+    # launch's first sample (sub == 0) starts from empty AOVs, selected on
+    # the device as the reference's jnp.where does
+    first = sub == 0
     zc = torch.zeros_like(dcount2)
-    prev_d = state.diffuse_counter if sub > 0 else zc
-    prev_s = state.specular_counter if sub > 0 else zc
+    prev_d = torch.where(first, zc, state.diffuse_counter)
+    prev_s = torch.where(first, zc, state.specular_counter)
     new_diffuse = torch.where(
         (dcount2 > 0)[None],
         _accumulate_planar(state.diffuse, d_mean, exposure, prev_d),
-        torch.zeros_like(state.diffuse) if sub == 0 else state.diffuse,
+        torch.where(first, 0.0, state.diffuse),
     )
-    new_dcount = torch.where(dcount2 > 0, prev_d + dcount2, zc if sub == 0 else state.diffuse_counter)
+    new_dcount = torch.where(dcount2 > 0, prev_d + dcount2, prev_d)
     new_specular = torch.where(
         (scount2 > 0)[None],
         _accumulate_planar(state.specular, s_mean, exposure, prev_s),
-        torch.zeros_like(state.specular) if sub == 0 else state.specular,
+        torch.where(first, 0.0, state.specular),
     )
-    new_scount = torch.where(scount2 > 0, prev_s + scount2, zc if sub == 0 else state.specular_counter)
+    new_scount = torch.where(scount2 > 0, prev_s + scount2, prev_s)
 
     # --- main accumulation (OptixRender.cu:223-247)
     if enable_accumulation and debug == 0:
@@ -718,11 +735,9 @@ def render_launch(
 def _accumulate_planar(history, value, exposure, subframe_index):
     """accumulate() on planar [3,H,W] images (OptixRender.cu:60-78 formula).
 
-    subframe_index: an int, or an [H,W] int tensor of per-pixel counts."""
-    if isinstance(subframe_index, torch.Tensor):
-        idx = subframe_index
-    else:
-        idx = torch.full(history.shape[1:], int(subframe_index), dtype=torch.int32, device=history.device)
+    subframe_index: the launch's (an int or a 0-d int tensor), or an [H,W]
+    int tensor of per-pixel counts."""
+    idx = torch.as_tensor(subframe_index, device=history.device)
     a = (1.0 / (idx.to(torch.float32) + 1.0))[None]
 
     def tm(c):

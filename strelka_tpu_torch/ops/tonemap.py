@@ -56,7 +56,10 @@ def gamma_correction(color: torch.Tensor, gamma: float) -> torch.Tensor:
 
 
 def apply_tonemap_planar(image: torch.Tensor, tonemapper_type: int, exposure, gamma: float) -> torch.Tensor:
-    """Tonemap dispatch (Tonemappers.cu:111-135) on a planar [3, H, W] image."""
+    """Tonemap dispatch (Tonemappers.cu:111-135) on a planar [3, H, W] image.
+
+    exposure: [3] f32, a host value or a tensor (one on the image's device
+    is taken as it is, so a captured launch reads it from its buffer)."""
     exposure = torch.as_tensor(exposure, dtype=torch.float32, device=image.device).reshape(3, 1, 1)
     if tonemapper_type == ToneMapperType.eReinhard:
         c = image * exposure

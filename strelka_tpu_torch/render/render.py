@@ -4,21 +4,26 @@ Mirrors the per-frame flow of OptiXRender::render (OptixRender.cpp:874-1057):
 frame-0 device-scene build, camera/settings change detection resetting
 progressive accumulation (:895-934), launch-budget computation (:989-1004),
 the launch itself (ops.integrator.render_launch) and tonemap dispatch
-(:1045-1049). PyTorch runs eagerly, so there is no launch cache. With
-use_sharding the launch runs in row bands over several devices
-(parallel/sharding.py); with render/pt/enableUpscale the frame is traced at
-upscaleFactor times the output size and resized bilinearly to it.
+(:1045-1049). Launches are cached by their static config key, as the JAX
+package caches jax.jit(single, donate_argnums=(2,)) (strelka_tpu/render/
+render.py:109-155): on the card each key is one CUDA graph (GraphLaunch),
+on the CPU the eager launch. With use_sharding the launch runs eagerly in
+row bands over several devices (parallel/sharding.py); with
+render/pt/enableUpscale the frame is traced at upscaleFactor times the
+output size and resized bilinearly to it.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Optional, Tuple
+import time
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from strelka_tpu_torch import kernels as K
 from strelka_tpu_torch import log
 from strelka_tpu_torch.materials import MaterialManager
 from strelka_tpu_torch.ops import integrator as I
@@ -101,6 +106,102 @@ def resize_bilinear(image: torch.Tensor, height: int, width: int) -> torch.Tenso
     return out[0].permute(1, 2, 0).contiguous()
 
 
+# the launch's values in one static buffer of f32 words: the subframe index
+# (its int32 bits), clip_to_view, view_to_world, exposure, background, cone spread
+_VALUE_SLICES = {"subframe_index": (0, 1), "clip_to_view": (1, 17), "view_to_world": (17, 33),
+                 "exposure": (33, 36), "bg_color": (36, 39), "cone_spread": (39, 40)}
+_VALUE_WORDS = 40
+
+
+def pack_values(params: I.LaunchParams) -> np.ndarray:
+    """Host LaunchParams (cone_spread given) -> the [40] f32 words of GraphLaunch's buffer."""
+    words = np.empty(_VALUE_WORDS, np.float32)
+    words[:1].view(np.int32)[0] = int(params.subframe_index)
+    for name, (a, b) in _VALUE_SLICES.items():
+        if name != "subframe_index":
+            words[a:b] = np.asarray(getattr(params, name), np.float32).ravel()
+    return words
+
+
+def unpack_values(words: torch.Tensor) -> I.LaunchParams:
+    """LaunchParams of views into the device buffer `words` (pack_values' layout)."""
+    view = {name: words[a:b] for name, (a, b) in _VALUE_SLICES.items()}
+    return I.LaunchParams(
+        subframe_index=view["subframe_index"].view(torch.int32)[0],
+        clip_to_view=view["clip_to_view"].view(4, 4),
+        view_to_world=view["view_to_world"].view(4, 4),
+        exposure=view["exposure"],
+        bg_color=view["bg_color"],
+        cone_spread=view["cone_spread"][0],
+    )
+
+
+class GraphLaunch:
+    """One launch config key on the card: the eager launch captured once as
+    a CUDA graph and replayed, the counterpart of the JAX package's
+    jax.jit(single, donate_argnums=(2,)).
+
+    The first call runs the launch eagerly: it builds the kernels, fills the
+    wrappers' host caches and the allocator, and its result is the call's.
+    The second call captures the same launch (which runs nothing) and
+    replays it; every later call replays. A graph holds its tensors by
+    address, so:
+      * the launch's values come from one static device buffer, written by
+        one host-to-device copy before each call;
+      * the state is static: the launch writes its new state into the
+        FrameState it read (what donate_argnums=(2,) lets XLA do), so the
+        caller keeps one FrameState for every call;
+      * the graph's image is overwritten by the next replay, so a call
+        returns a copy.
+    reset() drops the graph when the device scene or the state it read is
+    replaced; the next call starts again with an eager launch. A capture
+    that fails raises: the launch never runs eagerly in its place.
+    Launch counts (kernels.launch_counts) count each replay's kernels."""
+
+    def __init__(self, launch, device, pool) -> None:
+        self.launch = launch  # fn(scene, params, state) -> (new state, image)
+        self.words = torch.zeros(_VALUE_WORDS, dtype=torch.float32, device=device)
+        self.params = unpack_values(self.words)
+        self.reset(pool)
+
+    def reset(self, pool) -> None:
+        self.pool = pool  # the memory pool this renderer's graphs share (they never run at once)
+        self.graph = None
+        self.image = None
+        self.counts = None  # the launch counts one replay adds
+        self.bound = None  # (scene, state) of the eager launch and the capture
+        self.capture_seconds = None
+
+    def _step(self, scene, state):
+        new_state, image = self.launch(scene, self.params, state)
+        for dst, src in zip(state, new_state):
+            dst.copy_(src)  # the state is donated: its new values go where the old ones were read
+        return image
+
+    def __call__(self, scene, params: I.LaunchParams, state):
+        self.words.copy_(torch.from_numpy(pack_values(params)).pin_memory(), non_blocking=True)
+        if self.bound is None:
+            self.bound = (scene, state)
+            return state, self._step(scene, state)
+        if self.bound[0] is not scene or self.bound[1] is not state:
+            raise RuntimeError("GraphLaunch: called on another scene or state than it was captured on; reset() it")
+        if self.graph is None:
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)  # its cudaGraph_t stays readable (raw_cuda_graph)
+
+            def capture():
+                with torch.cuda.graph(graph, pool=self.pool):
+                    return self._step(scene, state)
+
+            self.image, self.counts = K.take_counts(capture)
+            graph.instantiate()
+            self.graph = graph
+            self.capture_seconds = time.perf_counter() - t0
+        self.graph.replay()
+        K.add_counts(self.counts)
+        return state, self.image.clone()
+
+
 class TorchRender(Render):
     """The PyTorch wavefront path tracer; its kernels run on the CUDA card.
 
@@ -124,6 +225,8 @@ class TorchRender(Render):
         self._state_dims: Tuple[int, int] = (0, 0)
         self._prev_view: Optional[np.ndarray] = None
         self._prev_settings: Optional[tuple] = None
+        self._launch_cache: Dict[tuple, object] = {}  # config key -> GraphLaunch (card) or eager launch
+        self._graph_pool = None  # the memory pool of this renderer's graphs
         self._resume = False  # a checkpoint was loaded: the next frame keeps its sample count
         self.material_manager = MaterialManager()
 
@@ -145,23 +248,46 @@ class TorchRender(Render):
     def _settings_snapshot(self, s) -> tuple:
         return tuple(repr(s.get(k)) for k in _WATCHED_KEYS)
 
-    def _launch_fn(self, height: int, kw: dict, tm_type: int, gamma: float):
-        """fn(scene, params, state) -> (state, image [height, W, 4]): render_launch
-        with the settings `kw`, then the tonemap; in row bands when sharded."""
+    def _build_launch(self, key: tuple):
+        """The launch of a static config key (the JAX key's twelve fields, in
+        its order), cached: fn(scene, params, state) -> (state, image
+        [height, W, 4]), render_launch then the tonemap. On the card it is a
+        GraphLaunch; on the CPU, and in row bands, the eager launch."""
+        (width, height, spp, max_spp, depth, acc, rect_m, debug, tm_type, gamma, s_tmin, m_tmin) = key
+        kw = dict(width=width, samples_per_launch=spp, max_sample_count=max_spp, max_depth=depth,
+                  enable_accumulation=acc, rect_light_sampling_method=rect_m, shadow_ray_tmin=s_tmin,
+                  material_ray_tmin=m_tmin, debug=debug)
 
         def make_launch(local_height, full_height):
             def launch(scene, params, state, py_offset=None):
                 new_state, planar = I.render_launch(scene, params, state, height=local_height, py_offset=py_offset,
                                                     full_height=full_height, **kw)
-                return new_state, _post(planar, kw["debug"], tm_type, params.exposure, gamma)
+                return new_state, _post(planar, debug, tm_type, params.exposure, gamma)
 
             return launch
 
-        if self._bands is None:
-            return make_launch(height, height)
-        from strelka_tpu_torch.parallel.sharding import shard_launch
+        if self._bands is not None:
+            from strelka_tpu_torch.parallel.sharding import shard_launch
 
-        return shard_launch(make_launch, self._bands, copies=self._scene_copies)
+            fn = shard_launch(make_launch, self._bands, copies=self._scene_copies)
+        elif self.device.type == "cuda":
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            fn = GraphLaunch(make_launch(height, height), self.device, self._graph_pool)
+        else:
+            fn = make_launch(height, height)
+        self._launch_cache[key] = fn
+        return fn
+
+    def _drop_graphs(self) -> None:
+        """The device scene or the state was replaced: every graph read the
+        old one by address, so each is dropped (its key stays cached)."""
+        if self._graph_pool is None:
+            return
+        self._graph_pool = torch.cuda.graph_pool_handle()
+        for fn in self._launch_cache.values():
+            if isinstance(fn, GraphLaunch):
+                fn.reset(self._graph_pool)
 
     def _frame_state(self) -> I.FrameState:
         """The accumulators as one FrameState on self.device (the bands joined)."""
@@ -189,6 +315,7 @@ class TorchRender(Render):
             self._device_scene = build_device_scene(scene, self.material_manager, device=self.device,
                                                     use_bvh=self.use_bvh)
             scene.dirty = False
+            self._drop_graphs()
             if not self._resume:
                 ctx.subframe_index = 0
 
@@ -201,6 +328,7 @@ class TorchRender(Render):
             else:
                 self._state = I.make_frame_state(height, width, self.device)
             self._state_dims = (height, width)
+            self._drop_graphs()
             ctx.subframe_index = 0
 
         # camera: view change resets accumulation (OptixRender.cpp:895-908)
@@ -234,6 +362,21 @@ class TorchRender(Render):
         gamma = settings.get_float("render/post/gamma")
 
         if samples_this_launch > 0:
+            key = (
+                width,
+                height,
+                samples_this_launch,
+                max(total_spp, 1),
+                settings.get_int("render/pt/depth"),
+                enable_acc,
+                settings.get_int("render/pt/rectLightSamplingMethod"),
+                debug,
+                tm_type,
+                gamma,
+                settings.get_float("render/pt/dev/shadowRayTmin"),
+                settings.get_float("render/pt/dev/materialRayTmin"),
+            )
+            fn = self._launch_cache.get(key) or self._build_launch(key)
             params = I.LaunchParams(
                 subframe_index=int(ctx.subframe_index),
                 clip_to_view=np.asarray(camera.clip_to_view(), np.float32),
@@ -241,19 +384,8 @@ class TorchRender(Render):
                 exposure=np.asarray(exposure, np.float32),
                 bg_color=np.asarray(settings.get("render/bgColor"), np.float32),
             )
-            kw = dict(
-                width=width,
-                samples_per_launch=samples_this_launch,
-                max_sample_count=max(total_spp, 1),
-                max_depth=settings.get_int("render/pt/depth"),
-                enable_accumulation=enable_acc,
-                rect_light_sampling_method=settings.get_int("render/pt/rectLightSamplingMethod"),
-                shadow_ray_tmin=settings.get_float("render/pt/dev/shadowRayTmin"),
-                material_ray_tmin=settings.get_float("render/pt/dev/materialRayTmin"),
-                debug=debug,
-            )
-            launch = self._launch_fn(height, kw, tm_type, gamma)
-            self._state, image = launch(self._device_scene, params, self._state)
+            params = params._replace(cone_spread=I.ray_cone_spread(params, height))
+            self._state, image = fn(self._device_scene, params, self._state)
             ctx.subframe_index += samples_this_launch
         else:
             # budget exhausted: re-emit accumulated buffer (OptixRender.cpp:1022-1049)
@@ -296,12 +428,18 @@ class TorchRender(Render):
         from strelka_tpu_torch.render.checkpoint import load_checkpoint
 
         state, subframe = load_checkpoint(path, self.device)
-        self._state_dims = tuple(state.accum.shape[1:])
+        dims = tuple(state.accum.shape[1:])
         if self._bands is not None:
             from strelka_tpu_torch.parallel.sharding import split_state
 
-            state = split_state(state, self._bands)
-        self._state = state
+            self._state = split_state(state, self._bands)
+        elif self._state is not None and self._state_dims == dims:
+            for dst, src in zip(self._state, state):
+                dst.copy_(src)  # into the state the cached graphs read, which stay valid
+        else:
+            self._state = state
+            self._drop_graphs()
+        self._state_dims = dims
         self._ctx.subframe_index = subframe
         # prime the change detectors so the next frame CONTINUES accumulating
         self._prev_settings = None
