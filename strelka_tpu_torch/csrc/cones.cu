@@ -12,13 +12,22 @@
 // Contract (the plain PyTorch version is
 // strelka_tpu_torch/ops/curves.py:intersect_curves_closest_plain, the dense
 // sweep of strelka_tpu/ops/curves.py:intersect_curves_closest): t is the
-// least of the cone body's root and the two cap spheres' roots, in the f32
-// operation order of _ray_round_cone; this file is built with -fmad=false,
-// so every product and sum rounds on its own (k0, h and y are differences
-// of products, and the body is accepted on h > 0, 0 < y < d2). K7 returns
+// least of the cone body's root and the two cap spheres' roots, rounded as
+// the JAX package's CPU render rounds _ray_round_cone. XLA's CPU backend
+// compiles that sweep's loops with LLVM, which contracts a product with one
+// use into an FMA with the sum or difference it feeds (fadd(x*y, z) ->
+// fma(x, y, z), the first operand first; fsub(x*y, z) -> fma(x, y, -z);
+// fsub(x, y*z) -> fma(-y, z, x)) and folds `x - y > 0` into `x > y`. So
+// each three-term dot product is fma(x2, y2, fma(x0, y0, x1*y1)), d2, k2,
+// k1, k0, h and y are the chains of __fmaf_rn in ray_cone, the body is
+// accepted on k1*k1 > k2*k0 (two rounded products), 0 < y < d2, and a cap
+// on bq*bq > cq in K7 and on the contracted hq > 0 in K8 (XLA's any-hit
+// loop also takes the cap's root and keeps the difference). This file is
+// built with -fmad=false, so every other product and sum rounds on its
+// own; the plain twin rounds each fma once (ops/vec.py:fma). K7 returns
 // the least t, its cone index and the axial position y in [0, 1] on that
 // cone (0 or 1 on a cap, by float equality of t with the cap's root), so
-// that u = u0 + (u1 - u0) * y is the CPU reference's. Of equal t the
+// that u = fma(u1 - u0, y, u0) is the CPU reference's. Of equal t the
 // lowest cone index wins. A miss is t = 1e16, cone = -1, y = 0. A lane with
 // tmax <= tmin reads nothing else and misses. K8 stops at the first hit.
 //
@@ -61,9 +70,9 @@
 // Bound on the H100: f32 operations, 119 a ray-cone test (3 square roots,
 // 1 division), over the cones of the sub-blocks a ray's final interval
 // enters; the cones are a few MB to 26 MB and stay in the 50 MB L2. Under
-// -fmad=false every product and sum issues on its own, where the 67 TFLOP/s
-// peak counts an FMA as two: about half the bound is the most this
-// arithmetic can reach. Design: persistent warps, one ray a warp. The grid is
+// -fmad=false every product and sum issues on its own but the closed form's
+// 27 explicit FMAs (54 of the 119), where the 67 TFLOP/s peak counts an FMA
+// as two: about 0.65 of the bound is the most this arithmetic can reach. Design: persistent warps, one ray a warp. The grid is
 // as many blocks as fit on the card at once (the wrapper takes the count from
 // the occupancy of the built kernel). A warp takes its next ray from a global
 // counter (one atomicAdd; a dead ray costs it one load and a miss written)
@@ -274,42 +283,52 @@ __device__ __forceinline__ int next_near_far(const Cones& c, const Ray& r, float
     }
 }
 
+// x0*y0 + x1*y1 + x2*y2 as XLA's CPU backend contracts it (see the contract above).
+__device__ __forceinline__ float dot3(float x0, float x1, float x2, float y0, float y1, float y2) {
+    return __fmaf_rn(x2, y2, __fmaf_rn(x0, y0, x1 * y1));
+}
+
 // One ray against one round cone: the least root in (., 1e16], and what the
-// axial position needs (y, d2 and the caps' roots).
+// axial position needs (y, d2 and the caps' roots). kAny: the caps' test of
+// the any-hit sweep (the contracted hq > 0), else the closest sweep's.
+template <bool kAny>
 __device__ __forceinline__ float ray_cone(float ax, float ay, float az, float bx, float by, float bz, float ra,
                                           float rb, const Ray& r, float& y, float& dd, float& t_ca_m,
                                           float& t_cb_m) {
     const float bax = bx - ax, bay = by - ay, baz = bz - az;
     const float oax = r.o0 - ax, oay = r.o1 - ay, oaz = r.o2 - az;
     const float rr = ra - rb;
-    const float m0 = bax * bax + bay * bay + baz * baz;
-    const float m1 = oax * bax + oay * bay + oaz * baz;
-    const float m2 = r.d0 * bax + r.d1 * bay + r.d2 * baz;
-    const float m3 = r.d0 * oax + r.d1 * oay + r.d2 * oaz;
-    const float m5 = oax * oax + oay * oay + oaz * oaz;
-    dd = m0 - rr * rr;
-    const float k2 = dd - m2 * m2;
-    const float k1 = dd * m3 - m1 * m2 + m2 * rr * ra;
-    const float k0 = dd * m5 - m1 * m1 + 2.0f * m1 * rr * ra - dd * ra * ra;
-    const float h = k1 * k1 - k0 * k2;
+    const float m0 = dot3(bax, bay, baz, bax, bay, baz);
+    const float m1 = dot3(oax, oay, oaz, bax, bay, baz);
+    const float m2 = dot3(r.d0, r.d1, r.d2, bax, bay, baz);
+    const float m3 = dot3(r.d0, r.d1, r.d2, oax, oay, oaz);
+    const float m5 = dot3(oax, oay, oaz, oax, oay, oaz);
+    dd = __fmaf_rn(-rr, rr, m0);
+    const float k2 = __fmaf_rn(-m2, m2, dd);
+    const float k1 = __fmaf_rn(ra, rr * m2, __fmaf_rn(m3, dd, -(m1 * m2)));
+    const float k0 = __fmaf_rn(-ra, ra * dd, __fmaf_rn(ra, (rr * 2.0f) * m1, __fmaf_rn(m5, dd, -(m1 * m1))));
+    const float k0k2 = k2 * k0;
+    const float h = __fmaf_rn(k1, k1, -k0k2);
     const float safe_k2 = fabsf(k2) > 1e-12f ? k2 : 1e-12f;
     const float t_body = (-sqrtf(fmaxf(h, 0.0f)) - k1) / safe_k2;
-    y = m1 + t_body * m2;
-    const bool body_ok = h > 0.0f && y > 0.0f && y < dd;
+    y = __fmaf_rn(m2, t_body, m1);
+    const bool body_ok = k1 * k1 > k0k2 && y > 0.0f && y < dd;
     // cap sphere at a (radius ra)
-    const float bqa = oax * r.d0 + oay * r.d1 + oaz * r.d2;
-    const float cqa = oax * oax + oay * oay + oaz * oaz - ra * ra;
-    const float hqa = bqa * bqa - cqa;
+    const float bqa = m3;
+    const float cqa = __fmaf_rn(-ra, ra, m5);
+    const float hqa = __fmaf_rn(bqa, bqa, -cqa);
     const float t_ca = -bqa - sqrtf(fmaxf(hqa, 0.0f));
+    const bool ok_ca = kAny ? hqa > 0.0f : bqa * bqa > cqa;
     // cap sphere at b (radius rb)
     const float obx = r.o0 - bx, oby = r.o1 - by, obz = r.o2 - bz;
-    const float bqb = obx * r.d0 + oby * r.d1 + obz * r.d2;
-    const float cqb = obx * obx + oby * oby + obz * obz - rb * rb;
-    const float hqb = bqb * bqb - cqb;
+    const float bqb = dot3(r.d0, r.d1, r.d2, obx, oby, obz);
+    const float cqb = __fmaf_rn(-rb, rb, dot3(obx, oby, obz, obx, oby, obz));
+    const float hqb = __fmaf_rn(bqb, bqb, -cqb);
     const float t_cb = -bqb - sqrtf(fmaxf(hqb, 0.0f));
+    const bool ok_cb = kAny ? hqb > 0.0f : bqb * bqb > cqb;
     const float t_body_m = body_ok ? t_body : kMiss;
-    t_ca_m = hqa > 0.0f ? t_ca : kMiss;
-    t_cb_m = hqb > 0.0f ? t_cb : kMiss;
+    t_ca_m = ok_ca ? t_ca : kMiss;
+    t_cb_m = ok_cb ? t_cb : kMiss;
     return fminf(t_body_m, fminf(t_ca_m, t_cb_m));
 }
 
@@ -393,7 +412,7 @@ __global__ void __launch_bounds__(kThreads) cone_kernel(StrelkaRays rays, Cones 
                 float t[kPair], y[kPair], dd[kPair], t_ca_m[kPair], t_cb_m[kPair];
 #pragma unroll
                 for (int u = 0; u < kPair; ++u) {
-                    t[u] = ray_cone(ca[u].x, ca[u].y, ca[u].z, cb[u].x, cb[u].y, cb[u].z, ca[u].w, cb[u].w, r,
+                    t[u] = ray_cone<kAny>(ca[u].x, ca[u].y, ca[u].z, cb[u].x, cb[u].y, cb[u].z, ca[u].w, cb[u].w, r,
                                     y[u], dd[u], t_ca_m[u], t_cb_m[u]);
                 }
 #pragma unroll

@@ -16,13 +16,16 @@ Contract parity with mi::neuraylib (target_code_types.h):
 Models: DIFFUSE (default.mdl), OMNI_PBR (GGX VNDF metal/rough + diffuse
 base), OMNI_GLASS (smooth dielectric with transmission tint), HAIR (the
 Chiang fibre model of ops/hair.py, evaluated only with enable_hair=True:
-scenes without hair materials skip the fibre lobes). The reference's
-Kajiya-Kay alternative behind STRELKA_HAIR_KK is not ported.
+scenes without hair materials skip the fibre lobes; STRELKA_HAIR_KK=1 in
+the environment at import selects the Kajiya-Kay model of _hair_eval
+instead, as the reference's switch does).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import os
 
 import torch
 
@@ -31,6 +34,11 @@ from strelka_tpu_torch.ops import vec as V
 from strelka_tpu_torch.ops.vec import Vec3
 
 M_PI = 3.14159265358979323846
+
+# STRELKA_HAIR_KK=1 reverts the hair df to the Kajiya-Kay approximation (an
+# A/B hook); the default is the Chiang-style R/TT/TRT model of ops/hair.py,
+# the reference's MDL df::chiang_hair_bsdf selection (mdlPtxCodeGen.cpp:143-158)
+_HAIR_KAJIYA_KAY = os.environ.get("STRELKA_HAIR_KK", "0") == "1"
 
 # mi::neuraylib::Bsdf_event_type bit values
 BSDF_EVENT_ABSORB = 0
@@ -209,6 +217,37 @@ def _pbr_eval_local(params: SurfaceParams, k1l: Vec3, k2l: Vec3):
     return V.where(valid, diff, zero), V.where(valid, spec, zero), torch.where(valid, pdf, 0.0)
 
 
+def _hair_eval(params: SurfaceParams, frame: ShadingFrame, k1: Vec3, k2: Vec3):
+    """Kajiya-Kay/Scheuermann fibre lobes in the curve frame (f*cos split +
+    pdf): diffuse scales with sin(T, L), the strand highlight is
+    pow(sin(T, H), exponent); sampling is cosine-hemisphere around the
+    spine-offset normal, so pdf = cos/pi."""
+    t_f = frame.tangent_u
+    n = frame.normal
+    cos_nl = torch.clamp(V.dot(n, k2), min=0.0)
+    tdl = V.dot(t_f, k2)
+    sin_tl = torch.sqrt(torch.clamp(1.0 - tdl * tdl, min=0.0))
+    h = V.normalize(k1 + k2)
+    tdh = V.dot(t_f, h)
+    sin_th = torch.sqrt(torch.clamp(1.0 - tdh * tdh, min=0.0))
+    # exponent from roughness (rough hair -> wide strand highlight)
+    p = 2.0 / torch.clamp(params.roughness * params.roughness, min=1e-3)
+    # sin^p(T,H) is a ring lobe around the fibre: its hemisphere integral of
+    # sin^p * cos is ~7.6/sqrt(p), so sqrt(p)/7.6 keeps its energy ~= specular_level
+    spec_norm = torch.sqrt(p) * (1.0 / 7.6)
+    spec = params.specular_level * spec_norm * torch.pow(torch.clamp(sin_th, min=0.0), p)
+    diff = params.diffuse_color * (sin_tl / M_PI)
+    pdf = cos_nl / M_PI
+    valid = cos_nl > 0.0
+    zero = _zeros(cos_nl)
+    ones = Vec3(*(torch.ones_like(cos_nl) for _ in range(3)))
+    return (
+        V.where(valid, diff * cos_nl, zero),
+        V.where(valid, ones * (spec * cos_nl), zero),
+        torch.where(valid, pdf, 0.0),
+    )
+
+
 def bsdf_evaluate(params: SurfaceParams, frame: ShadingFrame, k1: Vec3, k2: Vec3,
                   enable_hair: bool = False) -> BsdfEval:
     """mdlcode_evaluate equivalent: f*cos split diffuse/glossy + pdf.
@@ -232,7 +271,10 @@ def bsdf_evaluate(params: SurfaceParams, frame: ShadingFrame, k1: Vec3, k2: Vec3
         from strelka_tpu_torch.ops import hair as HAIR
 
         is_h = t == BsdfType.HAIR
-        h_spec, h_diff, h_pdf = HAIR.hair_eval(params, frame, k1, k2)
+        if _HAIR_KAJIYA_KAY:
+            h_diff, h_spec, h_pdf = _hair_eval(params, frame, k1, k2)
+        else:
+            h_spec, h_diff, h_pdf = HAIR.hair_eval(params, frame, k1, k2)
         bsdf_diffuse = V.where(is_h, h_diff, bsdf_diffuse)
         bsdf_glossy = V.where(is_h, h_spec, bsdf_glossy)
         pdf = torch.where(is_h, h_pdf, pdf)
@@ -320,9 +362,17 @@ def bsdf_sample(params: SurfaceParams, frame: ShadingFrame, k1: Vec3, xi, ior1, 
         from strelka_tpu_torch.ops import hair as HAIR
 
         is_h = t == BsdfType.HAIR
-        # hair directions live on the full sphere: the world-space result
-        # bypasses the local -> world remap below
-        hair_k2_world, hp, hair_over_pdf, hair_valid = HAIR.hair_sample(params, frame, k1, xi)
+        if _HAIR_KAJIYA_KAY:
+            # cosine-hemisphere sample around the offset normal, weighted by
+            # the Kajiya-Kay fibre lobes (_hair_eval)
+            hd, hs, hp = _hair_eval(params, frame, k1, V.normalize(_to_world(frame, k2l_diff)))
+            hair_over_pdf = (hd + hs) * (1.0 / torch.clamp(hp, min=1e-12))
+            hair_valid = (hp > 0.0) & (cos1 > -1.0)
+            k2l = V.where(is_h, k2l_diff, k2l)
+        else:
+            # hair directions live on the full sphere: the world-space result
+            # bypasses the local -> world remap below
+            hair_k2_world, hp, hair_over_pdf, hair_valid = HAIR.hair_sample(params, frame, k1, xi)
         hair_event = torch.full_like(params.bsdf_type, BSDF_EVENT_GLOSSY_REFLECTION, dtype=torch.int32)
         pdf = torch.where(is_h, hp, pdf)
         over_pdf = V.where(is_h, hair_over_pdf, over_pdf)

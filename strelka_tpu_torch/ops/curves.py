@@ -267,46 +267,86 @@ def cone_attr_rows(rows: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def ray_round_cone(o, d, a, b, ra, rb, tmin, tmax):
+def ray_round_cone(o, d, a, b, ra, rb, tmin, tmax, any_hit: bool = False):
     """Closed-form ray against sphere-swept segments (round cones).
 
     o, d: (x, y, z) of [R, 1], tmin, tmax [R, 1]; a, b: (x, y, z) of [1, B]
     (every ray against the same cones) or [R, B] (each ray against its own);
-    ra, rb likewise. Returns (t [R, B], axial y in [0, 1], hit). The
-    operation order of strelka_tpu/ops/curves.py:_ray_round_cone."""
-    ox, oy, oz = o
-    dx, dy, dz = d
-    ax, ay, az = a
-    bx, by, bz = b
-    bax, bay, baz = bx - ax, by - ay, bz - az
-    oax, oay, oaz = ox - ax, oy - ay, oz - az
+    ra, rb likewise. Returns (t [R, B], axial y in [0, 1], hit); y is the
+    closed form's on the pairs it evaluates (below) and 0 on the others.
+
+    The closed form (_round_cone_closed_form) runs on the pairs whose ray
+    passes within the cone's bounding sphere with a wide margin (a few f32
+    operations a pair); every other pair misses. The margin, half the
+    sphere's radius and a thousandth of the distance to its centre, is orders
+    of magnitude above the closed form's rounding, so the pairs it drops
+    miss in the closed form too and t, y and hit are what the closed form
+    gives on every pair that can hit. Cones with ra < 0 (padding, which
+    every sweep drops) miss."""
+    shape = tuple(max(sz) for sz in zip(o[0].shape, a[0].shape, ra.shape, tmin.shape))
+    cx, cy, cz = ((ak + bk) * 0.5 for ak, bk in zip(a, b))
+    wx, wy, wz = cx - o[0], cy - o[1], cz - o[2]
+    ww = wx * wx + wy * wy + wz * wz
+    wd = wx * d[0] + wy * d[1] + wz * d[2]
+    dd = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    bx, by, bz = (bk - ak for ak, bk in zip(a, b))
+    rad = torch.sqrt(bx * bx + by * by + bz * bz) * 0.5 + torch.maximum(ra, rb)
+    # the centre's squared distance to the ray's line against (1.5 rad + |w| / 1000)^2 <= 4.5 rad^2 + 2e-6 |w|^2
+    near = (ww * dd - wd * wd <= (4.5 * rad * rad + 2e-6 * ww) * dd) & (ra >= 0.0)
+    rows, cols = torch.nonzero(near.expand(shape), as_tuple=True)
+    pick = lambda x: x.expand(shape)[rows, cols]  # noqa: E731
+    t_k, y_k, hit_k = _round_cone_closed_form(tuple(pick(c) for c in o), tuple(pick(c) for c in d),
+                                              tuple(pick(c) for c in a), tuple(pick(c) for c in b), pick(ra),
+                                              pick(rb), pick(tmin), pick(tmax), any_hit)
+    dev = tmin.device
+    t = torch.full(shape, MISS_T, dtype=torch.float32, device=dev)
+    y = torch.zeros(shape, dtype=torch.float32, device=dev)
+    hit = torch.zeros(shape, dtype=torch.bool, device=dev)
+    t[rows, cols], y[rows, cols], hit[rows, cols] = t_k, y_k, hit_k
+    return t, y, hit
+
+
+def _round_cone_closed_form(o, d, a, b, ra, rb, tmin, tmax, any_hit: bool):
+    """ray_round_cone's closed form on broadcastable tensors, every pair.
+
+    strelka_tpu/ops/curves.py:_ray_round_cone rounded as the JAX package's
+    CPU render rounds it (the golden images): XLA's CPU backend fuses the
+    scan body of intersect_curves_closest into loops whose products LLVM
+    contracts into FMAs where a product has one use, and folds `x - y > 0`
+    into `x > y`. Each fma below is one such contraction (V.fma rounds
+    once), every other product rounds on its own. The body's h > 0 test
+    compares the two rounded products; the caps' hq > 0 does the same in
+    the closest sweep, while the any-hit sweep (any_hit=True), which also
+    takes the cap's square root in that loop, tests the contracted hq."""
+    ba = tuple(bk - ak for bk, ak in zip(b, a))
+    oa = tuple(ok - ak for ok, ak in zip(o, a))
     rr = ra - rb
-    m0 = bax * bax + bay * bay + baz * baz
-    m1 = oax * bax + oay * bay + oaz * baz
-    m2 = dx * bax + dy * bay + dz * baz
-    m3 = dx * oax + dy * oay + dz * oaz
-    m5 = oax * oax + oay * oay + oaz * oaz
-    ra_b = ra
-    d2 = m0 - rr * rr
-    k2 = d2 - m2 * m2
-    k1 = d2 * m3 - m1 * m2 + m2 * rr * ra_b
-    k0 = d2 * m5 - m1 * m1 + 2.0 * m1 * rr * ra_b - d2 * ra_b * ra_b
-    h = k1 * k1 - k0 * k2
+    m0 = V.dot_fma(ba, ba)
+    m1 = V.dot_fma(oa, ba)
+    m2 = V.dot_fma(d, ba)
+    m3 = V.dot_fma(d, oa)
+    m5 = V.dot_fma(oa, oa)
+    d2 = V.fma(-rr, rr, m0)
+    k2 = V.fma(-m2, m2, d2)
+    k1 = V.fma(ra, rr * m2, V.fma(m3, d2, -(m1 * m2)))
+    k0 = V.fma(-ra, ra * d2, V.fma(ra, (rr * 2.0) * m1, V.fma(m5, d2, -(m1 * m1))))
+    k0k2 = k2 * k0
+    h = V.fma(k1, k1, -k0k2)
     safe_k2 = torch.where(torch.abs(k2) > 1e-12, k2, 1e-12)
     t_body = (-torch.sqrt(torch.clamp(h, min=0.0)) - k1) / safe_k2
-    y = m1 + t_body * m2  # axial position * m0
-    body_ok = (h > 0.0) & (y > 0.0) & (y < d2)
+    y = V.fma(m2, t_body, m1)  # axial position * m0
+    body_ok = (k1 * k1 > k0k2) & (y > 0.0) & (y < d2)
 
-    def sphere(cx, cy, cz, r):
-        ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
-        bq = ocx * dx + ocy * dy + ocz * dz
-        cq = ocx * ocx + ocy * ocy + ocz * ocz - r * r
-        hq = bq * bq - cq
+    def sphere(oc, m_oo, r):
+        bq = V.dot_fma(d, oc)
+        cq = V.fma(-r, r, m_oo)
+        hq = V.fma(bq, bq, -cq)
         tq = -bq - torch.sqrt(torch.clamp(hq, min=0.0))
-        return tq, hq > 0.0
+        return tq, (hq > 0.0) if any_hit else (bq * bq > cq)
 
-    t_ca, ok_ca = sphere(ax, ay, az, ra)
-    t_cb, ok_cb = sphere(bx, by, bz, rb)
+    t_ca, ok_ca = sphere(oa, m5, ra)
+    ob = tuple(ok - bk for ok, bk in zip(o, b))
+    t_cb, ok_cb = sphere(ob, V.dot_fma(ob, ob), rb)
     t_body_m = torch.where(body_ok, t_body, MISS_T)
     t_ca_m = torch.where(ok_ca, t_ca, MISS_T)
     t_cb_m = torch.where(ok_cb, t_cb, MISS_T)
@@ -329,7 +369,8 @@ def _columns(c):
     return tuple(x[:, None] for x in c)
 
 
-def intersect_curves_closest_plain(geom, o, d, tmin, tmax, block: int = CONE_TBLK, name: str = "cone_closest"):
+def intersect_curves_closest_plain(geom, o, d, tmin, tmax, block: int = CONE_TBLK, name: str = "cone_closest",
+                                   any_hit: bool = False):
     """Plain K7: every ray against every cone of the geometry table [M, 8].
 
     o, d: (x, y, z) triples of [N] f32; a lane with tmax <= tmin misses.
@@ -353,7 +394,7 @@ def intersect_curves_closest_plain(geom, o, d, tmin, tmax, block: int = CONE_TBL
         for start in range(0, m, block):
             stop = min(m, start + block)
             a, b, ra, rb = _geom_columns(geom[None, start:stop])
-            t, y, hit = ray_round_cone(oc, dc, a, b, ra, rb, tn, tx)
+            t, y, hit = ray_round_cone(oc, dc, a, b, ra, rb, tn, tx, any_hit)
             t = torch.where(hit & (ra >= 0.0), t, MISS_T)
             arg = torch.argmin(t, dim=1)  # first (lowest index) of equal minima
             t_blk = t[rr, arg]
@@ -366,22 +407,24 @@ def intersect_curves_closest_plain(geom, o, d, tmin, tmax, block: int = CONE_TBL
 
 
 def intersect_curves_any_plain(geom, o, d, tmin, tmax, block: int = CONE_TBLK):
-    """Plain K8 -> occluded [N] bool: the closest sweep's hit set, as the
-    reference's intersect_curves_any."""
-    return intersect_curves_closest_plain(geom, o, d, tmin, tmax, block, name="cone_any")[1] >= 0
+    """Plain K8 -> occluded [N] bool: the hit set of the closest sweep, as
+    the reference's intersect_curves_any, with the caps tested as its
+    compiled any-hit loop tests them (ray_round_cone(any_hit=True))."""
+    return intersect_curves_closest_plain(geom, o, d, tmin, tmax, block, name="cone_any", any_hit=True)[1] >= 0
 
 
 def cone_hit(attr, t, cone, y) -> CurveHit:
     """(t, cone, y) of a sweep -> CurveHit: the cone's segment and
     u = u0 + (u1 - u0) * y, from the cones' attribute rows [3, M]
-    (strelka_tpu/ops/curves.py:283)."""
+    (strelka_tpu/ops/curves.py:283, which XLA's CPU backend contracts into
+    fma(u1 - u0, y, u0))."""
     c = torch.clamp(cone, min=0).to(torch.int64)
     u0, u1 = attr[ATTR_U0][c], attr[ATTR_U1][c]
     miss = cone < 0
     return CurveHit(
         t=torch.where(miss, MISS_T, t),
         seg=torch.where(miss, -1, attr[ATTR_SEG][c].to(torch.int32)),
-        u=torch.where(miss, 0.0, u0 + (u1 - u0) * y),
+        u=torch.where(miss, 0.0, V.fma(u1 - u0, y, u0)),
     )
 
 
@@ -521,7 +564,7 @@ def any_hit_need(geom, bounds, o, d, tmin, tmax, chunk: int = 32768):
             blk = lists[ray, step]
             a, b, ra, rb = _geom_columns(blocked[blk])
             _, _, hit = ray_round_cone(_columns([c[ray] for c in oc]), _columns([c[ray] for c in dc]), a, b, ra, rb,
-                                       tn[ray, None], tx[ray, None])
+                                       tn[ray, None], tx[ray, None], any_hit=True)
             valid = ra >= 0.0
             hit = hit & valid
             occluded = hit.any(dim=1)

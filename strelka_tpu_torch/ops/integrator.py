@@ -130,13 +130,20 @@ def f32_on(value, device) -> torch.Tensor:
 def generate_camera_rays(params: LaunchParams, px, py, jx, jy, width: int, height: int):
     """generateCameraRay (OptixRender.cu:38-58). The matrices' entries are
     0-d tensors: a 0-d f32 tensor times a tensor rounds as the f32 value
-    times it does, so the rays are those of the entries read on the host."""
+    times it does, so the rays are those of the entries read on the host.
+
+    Rounded as the JAX package's CPU render rounds it: XLA's CPU backend
+    contracts c0 * ndc_x + c1 * ndc_y into fma(c0, ndc_x, c1 * ndc_y), the
+    view-to-world product and the length into three-term fma chains
+    (V.dot_fma), and drops the matrix-vector product's + 0.0."""
     ndc_x = (px.to(torch.float32) + jx) / width * 2.0 - 1.0
     ndc_y = (py.to(torch.float32) + jy) / height * 2.0 - 1.0
     c2v = f32_on(params.clip_to_view, px.device)
-    view = Vec3(*(c2v[i, 0] * ndc_x + c2v[i, 1] * ndc_y + c2v[i, 2] + c2v[i, 3] for i in range(3)))
+    view = [V.fma(c2v[i, 0], ndc_x, c2v[i, 1] * ndc_y) + c2v[i, 2] + c2v[i, 3] for i in range(3)]
     v2w = f32_on(params.view_to_world, px.device)
-    direction = V.normalize(V.matvec(v2w, view))
+    u = [V.dot_fma(v2w[i, :3], view) for i in range(3)]
+    inv = 1.0 / torch.clamp(torch.sqrt(V.dot_fma(u, u)), min=1e-20)
+    direction = Vec3(*(c * inv for c in u))
     ones = torch.ones_like(ndc_x)
     origin = Vec3(v2w[0, 3] * ones, v2w[1, 3] * ones, v2w[2, 3] * ones)
     return origin, direction

@@ -73,6 +73,30 @@ def gather_rows_t(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return _gather.gather_rows_t(table, idx)
 
 
+def fma(a, b, c) -> torch.Tensor:
+    """f32 a * b + c rounded once, as a fused multiply-add. The f32 product
+    is exact in f64; the f64 sum is rounded to odd (TwoSum's error nudges an
+    even sum one ulp towards the exact value), and the f32 rounding of a
+    round-to-odd value with 29 more bits is that of the exact sum. No
+    branch on the data: it runs inside a captured launch. a, b, c: f32
+    tensors (or Python floats) of broadcastable shapes."""
+    dev = next(x.device for x in (a, b, c) if isinstance(x, torch.Tensor))
+    a, b, c = (torch.as_tensor(x, dtype=torch.float32, device=dev).double() for x in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.copysign(torch.full_like(s, float("inf")), err)
+    return torch.where((err != 0.0) & even, torch.nextafter(s, toward), s).to(torch.float32)
+
+
+def dot_fma(x, y) -> torch.Tensor:
+    """x0*y0 + x1*y1 + x2*y2 (sequences of three tensors) as XLA's CPU
+    backend contracts the sum: fma(x2, y2, fma(x0, y0, x1*y1))."""
+    return fma(x[2], y[2], fma(x[0], y[0], x[1] * y[1]))
+
+
 def dot(a: Vec3, b: Vec3):
     return a.x * b.x + a.y * b.y + a.z * b.z
 

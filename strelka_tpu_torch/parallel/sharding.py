@@ -11,12 +11,16 @@ accumulators between launches; a launch moves no band tensor between
 devices, and only the finished image is gathered, onto the first device.
 A device list may name one device more than once: its bands then run one
 after another on it (how the tests and chip_smoke.py run several bands on
-one card or on the CPU).
+one card or on the CPU). On a card each band's launch may be a CUDA graph
+of its own (`graph_launch`, render/render.py:GraphLaunch), as the reference
+jits its shard_map once per config key.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
@@ -105,7 +109,7 @@ class DeviceCrossings(TorchDispatchMode):
 
 
 def shard_launch(make_launch: Callable, devices: Sequence, check_devices: bool = False,
-                 copies: Optional[dict] = None):
+                 copies: Optional[dict] = None, graph_launch: Optional[Callable] = None):
     """Band a render launch over pixel rows.
 
     make_launch(local_height, full_height) must return a function
@@ -115,13 +119,18 @@ def shard_launch(make_launch: Callable, devices: Sequence, check_devices: bool =
     image is [local_h, W, 4].
 
     Returns wrapper(scene, params, state: BandState) -> (BandState, image
-    [H, W, 4] on the first device). With check_devices, each band's launch
-    runs under DeviceCrossings (at one value a pixel of the band) and raises
-    if a band tensor changed device; wrapper.crossings holds what it saw.
-    `copies` (device -> (scene, its copy there)) may be shared by several
-    wrappers of one scene."""
+    [H, W, 4] on the first device). With check_devices, each band's eager
+    launch runs under DeviceCrossings (at one value a pixel of the band) and
+    raises if a band tensor changed device; wrapper.crossings holds what it
+    saw. `copies` (device -> (scene, its copy there)) may be shared by
+    several wrappers of one scene. graph_launch(band_launch, device), where
+    given, wraps each band on a CUDA device (band_launch(scene, params,
+    state), its py_offset bound) in a replayable launch that updates the
+    band's state in place (GraphLaunch); bands elsewhere stay eager.
+    wrapper.reset(pool) resets those (a rebuilt scene, a new state)."""
     devices = make_render_mesh(devices)
     copies = {} if copies is None else copies
+    bands: dict = {}  # local height -> one launch a band
 
     def scene_on(scene, device):
         if scene.device == device:
@@ -131,27 +140,47 @@ def shard_launch(make_launch: Callable, devices: Sequence, check_devices: bool =
             held = copies[device] = (scene, scene_to(scene, device))
         return held[1]
 
+    def band_launches(local_h):
+        if local_h not in bands:
+            launch = make_launch(local_h, local_h * len(devices))
+            fns = []
+            for i, d in enumerate(devices):
+                fn = functools.partial(launch, py_offset=i * local_h)
+                fns.append(graph_launch(fn, d) if graph_launch is not None and d.type == "cuda" else fn)
+            bands[local_h] = fns
+        return bands[local_h]
+
     def wrapper(scene, params, state: BandState):
         if len(state.bands) != len(devices):
             raise ValueError(f"{len(state.bands)} bands for {len(devices)} devices")
         local_h, width = state.bands[0].accum.shape[1:]
-        launch = make_launch(local_h, local_h * len(devices))
         new_bands, images = [], []
         wrapper.crossings = []
-        for i, (d, band) in enumerate(zip(devices, state.bands)):
+        for d, band, fn in zip(devices, state.bands, band_launches(local_h)):
             band_scene = scene_on(scene, d)
-            if check_devices:
-                with DeviceCrossings(local_h * width) as mode:
-                    new_band, image = launch(band_scene, params, band, i * local_h)
-                wrapper.crossings += mode.found
-            else:
-                new_band, image = launch(band_scene, params, band, i * local_h)
+            eager = getattr(fn, "bound", None) is None  # a plain launch, or a graph's first (eager) call
+            with torch.cuda.device(d) if d.type == "cuda" else contextlib.nullcontext():
+                if check_devices and eager:
+                    with DeviceCrossings(local_h * width) as mode:
+                        new_band, image = fn(band_scene, params, band)
+                    wrapper.crossings += mode.found
+                else:
+                    new_band, image = fn(band_scene, params, band)
             new_bands.append(new_band)
             images.append(image)
         if wrapper.crossings:
             raise RuntimeError(f"band tensors changed device inside a launch: {wrapper.crossings[:4]}")
         return BandState(tuple(new_bands)), torch.cat([im.to(devices[0]) for im in images], dim=0)
 
+    def reset(pool) -> None:
+        for fns in bands.values():
+            for fn in fns:
+                if hasattr(fn, "reset"):
+                    fn.reset(pool)
+
     wrapper.devices = devices
     wrapper.crossings = []
+    wrapper.bands = bands
+    wrapper.band_launches = band_launches
+    wrapper.reset = reset
     return wrapper

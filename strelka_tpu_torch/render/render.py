@@ -7,8 +7,9 @@ the launch itself (ops.integrator.render_launch) and tonemap dispatch
 (:1045-1049). Launches are cached by their static config key, as the JAX
 package caches jax.jit(single, donate_argnums=(2,)) (strelka_tpu/render/
 render.py:109-155): on the card each key is one CUDA graph (GraphLaunch),
-on the CPU the eager launch. With use_sharding the launch runs eagerly in
-row bands over several devices (parallel/sharding.py); with
+on the CPU the eager launch. With use_sharding the launch runs in row bands
+over several devices (parallel/sharding.py), each band on a card one
+GraphLaunch of its own; with
 render/pt/enableUpscale the frame is traced at upscaleFactor times the
 output size and resized bilinearly to it.
 """
@@ -16,6 +17,7 @@ output size and resized bilinearly to it.
 from __future__ import annotations
 
 import enum
+import gc
 import time
 from typing import Dict, Optional, Tuple
 
@@ -193,7 +195,17 @@ class GraphLaunch:
                 with torch.cuda.graph(graph, pool=self.pool):
                     return self._step(scene, state)
 
-            self.image, self.counts = K.take_counts(capture)
+            # a dead graph that Python's cycle collector freed inside the
+            # capture would end it (its destructor is a CUDA call the capture
+            # forbids): collect before, and not during
+            collecting = gc.isenabled()
+            gc.collect()
+            gc.disable()
+            try:
+                self.image, self.counts = K.take_counts(capture)
+            finally:
+                if collecting:
+                    gc.enable()
             graph.instantiate()
             self.graph = graph
             self.capture_seconds = time.perf_counter() - t0
@@ -252,7 +264,8 @@ class TorchRender(Render):
         """The launch of a static config key (the JAX key's twelve fields, in
         its order), cached: fn(scene, params, state) -> (state, image
         [height, W, 4]), render_launch then the tonemap. On the card it is a
-        GraphLaunch; on the CPU, and in row bands, the eager launch."""
+        GraphLaunch; on the CPU the eager launch; in row bands the banded
+        launch, each band on a card a GraphLaunch."""
         (width, height, spp, max_spp, depth, acc, rect_m, debug, tm_type, gamma, s_tmin, m_tmin) = key
         kw = dict(width=width, samples_per_launch=spp, max_sample_count=max_spp, max_depth=depth,
                   enable_accumulation=acc, rect_light_sampling_method=rect_m, shadow_ray_tmin=s_tmin,
@@ -266,13 +279,16 @@ class TorchRender(Render):
 
             return launch
 
+        on_card = any(d.type == "cuda" for d in (self._bands or [self.device]))
+        if on_card and self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
         if self._bands is not None:
             from strelka_tpu_torch.parallel.sharding import shard_launch
 
-            fn = shard_launch(make_launch, self._bands, copies=self._scene_copies)
-        elif self.device.type == "cuda":
-            if self._graph_pool is None:
-                self._graph_pool = torch.cuda.graph_pool_handle()
+            pool = self._graph_pool  # not self: the cached launch must not hold the renderer
+            graph = (lambda launch, d: GraphLaunch(launch, d, pool)) if on_card else None
+            fn = shard_launch(make_launch, self._bands, copies=self._scene_copies, graph_launch=graph)
+        elif on_card:
             fn = GraphLaunch(make_launch(height, height), self.device, self._graph_pool)
         else:
             fn = make_launch(height, height)
@@ -281,12 +297,13 @@ class TorchRender(Render):
 
     def _drop_graphs(self) -> None:
         """The device scene or the state was replaced: every graph read the
-        old one by address, so each is dropped (its key stays cached)."""
+        old one by address, so each is dropped (its key stays cached), the
+        bands' graphs too."""
         if self._graph_pool is None:
             return
         self._graph_pool = torch.cuda.graph_pool_handle()
         for fn in self._launch_cache.values():
-            if isinstance(fn, GraphLaunch):
+            if hasattr(fn, "reset"):  # a GraphLaunch, or a banded launch
                 fn.reset(self._graph_pool)
 
     def _frame_state(self) -> I.FrameState:
@@ -432,7 +449,14 @@ class TorchRender(Render):
         if self._bands is not None:
             from strelka_tpu_torch.parallel.sharding import split_state
 
-            self._state = split_state(state, self._bands)
+            bands = split_state(state, self._bands)
+            if self._state is not None and self._state_dims == dims:
+                for dst_band, src_band in zip(self._state.bands, bands.bands):
+                    for dst, src in zip(dst_band, src_band):
+                        dst.copy_(src)  # into the band states the cached graphs read
+            else:
+                self._state = bands
+                self._drop_graphs()
         elif self._state is not None and self._state_dims == dims:
             for dst, src in zip(self._state, state):
                 dst.copy_(src)  # into the state the cached graphs read, which stay valid

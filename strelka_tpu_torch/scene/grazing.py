@@ -20,7 +20,10 @@ cases from a seed, in numpy (float32 arrays):
 - `twin_tree(...)`: a BVH over a scene's triangles twice over, one copy a
   half (every hit a tie);
 - `cone_face_case(...)`: round cones whose end spheres touch their boxes'
-  faces, and rays at those faces and at the boxes' corners.
+  faces, and rays at those faces and at the boxes' corners;
+- `cone_grazing_case(...)`: the same cones, or hair-like ones turned at
+  random, and rays that graze a sub-block's or superblock's face at angles
+  whose sine is log-uniform down to 1e-5.
 """
 
 from __future__ import annotations
@@ -206,3 +209,56 @@ def cone_face_case(seed: int, scale: float, shift: float, m: int = 512, n: int =
     d = t - o
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     return C.cone_major_rows(rows), bounds, sbounds, o, d
+
+
+def cone_grazing_case(seed: int, scale: float, shift: float, hair: bool, m: int = 512, n: int = 2000,
+                      tblk: int = 16, super_: int = 8, sin_min: float = 1e-5):
+    """Round cones packed in sub-blocks of `tblk` and superblocks of `super_`
+    (hair: thin cones of radius 0.002-0.006 turned at random, else those of
+    cone_face_case), and rays that cross a box face at a random point, an
+    edge or a corner of it, at an angle to the face whose sine is
+    log-uniform in [sin_min, 1], from 2-10 box sizes away -> (geometry
+    [M_pad, 8], sub-block boxes [8, nb], superblock boxes [8, nsb], o [n, 3],
+    d [n, 3]), f32."""
+    from strelka_tpu_torch.ops import curves as C
+
+    rng = np.random.default_rng(seed)
+    if hair:
+        a = rng.uniform(-0.05, 0.05, (m, 3))
+        axis = rng.normal(size=(m, 3))
+        axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+        b = a + axis * rng.uniform(0.005, 0.03, m)[:, None]
+        ra = rng.uniform(0.002, 0.006, m)
+        rb = ra * rng.uniform(0.8, 1.0, m)
+        a, b, ra, rb = ((x * scale + (shift if x.ndim == 2 else 0.0)).astype(np.float32) for x in (a, b, ra, rb))
+    else:
+        a = (rng.uniform(-3, 3, (m, 3)) * scale + shift).astype(np.float32)
+        b = a.copy()
+        b[np.arange(m), rng.integers(0, 3, m)] += (rng.uniform(0.2, 1.0, m) * scale).astype(np.float32)
+        ra = (rng.uniform(0.05, 0.4, m) * scale).astype(np.float32)
+        rb = ra.copy()
+    cones = C.FlatCones(a, b, ra, rb, np.arange(m, dtype=np.int32), np.zeros(m, np.float32), np.ones(m, np.float32))
+    rows, bounds = C.pack_cones(cones, tblk=tblk, super_=super_)
+    sbounds = C.cone_super_bounds(bounds, super_)
+    boxes = np.concatenate([bounds, sbounds], axis=1)
+    boxes = boxes[:, (boxes[3:6] >= boxes[0:3]).all(axis=0)]  # padding boxes are inverted
+    pick = rng.integers(0, boxes.shape[1], n)
+    lo, hi = boxes[0:3, pick].T.astype(np.float64), boxes[3:6, pick].T.astype(np.float64)
+    k = rng.integers(0, 3, n)  # the face's axis
+    side = rng.random(n) < 0.5
+    u = rng.random((n, 3))
+    u = np.where(rng.random((n, 3)) < 0.25, np.round(u), u)  # on an edge or a corner now and then
+    p = lo + (hi - lo) * u
+    rows_ = np.arange(n)
+    p[rows_, k] = np.where(side, hi[rows_, k], lo[rows_, k])
+    along = rng.normal(size=(n, 3))
+    along[rows_, k] = 0.0
+    along /= np.linalg.norm(along, axis=1, keepdims=True)
+    sin = 10.0 ** rng.uniform(np.log10(sin_min), 0.0, n)
+    normal = np.zeros((n, 3))
+    normal[rows_, k] = np.where(side, -1.0, 1.0)  # into the box
+    d = along * np.sqrt(1.0 - sin * sin)[:, None] + normal * sin[:, None]
+    size = np.linalg.norm(hi - lo, axis=1) + 1e-3 * scale
+    o = p - d * (size * rng.uniform(2.0, 10.0, n))[:, None]
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    return C.cone_major_rows(rows), bounds, sbounds, o.astype(np.float32), d.astype(np.float32)

@@ -3,9 +3,8 @@ materials, 4 textures, 4 lights) that the repository keeps under
 data/gen/kitchen/.
 
 The port's counterpart of the path half of strelka_tpu/scene/kitchen_gen.py
-(`ensure_kitchen`). The stage and its textures are committed files; the
-generator that rebuilds them is not ported (ROADMAP A.7), so a missing file
-raises.
+(`ensure_kitchen`). The stage and its textures are committed files; where
+one is missing, scene/kitchen_gen.py:build_kitchen_stage generates them all.
 """
 
 from __future__ import annotations
@@ -22,12 +21,13 @@ def kitchen_dir() -> str:
 
 
 def ensure_kitchen(base_dir: str | None = None) -> str:
-    """Path of kitchen.usdc, after checking that it and every texture it
-    names exist (FileNotFoundError naming the first that does not)."""
+    """Path of kitchen.usdc under base_dir (default kitchen_dir()), after
+    generating the stage there when it or any texture it names is missing
+    (a .usdc alone is not enough: without its textures it renders bare)."""
     base_dir = kitchen_dir() if base_dir is None else base_dir
     usdc = os.path.join(base_dir, "kitchen.usdc")
-    for path in (usdc, *(os.path.join(base_dir, "textures", t) for t in KITCHEN_TEXTURES)):
-        if not os.path.exists(path):
-            raise FileNotFoundError(f"{path} is missing; the port does not regenerate the kitchen stage "
-                                    "(ROADMAP A.7)")
-    return usdc
+    if all(os.path.exists(p) for p in (usdc, *(os.path.join(base_dir, "textures", t) for t in KITCHEN_TEXTURES))):
+        return usdc
+    from strelka_tpu_torch.scene.kitchen_gen import build_kitchen_stage
+
+    return build_kitchen_stage(base_dir)

@@ -15,7 +15,9 @@ selection is arithmetic on one row read. Color textures are stored
 sRGB-encoded u8 and decoded to linear per texel before the blend (the
 hardware decode-then-filter order); linear textures store u8 with a
 per-texture scale. Images are decoded with the port's own PNG reader
-(utils/image.py), which gives what PIL's convert("RGBA") gives.
+(utils/image.py), which gives what PIL's convert("RGBA") gives, and one
+above MAX_DIM texels an edge is shrunk by `resize_rgba_bilinear`, which
+gives what PIL's resize(..., BILINEAR) of that RGBA image gives.
 
 Device half (plain PyTorch on tensors): wrap/clamp addressing, bilinear,
 trilinear and one-texel stochastic trilinear lookups, 3D volumes, cubemaps
@@ -25,6 +27,7 @@ and normal mapping. The JAX functions read the rect rows with a plain
 
 from __future__ import annotations
 
+import math
 import os
 import struct
 import zlib
@@ -99,6 +102,81 @@ def _srgb_encode(rgb: np.ndarray) -> np.ndarray:
     )
 
 
+_PRECISION_BITS = 32 - 8 - 2  # PIL's fixed-point coefficients (Resample.c)
+
+
+def _bilinear_coeffs(in_size: int, out_size: int):
+    """PIL's precompute_coeffs for the triangle filter over [0, in_size) and
+    normalize_coeffs_8bpc: per output pixel the first input pixel, the
+    count of inputs and the [out, ksize] fixed-point weights. When
+    shrinking, the filter's support widens by the scale; weights are
+    normalised to sum 1 in double, then rounded half away from zero."""
+    scale = float(in_size) / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    ss = 1.0 / filterscale
+    first = np.zeros(out_size, np.int64)
+    count = np.zeros(out_size, np.int64)
+    k = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = [max(1.0 - abs((x + xmin - center + 0.5) * ss), 0.0) for x in range(xmax)]
+        ww = sum(w)  # in order, as the C loop adds
+        for x in range(xmax):
+            v = w[x] / ww if ww != 0.0 else w[x]
+            k[xx, x] = int(v * (1 << _PRECISION_BITS) + (0.5 if v >= 0 else -0.5))
+        first[xx], count[xx] = xmin, xmax
+    return first, count, k
+
+
+def _resample_axis(img: np.ndarray, first, count, k, axis: int) -> np.ndarray:
+    """One pass of PIL's 8-bit resample along `axis` (0 rows, 1 columns):
+    integer sums from half an output step, clipped to u8 (clip8)."""
+    n_in = img.shape[axis]
+    idx = np.minimum(first[:, None] + np.arange(k.shape[1])[None, :], n_in - 1)
+    out = np.empty(img.shape[:axis] + (len(first),) + img.shape[axis + 1:], np.uint8)
+    src = np.moveaxis(img, axis, 0)
+    dst = np.moveaxis(out, axis, 0)
+    for i in range(len(first)):
+        acc = np.full(src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
+        for x in range(int(count[i])):
+            acc += src[idx[i, x]].astype(np.int64) * k[i, x]
+        dst[i] = np.where(acc >= (1 << _PRECISION_BITS << 8), 255,
+                          np.where(acc <= 0, 0, acc >> _PRECISION_BITS)).astype(np.uint8)
+    return out
+
+
+def resize_rgba_bilinear(rgba: np.ndarray, width: int, height: int) -> np.ndarray:
+    """[H, W, 4] u8 RGBA -> [height, width, 4] u8: what PIL's
+    Image.resize((width, height), Image.BILINEAR) gives for an RGBA image
+    (strelka_tpu/textures.py:126-135). PIL premultiplies by alpha (RGBa,
+    (v * a + 128) * 257 >> 16), runs two separable passes of its fixed-point
+    triangle filter (columns, then rows, a u8 image between them) and
+    divides alpha back out (255 * v // a, clipped, where 0 < a < 255)."""
+    rgba = np.asarray(rgba, np.uint8)
+    h, w = rgba.shape[:2]
+    if (w, h) == (width, height):
+        return rgba.copy()
+    a = rgba[..., 3:].astype(np.int64)
+    tmp = rgba[..., :3].astype(np.int64) * a + 128
+    img = np.concatenate([((tmp >> 8) + tmp) >> 8, a], axis=-1).astype(np.uint8)
+    fy, cy, ky = _bilinear_coeffs(h, height)
+    if width != w:
+        rows = slice(int(fy[0]), int(fy[-1] + cy[-1]))  # the rows the vertical pass reads
+        img = _resample_axis(img[rows], *_bilinear_coeffs(w, width), axis=1)
+        fy = fy - rows.start
+    if height != h:
+        img = _resample_axis(img, fy, cy, ky, axis=0)
+    a = img[..., 3:].astype(np.int64)
+    rgb = img[..., :3].astype(np.int64)
+    straight = np.minimum(255 * rgb // np.maximum(a, 1), 255)
+    rgb = np.where((a == 0) | (a == 255), rgb, straight)
+    return np.concatenate([rgb, a], axis=-1).astype(np.uint8)
+
+
 class TextureManager:
     """Host registry: load images at native size, dedupe by path, shelf-pack
     the sheet. The 'registerResource' analog (materialmanager.cpp:611-618):
@@ -135,11 +213,8 @@ class TextureManager:
             return -1
         h, w = rgba.shape[:2]
         if max(w, h) > self.max_dim:
-            # the JAX package shrinks such an image with PIL's reducing
-            # bilinear filter, which the port does not reproduce
-            raise NotImplementedError(
-                f"texture {path} is {w}x{h}, above {self.max_dim} texels an edge: ROADMAP A.7"
-            )
+            s = self.max_dim / max(w, h)
+            rgba = resize_rgba_bilinear(rgba, max(1, int(w * s)), max(1, int(h * s)))
         arr = rgba.astype(np.float32) / 255.0
         if srgb:
             rgb = arr[..., :3]

@@ -42,10 +42,65 @@ def encode_png(img: np.ndarray, flip: bool = True) -> bytes:
     return _PNG_SIG + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(raw)) + _chunk(b"IEND", b"")
 
 
-def write_png(path: str, img: np.ndarray, flip: bool = True) -> None:
-    """img: [H,W,3|4] float (0..1) or uint8. Written as 8-bit RGB (encode_png)."""
+def _adaptive_rows(rgb: np.ndarray) -> bytes:
+    """PNG rows each with the filter PIL's encoder picks (ZipEncode.c without
+    `optimize`): of None, Up, Sub and Paeth, tried in that order, the first
+    with the least sum of |byte| read as signed, stopping at a zero sum."""
+    h, w, bpp = rgb.shape
+    prev = np.zeros(w * bpp, np.int32)
+    zeros = np.zeros(bpp, np.int32)
+
+    def cost(v):
+        return int(np.minimum(v, 256 - v).sum())
+
+    rows = []
+    for y in range(h):
+        cur = rgb[y].reshape(-1).astype(np.int32)
+        left = np.concatenate([zeros, cur[:-bpp]])
+        upleft = np.concatenate([zeros, prev[:-bpp]])
+        best, data = 0, cur
+        best_sum = cost(cur)
+        for ftype, pred in ((2, lambda: prev), (1, lambda: left), (4, lambda: _paeth(left, prev, upleft))):
+            if best_sum == 0:
+                break
+            cand = (cur - pred()) & 0xFF
+            s = cost(cand)
+            if s < best_sum:
+                best, data, best_sum = ftype, cand, s
+        rows.append(bytes([best]) + data.astype(np.uint8).tobytes())
+        prev = cur
+    return b"".join(rows)
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def encode_png_as_pil(img: np.ndarray, flip: bool = True) -> bytes:
+    """The bytes PIL's Image.fromarray(img[..., :3]).save(path) writes for a
+    u8 image (the JAX package's write_png): adaptive row filters, zlib at
+    the default level with the filtered strategy and memLevel 9, the stream
+    cut into IDAT chunks of 65,536 bytes. Equal bytes need the same zlib."""
+    if img.dtype != np.uint8:
+        img = to_uint8(img)
+    if flip:
+        img = img[::-1]
+    rgb = np.ascontiguousarray(img[..., :3])
+    h, w = rgb.shape[:2]
+    co = zlib.compressobj(zlib.Z_DEFAULT_COMPRESSION, zlib.DEFLATED, 15, 9, zlib.Z_FILTERED)
+    z = co.compress(_adaptive_rows(rgb)) + co.flush()
+    idat = b"".join(_chunk(b"IDAT", z[i:i + 65536]) for i in range(0, len(z), 65536))
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return _PNG_SIG + _chunk(b"IHDR", header) + idat + _chunk(b"IEND", b"")
+
+
+def write_png(path: str, img: np.ndarray, flip: bool = True, as_pil: bool = False) -> None:
+    """img: [H,W,3|4] float (0..1) or uint8. Written as 8-bit RGB (encode_png,
+    or with as_pil the bytes the JAX package's PIL writer gives)."""
     with open(path, "wb") as f:
-        f.write(encode_png(img, flip))
+        f.write(encode_png_as_pil(img, flip) if as_pil else encode_png(img, flip))
 
 
 def _unfilter(data: bytes, h: int, w: int, bpp: int) -> np.ndarray:

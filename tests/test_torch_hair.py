@@ -20,9 +20,13 @@ lanes where the model magnifies that ULP:
   of 4096).
 The closed-form oracles of the model (sample/eval consistency, energy
 bound, white furnace, double highlight) are in tests/test_torch_oracles.py.
+With STRELKA_HAIR_KK=1 (read at import, as the reference reads it) both
+packages evaluate the Kajiya-Kay lobes instead; held to the same bounds.
 
 Each port call runs under one torch thread (ROADMAP.md section C).
 """
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -199,3 +203,51 @@ def test_bsdf_sample_with_hair_matches():
     _close(out.pdf, ref.pdf, wide=ggx | (hair & sharp))  # GGX lanes: see tests/test_torch_shading.py
     _close(out.bsdf_over_pdf, ref.bsdf_over_pdf, wide=ggx)
     assert (out.event_type.numpy()[hair & (out.pdf.numpy() > 1e-12)] == TB.BSDF_EVENT_GLOSSY_REFLECTION).all()
+
+
+@pytest.mark.parametrize("kind", ["evaluate", "sample"])
+def test_kajiya_kay_switch_matches_jax(monkeypatch, kind):
+    """STRELKA_HAIR_KK=1 in both packages (their flags set as the import
+    would set them): the Kajiya-Kay lobes of _hair_eval on the hair lanes
+    of a mixed set, the other lanes as before."""
+    monkeypatch.setattr(JB, "_HAIR_KAJIYA_KAY", True)
+    monkeypatch.setattr(TB, "_HAIR_KAJIYA_KAY", True)
+    rng = np.random.default_rng(87)
+    jf, tf = _frames(rng)
+    btype = _mixed_types(rng)
+    jm, tm, ior, _ = _materials(rng, btype)
+    hair = btype == BsdfType.HAIR
+    jk1, tk1 = _vecs(_unit(rng))
+    if kind == "evaluate":
+        jk2, tk2 = _vecs(_unit(rng))
+        out = TB.bsdf_evaluate(tm, tf, tk1, tk2, enable_hair=True)
+        _close(out, JB.bsdf_evaluate(jm, jf, jk1, jk2, enable_hair=True))
+        monkeypatch.setattr(TB, "_HAIR_KAJIYA_KAY", False)
+        chiang = TB.bsdf_evaluate(tm, tf, tk1, tk2, enable_hair=True)
+        assert not np.allclose(out.pdf.numpy()[hair], chiang.pdf.numpy()[hair])  # the switch changed the model
+        return
+    xi = rng.random((4, N)).astype(np.float32)
+    inside = rng.random(N) < 0.3
+    ior1, ior2 = np.where(inside, ior, 1.0).astype(np.float32), np.where(inside, 1.0, ior).astype(np.float32)
+    ref = JB.bsdf_sample(jm, jf, jk1, tuple(jnp.asarray(x) for x in xi), jnp.asarray(ior1), jnp.asarray(ior2),
+                         enable_hair=True)
+    out = TB.bsdf_sample(tm, tf, tk1, tuple(torch.tensor(x) for x in xi), torch.tensor(ior1), torch.tensor(ior2),
+                         enable_hair=True)
+    _close(out.event_type, ref.event_type)
+    _close(out.k2, ref.k2)
+    ggx = (btype == BsdfType.OMNI_PBR) & (np.asarray(ref.event_type) == TB.BSDF_EVENT_GLOSSY_REFLECTION)
+    _close(out.pdf, ref.pdf, wide=ggx)  # GGX lanes: see tests/test_torch_shading.py
+    _close(out.bsdf_over_pdf, ref.bsdf_over_pdf, wide=ggx)
+    assert (out.pdf.numpy()[hair] > 0.0).mean() > 0.3  # cosine-hemisphere pdf on the hair lanes
+
+
+def test_kajiya_kay_flag_is_read_at_import():
+    import subprocess
+    import sys
+
+    code = "from strelka_tpu_torch.ops import bsdf; print(bsdf._HAIR_KAJIYA_KAY)"
+    env = {k: v for k, v in os.environ.items() if k != "STRELKA_HAIR_KK"}
+    got = [subprocess.run([sys.executable, "-c", code], env=dict(env, **extra), capture_output=True, text=True,
+                          cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__)))).stdout.split()[-1]
+           for extra in ({}, {"STRELKA_HAIR_KK": "1"}, {"STRELKA_HAIR_KK": "0"})]
+    assert got == ["False", "True", "False"]

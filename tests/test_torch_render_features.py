@@ -20,7 +20,11 @@
     see one in a launch that moves its state to another device;
 (f) a checkpoint written by a banded render resumes in an unbanded one (and
     the other way) bit-exact;
-(g) the copy of a device scene a band device gets holds every tensor there.
+(g) the copy of a device scene a band device gets holds every tensor there;
+(h) TorchRender(use_sharding=True) on ["cpu"] * 4 keeps one launch a band
+    per config key (eager on the CPU; a band on a card is a GraphLaunch)
+    and equals the unbanded render across a camera move and a checkpoint
+    loaded into the running renderer.
 """
 
 import dataclasses
@@ -216,3 +220,53 @@ def test_checkpoint_across_bands_is_bitexact(tmp_path, first, second):
     r2.render(buf2)
     assert ctx2.subframe_index == 4
     np.testing.assert_array_equal(buf2.map(), rbuf.map())
+
+
+def test_banded_render_equals_unbanded_across_camera_move_and_checkpoint(tmp_path):
+    r1, ctx1, buf1, _ = _make(spp=1, total=8)
+    r2, ctx2, buf2, _ = _make(spp=1, total=8, use_sharding=True, band_devices=["cpu"] * 4)
+
+    def frame():
+        for r, buf in ((r1, buf1), (r2, buf2)):
+            r.render(buf)
+        np.testing.assert_array_equal(buf2.map(), buf1.map())
+        assert ctx1.subframe_index == ctx2.subframe_index
+
+    frame()
+    frame()
+    for r in (r1, r2):
+        r.get_scene().get_camera(0).translate(np.array([0.1, 0.0, 0.0], np.float32))
+    frame()
+    assert ctx2.subframe_index == 1  # the move reset the accumulation
+    ckpt = str(tmp_path / "state.npz")
+    r1.save_checkpoint(ckpt)
+    states = r2._state.bands
+    for r in (r1, r2):
+        r.load_checkpoint(ckpt)
+    assert all(a is b for a, b in zip(r2._state.bands, states))  # loaded into the band states in place
+    frame()
+    frame()
+    (banded,) = r2._launch_cache.values()
+    (fns,) = banded.bands.values()  # one launch a band, kept between frames
+    assert len(fns) == 4 and not any(hasattr(fn, "reset") for fn in fns)  # CPU bands stay eager
+
+
+def test_bands_on_a_card_get_their_own_graph_launch():
+    """shard_launch's graph_launch wraps the bands on CUDA devices only, each
+    with its py_offset bound, once per local height; wrapper.reset reaches
+    them. Nothing runs: the bands are built, not launched."""
+    class Recorder:
+        def __init__(self, launch, device):
+            self.launch, self.device, self.resets = launch, device, []
+
+        def reset(self, pool):
+            self.resets.append(pool)
+
+    banded = shard_launch(lambda lh, fh: (lambda scene, params, state, py_offset: (lh, fh, py_offset)),
+                          [torch.device("cuda", 0), "cpu"], graph_launch=Recorder)
+    fns = banded.band_launches(8)
+    assert banded.band_launches(8) is fns and isinstance(fns[0], Recorder) and not isinstance(fns[1], Recorder)
+    assert fns[0].device == torch.device("cuda", 0)
+    assert fns[0].launch(None, None, None) == (8, 16, 0) and fns[1](None, None, None) == (8, 16, 8)
+    banded.reset("pool")
+    assert fns[0].resets == ["pool"]

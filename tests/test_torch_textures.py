@@ -7,7 +7,10 @@ package's (strelka_tpu/textures.py), on the CPU.
     wider than the sheet), a volume, a cubemap, and kitchen's four PNGs
     through `load` (sRGB and linear). u8 and f32 sheets, with and without
     mips. PNGs that are grey, grey+alpha, RGB and RGBA load as PIL loads
-    them; an image over `MAX_DIM` on an edge raises NotImplementedError.
+    them; an image over the manager's `max_dim` on an edge is shrunk as the
+    JAX manager shrinks it (the same atlas), and `resize_rgba_bilinear` is
+    bit-equal to PIL's RGBA resize(..., BILINEAR) on hypothesis-drawn
+    sizes, shrink factors and alpha (0 and 255 among them).
 (b) Each sampling function (bilinear, trilinear, stochastic trilinear, 3D,
     cube, normal map) against its JAX counterpart on 4096 seeded lanes
     (negative and out-of-range uv, tex ids -1..n, lod from -14 to 3):
@@ -26,6 +29,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from PIL import Image
 
 import strelka_tpu.textures as JT
@@ -117,12 +122,40 @@ def test_png_modes_load_as_pil(tmp_path, mode):
 
 
 def test_oversized_image_raises(tmp_path):
-    path = str(tmp_path / "wide.png")
-    Image.fromarray(np.zeros((2, 40, 3), np.uint8)).save(path)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        TT.TextureManager(atlas_size=32).load(path)
+    """An image over max_dim texels an edge no longer raises: both managers
+    shrink it (PIL's bilinear resize in the JAX one, resize_rgba_bilinear in
+    the port) and build the same atlas. A missing file is still -1."""
+    rng = np.random.default_rng(8)
+    cases = {"wide": rng.integers(0, 256, (7, 45, 3), dtype=np.uint8),
+             "tall_rgba": rng.integers(0, 256, (77, 20, 4), dtype=np.uint8)}
+    cases["tall_rgba"][::3, :, 3] = 0
+    cases["tall_rgba"][1::3, :, 3] = 255
+    for name, px in cases.items():
+        path = str(tmp_path / f"{name}.png")
+        Image.fromarray(px).save(path)
+        atlases = []
+        for mod in (JT, TT):
+            tm = mod.TextureManager(atlas_size=32)
+            assert tm.load(path) == 0
+            atlases.append(tm.build_atlas())
+        _assert_atlas_equal(*atlases)
     tm = TT.TextureManager()
     assert tm.load(str(tmp_path / "missing.png")) == -1
+
+
+@settings(max_examples=60, deadline=None)
+@given(h=st.integers(1, 40), w=st.integers(1, 40), fy=st.floats(0.05, 1.0), fx=st.floats(0.05, 1.0),
+       alpha=st.sampled_from(["random", "binary", "opaque", "clear"]), seed=st.integers(0, 2**16))
+def test_resize_matches_pil(h, w, fy, fx, alpha, seed):
+    rng = np.random.default_rng(seed)
+    px = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+    if alpha == "binary":
+        px[..., 3] = rng.choice([0, 255], (h, w))
+    elif alpha != "random":
+        px[..., 3] = 255 if alpha == "opaque" else 0
+    size = (max(1, int(w * fx)), max(1, int(h * fy)))
+    ref = np.asarray(Image.fromarray(px, "RGBA").resize(size, Image.BILINEAR))
+    assert np.array_equal(TT.resize_rgba_bilinear(px, *size), ref)
 
 
 @pytest.fixture(params=[False, True], ids=["plain", "smootherstep"])

@@ -362,12 +362,24 @@ def test_kitchen_scene_matches_jax():
                         "textures/wood.png"]
 
 
-def test_kitchen_path_checks_files(tmp_path):
-    with pytest.raises(FileNotFoundError, match="kitchen.usdc"):
-        ensure_kitchen(str(tmp_path))
+def test_kitchen_path_checks_files(tmp_path, monkeypatch):
+    """A stage missing its .usdc or any texture is generated again
+    (scene/kitchen_gen.py, held byte-equal to the JAX generator in
+    test_torch_kitchen_gen.py); a complete one is taken as it is."""
+    from strelka_tpu_torch.scene import kitchen_gen
+
+    built = []
+    monkeypatch.setattr(kitchen_gen, "build_kitchen_stage",
+                        lambda d: built.append(d) or os.path.join(d, "kitchen.usdc"))
+    usdc = str(tmp_path / "kitchen.usdc")
+    assert ensure_kitchen(str(tmp_path)) == usdc and built == [str(tmp_path)]
     (tmp_path / "kitchen.usdc").write_bytes(b"")
-    with pytest.raises(FileNotFoundError, match="checker.png"):
-        ensure_kitchen(str(tmp_path))
+    ensure_kitchen(str(tmp_path))
+    assert len(built) == 2  # the textures are missing
+    (tmp_path / "textures").mkdir()
+    for name in ("checker.png", "wood.png", "wallpaper.png", "fabric.png"):
+        (tmp_path / "textures" / name).write_bytes(b"")
+    assert ensure_kitchen(str(tmp_path)) == usdc and len(built) == 2
 
 
 def test_blackbody_matches_jax():
