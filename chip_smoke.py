@@ -145,7 +145,28 @@ Phases (any failure raises and the script exits non-zero):
      last the {"ok": true, ...} line;
  12. (run before 11) hair_patch(n_curves=256) at 96x96, 2 spp x 2 with
      STRELKA_HAIR_KK=1 in a child process: the Kajiya-Kay fibre lobes on,
-     the image finite, its mean beside the default (Chiang) model's.
+     the image finite, its mean beside the default (Chiang) model's;
+ 13. the accelerator path's wavefront order (ops/integrator.py: Z-order
+     pixels, from bounce 1 the sort of box_field, hair_long and kitchen,
+     the packed permutes through K4), run before each main path's phase
+     (phase_order): K4 held bit for bit and timed at the path's permutes
+     ([n, 11] Z-order restore; [N, 21] sort permute and [N, 4] radiance
+     restore where the scene sorts) on the launch's own permutations and
+     words with small ints and NaN patterns; one eager launch ordered
+     against one unordered, 0 values off in image, accum, AOVs and counters
+     (kitchen, textured, draws its texels by Z-rank: there the sort on
+     against off with Z-order held, 0 off, and ordered against unordered
+     counted); K5/K6 boxes, K7 sub-blocks a live ray and K9 superblocks a
+     tile with the kernels' times, row-major against the launch's order;
+     and after each launch-cache phase the A/B (phase_order_ab):
+     TorchRender's replayed launches ordered, unordered and (where the
+     scene sorts) Z-order alone, in turns. The golden phases and phase 10
+     run the ordered launch (the card's default), so the goldens, the
+     replays against eager launches, the sync-debug check and phase 9's
+     bands hold it too;
+ 14. (run before 11) the north-star showcase: scripts/torch_northstar.py
+     at 1024x768, 32 spp, cut at 16 spp by --max-seconds in a child process,
+     resumed, bit-equal to an uninterrupted run, its PNG written.
 
 Since the round-cone closed form follows the JAX package's CPU rounding
 (XLA's FMA contraction, ops/curves.py:ray_round_cone), K8 is held against
@@ -435,7 +456,8 @@ def main_path_rays(scene, params, device, cfg: Config):
     if scene.textures is not None:
         mat, frame = I.shade_textures(scene, mat, frame, rows[ATTR_MAT_ROW:ATTR_LIGHT_ROW], uv,
                                       torch.where(hit.prim >= 0, hit.t, 0.0),
-                                      I.ray_cone_spread(params, cfg.height), sample_idx, 0)
+                                      I.ray_cone_spread(params, cfg.height), sample_idx,
+                                      torch.arange(m, dtype=torch.int32, device=device), 0)
     is_curve = torch.zeros(m, dtype=torch.bool, device=device)
     seg_mat = None
     if scene.has_curves:
@@ -1886,16 +1908,20 @@ def phase_hair(dev, t_start):
     rows = phase_hair_kernels(scene, launch_params(host, HAIR.width, HAIR.height, 0), HAIR)
     ssim_hair = phase_golden(TS.hair_patch(n_curves=HAIR_CURVES["hair_patch"]), dev, "hair_patch_golden.png",
                              HAIR.kernels, HAIR_GOLDEN)
+    rows += phase_order(scene, host, HAIR)
     main_hair = phase_main_path(scene, host, HAIR)
     phase_launch_graph(scene, host, HAIR)
+    phase_order_ab(scene, host, HAIR)
     log(f"[{time.perf_counter() - t_start:.0f} s] hair_patch phases done")
     del scene
     long_host, long_scene = hair_scene(HAIR_LONG, dev)
     long_rows = phase_hair_kernels(long_scene, launch_params(long_host, HAIR_LONG.width, HAIR_LONG.height, 0),
                                    HAIR_LONG, subset_lanes=PLAIN_SUBSET)
+    long_rows += phase_order(long_scene, long_host, HAIR_LONG)
     main_long = phase_main_path(long_scene, long_host, HAIR_LONG)
     log(f"hair_long image mean {main_long['image_mean']:.6f} (finite)")
     phase_launch_graph(long_scene, long_host, HAIR_LONG)
+    phase_order_ab(long_scene, long_host, HAIR_LONG)
     del long_scene
     ssim_long = phase_golden(TS.hair_patch(n_curves=HAIR_CURVES["hair_long"]), dev, "hair_long_golden.png",
                              HAIR_LONG.kernels, HAIR_LONG_GOLDEN)
@@ -1945,9 +1971,11 @@ def phase_coffeetable(dev, t_start):
     rows.append(gather_row(scene.light_table, lid, "coffeetable light_table at the sampled light ids"))
     finish_bounds(rows)
     ssim = phase_golden(usd_host(path)[0], dev, "coffeetable_golden.png", COFFEE.kernels, COFFEE_GOLDEN)
+    rows += phase_order(scene, host, COFFEE)
     main = phase_main_path(scene, host, COFFEE)
     main.update(load_seconds=load_s)
     phase_launch_graph(scene, host, COFFEE)
+    phase_order_ab(scene, host, COFFEE)
     log(f"[{time.perf_counter() - t_start:.0f} s] coffeetable phases done")
     return rows, main, ssim
 
@@ -1992,11 +2020,13 @@ def phase_kitchen(dev, t_start):
     finish_bounds(rows)
     ssim = phase_golden(usd_host(path)[0], dev, "kitchen_golden.png", KITCHEN.kernels, KITCHEN_GOLDEN)
     regen = check_kitchen_regenerated(dev)
+    rows += phase_order(scene, host, KITCHEN)
     main = phase_main_path(scene, host, KITCHEN)
     main.update(load_seconds=load_s, native_crate_codec=native_codec, device_tables_seconds=build_s,
                 bvh_nodes=scene.bvh.num_nodes, bvh_depth=scene.bvh.depth, bvh_builder=scene.bvh.builder,
                 bvh_build_seconds=scene.bvh.build_seconds, atlas_shape=list(atlas.data.shape), regenerated=regen)
     phase_launch_graph(scene, host, KITCHEN)
+    phase_order_ab(scene, host, KITCHEN)
     log(f"[{time.perf_counter() - t_start:.0f} s] kitchen phases done")
     return rows, main, ssim, differ
 
@@ -2100,7 +2130,7 @@ def hold_at(scene, host, w: int, h: int, spp: int, where: str) -> None:
     its plain version at the shapes a w x h x spp launch gives it (no
     timing): K1 at both dimension lists of a launch; K2/K3 (a flat scene) or
     K5/K6 (a BVH) on the camera, bounce-1 and bounce-0 shadow rays; K4 at the
-    attr and light tables. K2/K3 are held on every lane against the dense
+    attr and light tables and at the launch's packed permutes (order_gathers). K2/K3 are held on every lane against the dense
     plain sweep, K5/K6 against their plain twins (the dense checks of K5/K6
     are phases 3, 4 and 8's)."""
     import torch
@@ -2111,10 +2141,13 @@ def hold_at(scene, host, w: int, h: int, spp: int, where: str) -> None:
     from strelka_tpu_torch.kernels import sobol as KS
     from strelka_tpu_torch.render.device_scene import RAY_MASK_PRIMARY, RAY_MASK_SHADOW
 
+    from strelka_tpu_torch.ops import integrator as I
+
     t0 = time.perf_counter()
     cfg = Config(where, w, h, spp, ENTRY.depth, 0, ())
     sample_idx, camera, bounce1, shadow, prims, lid, _ = main_path_rays(scene, launch_params(host, w, h, 0),
                                                                         scene.device, cfg)
+    order_gathers(scene, cfg, where, I.pixel_zorder(w, h, scene.device)[1], launch_lanes(scene, cfg, bounce1)[2], False)
     for dims, depths in ((JITTER_DIMS, (0,)), (BOUNCE_DIMS, range(cfg.depth))):
         for depth in depths:
             a = held(lambda: KS.random_dims(sample_idx, depth, dims))
@@ -2689,6 +2722,363 @@ def phase_entry_points(dev, t_start):
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: the accelerator path's wavefront order (ops/integrator.py)
+# ---------------------------------------------------------------------------
+
+ORDER = []  # one result a main path: the values off, the per-ray counts, K4's permutes
+ORDER_AB = []  # one result a main path: TorchRender's replayed launches, ordered against unordered
+AB_TIMED = 8  # replayed launches in each turn of the A/B
+
+
+class order_patched:
+    """Within the block, render_launch takes another wavefront order: "unordered"
+    (row-major, no sort: integrator.accelerated answers False, as on the
+    CPU), "zorder" (Z-order, no sort: sort_by_default answers False) or
+    "ordered" (the card's defaults, nothing patched)."""
+
+    def __init__(self, variant: str):
+        self.variant = variant
+
+    def __enter__(self):
+        from strelka_tpu_torch.ops import integrator as I
+
+        self.saved = (I.accelerated, I.sort_by_default)
+        if self.variant == "unordered":
+            I.accelerated = lambda scene: False
+        elif self.variant == "zorder":
+            I.sort_by_default = lambda scene: False
+        elif self.variant != "ordered":
+            raise ValueError(self.variant)
+        return self
+
+    def __exit__(self, *exc):
+        from strelka_tpu_torch.ops import integrator as I
+
+        I.accelerated, I.sort_by_default = self.saved
+        return False
+
+
+def permute_rays(rays: dict, lanes):
+    """A ray set (main_path_rays' dicts) with its lanes in the order `lanes` gives."""
+    return {k: type(v)(*(c[lanes] for c in v)) if isinstance(v, tuple) else v[lanes] for k, v in rays.items()}
+
+
+def launch_lanes(scene, cfg: Config, bounce1: dict):
+    """The lane orders of the card's launch over main_path_rays' row-major
+    lanes: (Z-order: lane k of the ordered wavefront is row-major lane
+    z[k]; the bounce-1 order: after the sort of bounce 1 where the scene
+    sorts, as integrator._sort_wavefront orders these rays, else z; the
+    sort's permutation of the Z-ordered lanes, or None)."""
+    import torch
+
+    from strelka_tpu_torch.ops import integrator as I
+    from strelka_tpu_torch.ops.vec import Vec3
+
+    n = cfg.width * cfg.height
+    zorder, _ = I.pixel_zorder(cfg.width, cfg.height, scene.device)
+    z = (zorder[None, :] + n * torch.arange(cfg.spp, device=scene.device)[:, None]).reshape(-1)
+    if not I.sort_by_default(scene):
+        return z, z, None
+    b1 = permute_rays(bounce1, z)
+    key = torch.where(b1["tmax"] > b1["tmin"], I._ray_sort_key(scene, Vec3(*b1["o"]), Vec3(*b1["d"])), I.DEAD_KEY)
+    perm = torch.sort(key, stable=True).indices
+    return z, z[perm], perm
+
+
+def order_tables(n: int, cols: int, dev, seed: int):
+    """An [n, cols] int32 table of the words a packed permute carries: f32
+    bits, int values under 2^23 (f32 subnormals when read as floats), NaN
+    patterns of both signs, 0/1 flags."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    words = rng.integers(-(2**31), 2**31, (n, cols), dtype=np.int64).astype(np.int32)
+    words[:, 0::4] = rng.integers(-(2**23), 2**23, (n, len(range(0, cols, 4))))
+    words[:, 1::4] = rng.integers(0x7F800001, 0x7FFFFFFF, (n, len(range(1, cols, 4)))) | (rng.integers(0, 2, (n, 1)) << 31)
+    words[:, 2::4] = rng.integers(0, 2, (n, len(range(2, cols, 4))))
+    return torch.tensor(words, device=dev)
+
+
+def order_gathers(scene, cfg_like, where: str, z_inv, sort_perm, timed: bool):
+    """K4 at the packed permutes of a launch of `cfg_like`'s size: the
+    Z-order restore [n, 11] by the inverse Z-order, and where the scene
+    sorts the sort's permute [N, 21] by `sort_perm` and the radiance
+    restore [N, 4] by its inverse; each held bit for bit against the plain
+    gather on order_tables' words. timed: gather_row's rows (times, bound,
+    index_select), else only held."""
+    import torch
+
+    from strelka_tpu_torch.kernels import gather as KG
+
+    n = cfg_like.width * cfg_like.height
+    m = n * cfg_like.spp
+    jobs = [(order_tables(n, 11, scene.device, 11), z_inv.to(torch.int32), "Z-order restore [n, 11]")]
+    if sort_perm is not None:
+        inv = torch.empty_like(sort_perm).scatter_(0, sort_perm, torch.arange(m, device=scene.device))
+        jobs += [(order_tables(m, 21, scene.device, 21), sort_perm.to(torch.int32), "sort permute [N, 21]"),
+                 (order_tables(m, 4, scene.device, 4), inv.to(torch.int32), "radiance restore [N, 4]")]
+    rows = []
+    for table, perm, what in jobs:
+        table = table.view(torch.float32)
+        if timed:
+            rows.append(gather_row(table, perm, f"{where} {what}"))
+        else:
+            a = held(lambda: KG.gather_rows_t(table, perm))
+            if same_bits(a, KG.gather_rows_t_plain(table, perm)).any():
+                raise AssertionError(f"K4 differs from its plain version at {where} {what}")
+    return rows
+
+
+def warp_max_mean(counts, live) -> float:
+    """The mean over 32-lane warps that hold a live lane of the warp's most
+    work (a one-ray-a-thread kernel runs each warp for its longest walk)."""
+    import torch
+
+    m = counts.shape[0] // 32 * 32
+    c = torch.where(live, counts, 0)[:m].view(-1, 32).to(torch.float32)
+    busy = live[:m].view(-1, 32).any(1)
+    return float(c.max(1).values[busy].mean())
+
+
+def order_counts(scene, cfg: Config, rays: dict, lanes) -> dict:
+    """The walks' work a live ray (a tile for K9) and the kernels' times, on
+    the bounce-1 and bounce-0 shadow rays in row-major order (`row`) and in
+    the card's launch order (`ordered`: the bounce-1 rays as sorted, the
+    shadow rays, bounce 0's, in Z-order): K5 boxes and K6 boxes (child rows
+    x 2) a live ray, their mean per-warp maxima; K7 sub-blocks a live ray;
+    K9 the superblocks a tile of CONE_ORDER_TILE rays passes."""
+    from strelka_tpu_torch.kernels import bvh as KB
+    from strelka_tpu_torch.kernels import cones as KC
+    from strelka_tpu_torch.ops.intersect import CONE_ORDER_TILE, cone_sweep_order
+    from strelka_tpu_torch.render.device_scene import RAY_MASK_PRIMARY, RAY_MASK_SHADOW
+
+    z, b1_lanes = lanes
+    out = {}
+    for label, b1, sh in (("row", rays["bounce1"], rays["shadow"]),
+                          ("ordered", permute_rays(rays["bounce1"], b1_lanes), permute_rays(rays["shadow"], z))):
+        res = {}
+        if scene.bvh is not None:
+            a5, a6 = bvh_args(scene, b1, RAY_MASK_PRIMARY), bvh_args(scene, sh, RAY_MASK_SHADOW)
+            live5, live6 = a5[3] > a5[2], a6[3] > a6[2]
+            nodes5 = KB.bvh_closest(*a5, stats=True)[4]
+            nodes6 = KB.bvh_any(*a6, stats=True)[1]
+            res.update(k5_boxes_per_live_ray=float(nodes5[live5].float().mean()),
+                       k5_warp_max_boxes=warp_max_mean(nodes5, live5),
+                       k5_ms=time_ms(lambda: KB.bvh_closest(*a5), samples=10, inner=3),
+                       k6_boxes_per_live_ray=float(nodes6[live6].float().mean()),
+                       k6_warp_max_boxes=warp_max_mean(nodes6, live6),
+                       k6_ms=time_ms(lambda: KB.bvh_any(*a6), samples=10, inner=3))
+        if scene.has_curves:
+            o, d, tmin, tmax, pc = cone_args(scene, b1)
+            order = cone_sweep_order(pc, o, d, tmin, tmax)
+            st = KC.cone_closest(o, d, tmin, tmax, pc, stats=True, order=order)[3]
+            live = tmax > tmin
+            res.update(k7_subblocks_per_live_ray=float(st.per_ray[0][live].float().mean()),
+                       k7_ms=time_ms(lambda: KC.cone_closest(o, d, tmin, tmax, pc, order=order), samples=10, inner=3))
+            if order is not None:
+                res.update(k9_superblocks_per_tile=float(order.count.float().mean()), k9_tile=CONE_ORDER_TILE,
+                           k9_ms=time_ms(lambda: cone_sweep_order(pc, o, d, tmin, tmax), samples=10, inner=3))
+        out[label] = res
+    return out
+
+
+def launch_values_off(scene, host, cfg: Config, a: str, b: str, sort_a=None, sort_b=None) -> dict:
+    """One eager launch of the main path in order `a` against one in order
+    `b` (order_patched's variants; sort_a / sort_b render_launch's
+    sort_rays), from the same empty state: the f32 words and counters that
+    differ in the image and each FrameState field."""
+    from strelka_tpu_torch.ops import integrator as I
+
+    kw = main_path_kw(cfg)
+    params = launch_params(host, cfg.width, cfg.height, 0)
+    outs = []
+    for variant, sort_rays in ((a, sort_a), (b, sort_b)):
+        with order_patched(variant):
+            st, img = I.render_launch(scene, params, I.make_frame_state(cfg.height, cfg.width, scene.device),
+                                      sort_rays=sort_rays, **kw)
+        outs.append((img, *st))
+    names = ("image",) + I.FrameState._fields
+    return {name: int(same_bits(x, y).sum()) if x.is_floating_point() else int((x != y).sum())
+            for name, x, y in zip(names, *outs)}
+
+
+def phase_order(scene, host, cfg: Config):
+    """Phase 13 on one main path, before its main-path phase: (1) K4 held and
+    timed at the path's packed permutes (Z-order restore, and where the
+    scene sorts, the sort's permute and the radiance restore), on the
+    permutations the launch makes of its real rays; (2) one eager launch
+    ordered (Z-order, and the sort where sort_by_default) against one
+    unordered (row-major, no sort): 0 values off on an untextured scene; on
+    a textured one (kitchen) the sort on against off with Z-order held: 0
+    off, and ordered against unordered counted (the texels are keyed by
+    Z-rank); (3) order_counts. -> K4's rows (bounds finished)."""
+    import torch
+
+    from strelka_tpu_torch.ops import integrator as I
+
+    t0 = time.perf_counter()
+    rays = dict(zip(("sample_idx", "camera", "bounce1", "shadow"),
+                    main_path_rays(scene, launch_params(host, cfg.width, cfg.height, 0), scene.device, cfg)[:4]))
+    z, b1_lanes, sort_perm = launch_lanes(scene, cfg, rays["bounce1"])
+    _, z_inv = I.pixel_zorder(cfg.width, cfg.height, scene.device)
+    rows = order_gathers(scene, cfg, f"{cfg.name} {cfg.width}x{cfg.height} {cfg.spp} spp", z_inv, sort_perm, True)
+    finish_bounds(rows)
+    sorts = I.sort_by_default(scene)
+    result = dict(scene=cfg.name, sorts=sorts, textured=scene.textures is not None)
+    if scene.textures is None:
+        result["ordered_vs_unordered_off"] = launch_values_off(scene, host, cfg, "ordered", "unordered")
+        bar = result["ordered_vs_unordered_off"]
+    else:
+        result["sort_on_vs_off_off"] = launch_values_off(scene, host, cfg, "ordered", "ordered", True, False)
+        result["ordered_vs_unordered_off"] = launch_values_off(scene, host, cfg, "ordered", "unordered")
+        bar = result["sort_on_vs_off_off"]
+    if sorts and scene.textures is None:
+        result["zorder_vs_unordered_off"] = launch_values_off(scene, host, cfg, "zorder", "unordered")
+        bar = {k: bar[k] + result["zorder_vs_unordered_off"][k] for k in bar}
+    torch.cuda.synchronize()
+    result["counts"] = order_counts(scene, cfg, rays, (z, b1_lanes))
+    result["k4_permutes"] = [dict(at=r["at"], shape=list(r["shape"]), ms=r["ms"], device_ms=r["device_ms"],
+                                  bound_ms=r["bound_ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"])
+                             for r in rows]
+    result["phase_seconds"] = time.perf_counter() - t0
+    ORDER.append(result)
+    log(f"wavefront order on {cfg.name} (sorts: {sorts}, textured: {result['textured']}): values off "
+        f"{ {k: v for k, v in result.items() if k.endswith('_off')} } (bar: 0 for "
+        f"{'sort on against off, Z-order held' if result['textured'] else 'ordered against unordered'}); "
+        f"work a live ray {result['counts']}; K4 " +
+        "; ".join(f"{r['at']}: {r['ms']:.4f} ms (alone {r['device_ms']:.4f}), bound {r['bound_ms']:.4f}, "
+                  f"index_select {r['library_ms']:.4f}" for r in rows) + f"; {result['phase_seconds']:.1f} s")
+    if any(bar.values()):
+        raise AssertionError(f"{cfg.name}: the ordered launch differs: {bar}")
+    return rows
+
+
+def phase_order_ab(scene, host, cfg: Config):
+    """The A/B of the order on one main path, after its launch-cache phase:
+    TorchRender's replayed launches (the path's config, sample budget
+    MAX_SAMPLE_COUNT) ordered, unordered and, where the scene sorts,
+    Z-order alone, each variant its own renderer (its first launch eager,
+    its second captured, under the variant's order), timed in turns A B C
+    C B A, AB_TIMED replays a turn, host clock, one synchronize a turn."""
+    import torch
+
+    from strelka_tpu_torch.ops import integrator as I
+    from strelka_tpu_torch.render import render as R
+    from strelka_tpu_torch.render.buffer import BufferDesc, BufferFormat
+    from strelka_tpu_torch.settings import SharedContext, make_default_settings
+
+    t0 = time.perf_counter()
+    w, h = cfg.width, cfg.height
+    variants = ["ordered", "unordered"] + (["zorder"] if I.sort_by_default(scene) else [])
+    renders = {}
+    for v in variants:
+        s = make_default_settings(w, h)
+        s.set("render/pt/spp", cfg.spp)
+        s.set("render/pt/sppTotal", MAX_SAMPLE_COUNT)
+        s.set("render/pt/depth", cfg.depth)
+        r = R.TorchRender(device=scene.device)
+        r.set_scene(host)
+        r._device_scene, host.dirty = scene, False  # the path's device scene, as set_scene builds it
+        r.set_shared_context(SharedContext(s))
+        r.init()
+        buf = r.create_buffer(BufferDesc(w, h, BufferFormat.FLOAT4))
+        with order_patched(v):
+            r.render(buf)  # eager
+            r.render(buf)  # captured and replayed
+        renders[v] = (r, buf)
+    turns = []
+    for v in variants + variants[::-1]:
+        r, buf = renders[v]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(AB_TIMED):
+            r.render(buf)
+        torch.cuda.synchronize()
+        turns.append((v, (time.perf_counter() - t1) / AB_TIMED * 1e3))
+    ms = {v: statistics.mean(t for k, t in turns if k == v) for v in variants}
+    result = dict(scene=cfg.name, config=f"{w}x{h} spp={cfg.spp} depth={cfg.depth}", replayed_ms_per_launch=ms,
+                  turns=turns, card=card_name_and_power_limit(), phase_seconds=time.perf_counter() - t0)
+    ORDER_AB.append(result)
+    log(f"order A/B {cfg.name} {result['config']}: replayed ms a launch " +
+        ", ".join(f"{v} {t:.3f}" for v, t in ms.items()) + f" (turns {[(k, round(t, 3)) for k, t in turns]}); "
+        f"{result['phase_seconds']:.1f} s")
+    del renders
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the north-star showcase (scripts/torch_northstar.py), cut and resumed
+# ---------------------------------------------------------------------------
+
+SHOWCASE_SPP = 32  # a 1024x768 kitchen of 32 spp, cut at 16 by --max-seconds at its checkpoint
+SHOWCASE_ARGS = ["--w", "1024", "--h", "768", "--spl", "2", "--depth", "4", "--ckpt-every", "8"]
+
+
+def phase_showcase(t_start) -> dict:
+    """scripts/torch_northstar.py at 1024x768, depth 4, SHOWCASE_SPP spp, 2 a
+    launch, a checkpoint every 8 launches: (1) in a child process with
+    --max-seconds 1e-9, which stops at its first checkpoint (16 spp) and
+    exits 0; (2) resumed through its main(argv) in this process, to the end;
+    (3) an uninterrupted run through main(argv). The resumed accumulator,
+    AOVs, counters and sample count equal the uninterrupted run's bit for
+    bit; both PNGs are written."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_northstar as NS
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="strelka_northstar_")
+    try:
+        def argv(name):
+            return [*SHOWCASE_ARGS, "--spp", str(SHOWCASE_SPP), "--ckpt", os.path.join(tmp, f"{name}.npz"),
+                    "--image", os.path.join(tmp, f"{name}.png"), "--out-json", os.path.join(tmp, f"{name}.json")]
+
+        script = os.path.join(REPO, "scripts", "torch_northstar.py")
+        proc = subprocess.run([sys.executable, script, *argv("cut"), "--max-seconds", "1e-9"], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"torch_northstar.py (cut) exited {proc.returncode}: {proc.stderr[-3000:]}")
+        with np.load(os.path.join(tmp, "cut.npz")) as data:
+            cut_spp = int(data["subframe_index"])
+        cut_s = time.perf_counter() - t0
+        if cut_spp != SHOWCASE_SPP // 2 or os.path.exists(os.path.join(tmp, "cut.png")):
+            raise AssertionError(f"the cut run stopped at {cut_spp} spp, not {SHOWCASE_SPP // 2}, or wrote an image")
+        t1 = time.perf_counter()
+        if NS.main(argv("cut")) != 0:
+            raise AssertionError("torch_northstar.py did not resume")
+        resume_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        if NS.main(argv("full")) != 0:
+            raise AssertionError("torch_northstar.py (uninterrupted) failed")
+        full_s = time.perf_counter() - t1
+        arrays = []
+        for name in ("cut", "full"):
+            with np.load(os.path.join(tmp, f"{name}.npz")) as data:
+                arrays.append({k: data[k].copy() for k in data.files if k.startswith("state_") or k == "subframe_index"})
+        off = {k: int((arrays[0][k] != arrays[1][k]).sum()) for k in arrays[1]}
+        with open(os.path.join(tmp, "full.json")) as f:
+            row = json.load(f)
+        pngs = {name: os.path.getsize(os.path.join(tmp, f"{name}.png")) for name in ("cut", "full")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result = dict(config=row["config"], cut_at_spp=cut_spp, values_off=off, png_bytes=pngs,
+                  cut_run_s=cut_s, resume_s=resume_s, uninterrupted_s=full_s, uninterrupted_row=row,
+                  phase_seconds=time.perf_counter() - t0)
+    log(f"showcase: torch_northstar.py {row['config']} cut at {cut_spp} spp in a child ({cut_s:.1f} s), resumed "
+        f"({resume_s:.1f} s): values off the uninterrupted run ({full_s:.1f} s, {row['value']:.2f} s by its own "
+        f"clock, {row['padded_mrays_per_s']:.1f} padded Mrays/s) {off} (bar: 0); PNGs {pngs} bytes; "
+        f"[{time.perf_counter() - t_start:.0f} s]")
+    if any(off.values()) or not row["complete"] or not all(pngs.values()):
+        raise AssertionError(f"the resumed showcase differs from the uninterrupted one: {off}, row {row}")
+    return result
+
+
+# ---------------------------------------------------------------------------
 # Phase 10: the launch cache (render/render.py: one CUDA graph a config key)
 # ---------------------------------------------------------------------------
 
@@ -2972,8 +3362,10 @@ def main() -> int:
     finish_bounds(rows)
     ssim_cornell = phase_golden(TS.cornell_box(light_intensity=5000.0, metal_box=True, glass_sphere=True), dev,
                                 "cornell_golden.png", CORNELL.kernels)
+    rows += phase_order(scene, host, CORNELL)
     main_cornell = phase_main_path(scene, host, CORNELL)
     phase_launch_graph(scene, host, CORNELL)
+    phase_order_ab(scene, host, CORNELL)
     log(f"[{time.perf_counter() - t_start:.0f} s] Cornell phases done")
 
     # ---- 3. flat kernels above 1024 triangles
@@ -2987,10 +3379,12 @@ def main() -> int:
         f"{box.bvh.num_nodes} nodes built by the {box.bvh.builder} builder in {box.bvh.build_seconds:.2f} s")
     box_rows, box_differ = phase_box_kernels(box, launch_params(box_host, BOX.width, BOX.height, 0))
     ssim_box = phase_golden(TS.box_field(grid=BOX_GRID), dev, "box_field_golden.png", BOX.kernels)
+    box_rows += phase_order(box, box_host, BOX)
     main_box = phase_main_path(box, box_host, BOX)
     main_box.update(bvh_nodes=box.bvh.num_nodes, bvh_builder=box.bvh.builder,
                     bvh_build_seconds=box.bvh.build_seconds)
     phase_launch_graph(box, box_host, BOX)
+    phase_order_ab(box, box_host, BOX)
     log(f"[{time.perf_counter() - t_start:.0f} s] box_field(grid={BOX_GRID}) phases done")
 
     # ---- 5, 6. the hair scenes: kernels K7/K8, golden, main paths
@@ -3013,6 +3407,11 @@ def main() -> int:
     # ---- 12. the Kajiya-Kay hair switch in a child process
     hair_kk = phase_hair_kk(dev)
 
+    # ---- 13. the wavefront order (run inside the main-path phases above); 14. the north-star showcase
+    if len(ORDER) != 6 or len(ORDER_AB) != 6:
+        raise AssertionError(f"the order phase ran on {len(ORDER)} main paths and its A/B on {len(ORDER_AB)}, not 6")
+    showcase = phase_showcase(t_start)
+
     # ---- 11. results
     print(json.dumps({"hair_kajiya_kay": hair_kk}), flush=True)
     print(json.dumps({"main_path": main_cornell, "golden_ssim": ssim_cornell}), flush=True)
@@ -3033,6 +3432,11 @@ def main() -> int:
     print_kernel_lines(kitchen_rows, main_kitchen)
     for g in LAUNCH_GRAPH:
         print(json.dumps({"launch_graph": g}), flush=True)
+    for o in ORDER:
+        print(json.dumps({"order": o}), flush=True)
+    for o in ORDER_AB:
+        print(json.dumps({"order_ab": o}), flush=True)
+    print(json.dumps({"showcase": showcase}), flush=True)
     print(json.dumps({"entry_points": [{k: e[k] for k in ("entry_point", "wall_s", "ms_per_frame_after_first",
                                                           "mrays_per_s", "mrays_per_s_after_first")}
                                        for e in entry_items]}), flush=True)

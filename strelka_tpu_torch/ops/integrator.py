@@ -21,11 +21,13 @@ sample index, the ray's slot, the bounce and the lookup slot, so that the
 port draws the texels the JAX package draws. A scene without textures takes
 none of this.
 
-The port follows the JAX package's CPU path: row-major sample order,
-barycentrics from the intersector, prim ids in the
-scene's triangle order (BVH leaf order), the curve parameter u from the
-winning cone's axial root, no wavefront sort. Reference quirks kept for
-image parity:
+The port follows the JAX package's CPU path: barycentrics from the
+intersector, prim ids in the scene's triangle order (BVH leaf order), the
+curve parameter u from the winning cone's axial root. The wavefront's
+order is the reference's for the device: on the CPU row-major and
+unsorted, on the card its accelerator path's Z-order pixels and, on the
+larger scenes, the bounce sort (accelerated, sort_by_default). Reference
+quirks kept for image parity:
   * NEE radiance includes cos(N,L) AND the MDL-style evaluate() also folds
     cos in — the cosine is squared in next-event contributions (cu:306+586).
   * BSDF-hit emitter MIS uses the uniform-area rect pdf regardless of the
@@ -230,13 +232,17 @@ def tex_stochastic() -> bool:
     return True
 
 
-def tex_uniforms(sample_idx: torch.Tensor, depth: int):
+def tex_uniforms(sample_idx: torch.Tensor, ray_slot: torch.Tensor, depth: int):
     """The per-lane uniforms of the stochastic texture lookups at one
     bounce: slot -> 3 x [N] f32 (level pick, x pick, y pick). Murmur hashes
     keyed by (sample index, the ray's wavefront slot, bounce, lookup slot):
     decorrelated from the Sobol dimensions and bit-equal to the JAX
-    package's draws. The u32 product wraps at 2^32 (mul32)."""
-    rid = torch.arange(sample_idx.shape[0], dtype=torch.int64, device=sample_idx.device)
+    package's draws. ray_slot: [N] int, each lane's slot in the launch's
+    wavefront before any sort (trace_paths' ray_id; the lane index when
+    nothing is sorted). Under Z-order that slot is the pixel's Z-rank, so
+    the card draws other texels than the CPU path, as the reference's
+    accelerator path does. The u32 product wraps at 2^32 (mul32)."""
+    rid = ray_slot.to(torch.int64)
     seed = S.hash_combine(S.hash_u32(sample_idx), (S.mul32(rid, 2654435761) + depth) & S.M32)
 
     def to_f(u):
@@ -253,7 +259,7 @@ def tex_uniforms(sample_idx: torch.Tensor, depth: int):
 
 
 def shade_textures(scene: DeviceScene, mat: B.SurfaceParams, frame: B.ShadingFrame, mat_rows, uv, t_hit,
-                   cone_spread: float, sample_idx: torch.Tensor, depth: int):
+                   cone_spread: float, sample_idx: torch.Tensor, ray_slot: torch.Tensor, depth: int):
     """Texture lookups modulating material params + normal mapping, at one
     bounce (the tex_lookup path of the MDL runtime,
     texture_support_cuda.h:287-528): the diffuse texture replaces the
@@ -265,7 +271,8 @@ def shade_textures(scene: DeviceScene, mat: B.SurfaceParams, frame: B.ShadingFra
     are trilinear across the mip chain, the footprint the ray cone's at the
     hit (cone_spread * t_hit, t_hit the path length so far) with the prim's
     uv density and the uv transform's scale; one-texel stochastic by
-    default (tex_stochastic), its uniforms from tex_uniforms. Lookup slots
+    default (tex_stochastic), its uniforms from tex_uniforms (keyed by
+    ray_slot, the lanes' wavefront slots). Lookup slots
     are 0 diffuse, 1 roughness, 2 metallic, 3 normal, as in the JAX
     package; a column that no material row uses (scene.tex_columns) is not
     looked up, which changes no lane: its ids are all -1."""
@@ -278,7 +285,7 @@ def shade_textures(scene: DeviceScene, mat: B.SurfaceParams, frame: B.ShadingFra
     uv_scale = torch.clamp(torch.maximum(torch.abs(mat_rows[16]), torch.abs(mat_rows[17])), min=1e-8)
     lod_t = lod_uv + torch.log2(uv_scale)
     if tex_stochastic():
-        rnd = tex_uniforms(sample_idx, depth)
+        rnd = tex_uniforms(sample_idx, ray_slot, depth)
         tex = lambda tid, slot: sample_trilinear_stochastic(atlas, tid, uv_t, lod_t, rnd(slot))  # noqa: E731
     else:
         tex = lambda tid, slot: sample_trilinear(atlas, tid, uv_t, lod_t)  # noqa: E731
@@ -367,6 +374,148 @@ def _gather_light(scene: DeviceScene, light_id) -> LS.LightParams:
     return _light_from_rows(rows)
 
 
+# ---- the wavefront order of the reference's accelerator path
+# (strelka_tpu/ops/integrator.py:371-563 and render_launch :1044-1067): pixels
+# in Z-order, and from bounce 1 on the whole wavefront sorted by a
+# position-Morton / direction-octant key, so that the rays a warp or a ray
+# tile holds lie close together. Neither changes an untextured image; a
+# textured one draws its stochastic texels by wavefront slot (tex_uniforms).
+
+SORT_MIN_TRIANGLES = 16384  # the reference's rule (:1062-1067): sort where the
+SORT_MIN_CURVE_SEGMENTS = 2048  # culled intersectors have blocks enough to matter
+
+
+def accelerated(scene: DeviceScene) -> bool:
+    """Whether a launch takes the reference's accelerator-path wavefront
+    order (its scene.use_pallas): the scene is on a CUDA device. The CPU
+    keeps the CPU reference's row-major, unsorted order."""
+    return scene.device.type == "cuda"
+
+
+def sort_by_default(scene: DeviceScene) -> bool:
+    """render_launch's sort_rays=None: sort on the accelerator path where the
+    scene has SORT_MIN_TRIANGLES triangles or SORT_MIN_CURVE_SEGMENTS curve
+    segments (box_field, kitchen and hair_long do; Cornell, coffeetable and
+    hair_patch do not)."""
+    return accelerated(scene) and (scene.num_triangles >= SORT_MIN_TRIANGLES
+                                   or scene.num_curve_segments >= SORT_MIN_CURVE_SEGMENTS)
+
+
+# (width, height, device) -> (zorder int64, inverse int32) on the device. Built
+# at a size's first (eager) launch and kept, so that a captured launch finds
+# them and its graph's addresses stay valid.
+_ZORDER_ON_DEVICE: dict = {}
+
+
+def _part1by1(v: torch.Tensor) -> torch.Tensor:
+    """The low 16 bits of v (int64) spread to every other bit."""
+    v = v & 0xFFFF
+    v = (v | (v << 8)) & 0x00FF00FF
+    v = (v | (v << 4)) & 0x0F0F0F0F
+    v = (v | (v << 2)) & 0x33333333
+    return (v | (v << 1)) & 0x55555555
+
+
+def pixel_zorder(width: int, height: int, device) -> tuple:
+    """The reference's _pixel_zorder on `device`: (zorder [n] int64, inv [n]
+    int32), zorder[k] the linear index of the k-th pixel in Z-order (Morton
+    order of (x, y), any size), inv[p] the rank of pixel p. Built by device
+    ops (the Morton codes are distinct, so their sort is the reference's
+    stable argsort): no tensor crosses from the host, which a row band's
+    launch may not do. Cached per size and device."""
+    device = torch.device(device)
+    key = (width, height, str(device))
+    tables = _ZORDER_ON_DEVICE.get(key)
+    if tables is None:
+        yy, xx = torch.meshgrid(torch.arange(height, device=device), torch.arange(width, device=device),
+                                indexing="ij")
+        code = (_part1by1(xx) | (_part1by1(yy) << 1)).reshape(-1)
+        zorder = torch.sort(code, stable=True).indices
+        n = width * height
+        inv = torch.empty(n, dtype=torch.int32, device=device).scatter_(
+            0, zorder, torch.arange(n, dtype=torch.int32, device=device))
+        tables = (zorder, inv)
+        _ZORDER_ON_DEVICE[key] = tables
+    return tables
+
+
+def _spread3(v: torch.Tensor) -> torch.Tensor:
+    """The low 10 bits of v (int64) spread to every third bit (Morton)."""
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def _ray_sort_key(scene: DeviceScene, position: Vec3, direction: Vec3) -> torch.Tensor:
+    """The reference's default sort key, (morton << 3) | octant, int32 (at
+    most 27 bits): the ray origin's 24-bit Morton code over the scene's
+    world bounds (8 bits an axis, clip((c - lo) / ext, 0, 1) * 255 in f32
+    with ext = max(hi - lo, 1e-9) and 1/ext taken in Python, as the
+    reference's weak-typed scalars round them) and the direction octant in
+    the low 3 bits. A NaN coordinate quantises to 0, as XLA converts it."""
+
+    def q(c, lo_c, hi_c):
+        ext = max(hi_c - lo_c, 1e-9)
+        x = torch.clamp((c - float(np.float32(lo_c))) * float(np.float32(1.0 / ext)), 0.0, 1.0)
+        x = torch.where(torch.isnan(x), 0.0, x)
+        return (x * 255.0).to(torch.int64)
+
+    lo, hi = scene.world_lo, scene.world_hi
+    mx = _spread3(q(position.x, lo[0], hi[0]))
+    my = _spread3(q(position.y, lo[1], hi[1]))
+    mz = _spread3(q(position.z, lo[2], hi[2]))
+    morton = mx | (my << 1) | (mz << 2)
+    return ((morton << 3) | V.octant(direction)).to(torch.int32)
+
+
+DEAD_KEY = 0x7FFFFFFF  # above every live key (< 2^27): dead lanes go to the tail
+
+
+def _sort_wavefront(scene: DeviceScene, origin: Vec3, direction: Vec3, alive, f32_cols, bit_cols):
+    """The whole wavefront reordered by _ray_sort_key, dead lanes last (the
+    reference gives them 0xFFFFFFFF; any key above the live ones sorts the
+    same): a stable sort of int32 keys, the counterpart of the reference's
+    jnp.argsort outside any kernel, then _permute_packed. Returns the
+    permuted columns."""
+    key = torch.where(alive, _ray_sort_key(scene, origin, direction), DEAD_KEY)
+    perm = torch.sort(key, stable=True).indices.to(torch.int32)
+    return _permute_packed(perm, f32_cols, bit_cols)
+
+
+def _as_i32(c: torch.Tensor) -> torch.Tensor:
+    """A state column as int32 words: f32 by its bits, bool as 0/1, an int64
+    column of u32 values by its low 32 bits."""
+    if c.dtype == torch.float32:
+        return c.view(torch.int32)
+    return c.to(torch.int32)
+
+
+def _from_i32(r: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if like.dtype == torch.float32:
+        return r.view(torch.float32)
+    if like.dtype == torch.bool:
+        return r != 0
+    if like.dtype == torch.int64:
+        return r.to(torch.int64) & S.M32
+    return r.to(like.dtype)
+
+
+def _permute_packed(perm: torch.Tensor, f32_cols, bit_cols):
+    """Many [N] state columns permuted by one row gather with transpose,
+    table[perm].T: the columns stacked as an [N, F] int32 table, which
+    kernel K4 copies as f32 words (bits only, no arithmetic: int values
+    under 2^23, which are f32 subnormals, and NaN patterns pass unchanged)
+    and the plain version gathers on the CPU. perm: [N] int32. Returns
+    (f32 columns, other columns), each in its own dtype."""
+    cols = list(f32_cols) + list(bit_cols)
+    table = torch.stack([_as_i32(c) for c in cols], dim=1)
+    rows = V.gather_rows_t(table.view(torch.float32), perm).view(torch.int32)
+    out = [_from_i32(rows[i], c) for i, c in enumerate(cols)]
+    return out[:len(f32_cols)], out[len(f32_cols):]
+
+
 def trace_paths(
     scene: DeviceScene,
     params: LaunchParams,
@@ -381,9 +530,17 @@ def trace_paths(
     debug: int,
     depth0_dims: torch.Tensor,
     cone_spread,
+    sort_rays: bool = False,
     collect_stats: bool = False,
 ):
     """One path per entry -> (radiance Vec3, first_event [N], stats).
+
+    sort_rays: from bounce 1 on, reorder the whole wavefront by the
+    position-Morton / direction-octant key before each bounce (one sort, one
+    packed [N, 21] permute through K4), as the reference's accelerator path
+    does; radiance and first_event come back in the entries' order (one
+    [N, 4] permute). Each ray keeps its wavefront slot (ray_id), which keys
+    its texture uniforms.
 
     cone_spread: the ray cone's spread angle a unit of path length (an f32
     value or a 0-d f32 tensor, ray_cone_spread), which sizes a textured
@@ -421,9 +578,24 @@ def trace_paths(
     enable_hair = has_curves or scene.has_hair
     # ray-cone mip selection: the accumulated path length (footprint =
     # cone_spread * t_total at the hit)
-    t_total = torch.zeros(n, dtype=torch.float32, device=dev) if scene.textures is not None else None
+    t_total = torch.zeros(n, dtype=torch.float32, device=dev)
+    # each lane's wavefront slot before any sort: the identity until sorted
+    ray_id = torch.arange(n, dtype=torch.int32, device=dev)
+    sorted_once = False
 
     for depth in range(max_depth):
+        if sort_rays and depth >= 1:
+            f32s, bits = _sort_wavefront(
+                scene, origin, direction, alive,
+                [origin.x, origin.y, origin.z, direction.x, direction.y, direction.z,
+                 radiance.x, radiance.y, radiance.z, throughput.x, throughput.y, throughput.z,
+                 last_bsdf_pdf, t_total],
+                [sample_idx, first_event, prev_prim, inside, specular_bounce, alive, ray_id])
+            origin, direction = Vec3(*f32s[0:3]), Vec3(*f32s[3:6])
+            radiance, throughput = Vec3(*f32s[6:9]), Vec3(*f32s[9:12])
+            last_bsdf_pdf, t_total = f32s[12], f32s[13]
+            sample_idx, first_event, prev_prim, inside, specular_bounce, alive, ray_id = bits
+            sorted_once = True
         # the 5 folded Sobol dimensions of this bounce in one draw (K1);
         # dimension = Dim % 5, so eBSDF2 and eLightId share dim 2, as in
         # the reference (RandomSampler.h:224)
@@ -474,7 +646,8 @@ def trace_paths(
             # advance the ray cone to this hit (a curve hit by its cone t)
             t_eff = torch.where(is_curve, chit.t, hit.t) if has_curves else hit.t
             t_hit = t_total + torch.where(alive & ~missed, t_eff, 0.0)
-            mat, frame = shade_textures(scene, mat, frame, mat_rows, uv, t_hit, cone_spread, sample_idx, depth)
+            mat, frame = shade_textures(scene, mat, frame, mat_rows, uv, t_hit, cone_spread, sample_idx, ray_id,
+                                        depth)
             t_total = t_hit
         if has_curves:
             position, frame, mat = curve_surface(scene, chit, is_curve, origin, direction, inside, position, frame,
@@ -594,6 +767,13 @@ def trace_paths(
             alive = alive & ~kill_rr
         alive = alive & (V.dot(throughput, throughput) >= 1e-5)
 
+    if sorted_once:
+        # back to the entries' order: one scatter builds the inverse
+        # permutation, then one packed row gather
+        inv = torch.empty(n, dtype=torch.int32, device=dev).scatter_(
+            0, ray_id.to(torch.int64), torch.arange(n, dtype=torch.int32, device=dev))
+        f32s, bits = _permute_packed(inv, [radiance.x, radiance.y, radiance.z], [first_event])
+        radiance, first_event = Vec3(*f32s), bits[0]
     stats = None
     if collect_stats:
         zero = torch.zeros_like(stat_closest)
@@ -628,6 +808,7 @@ def render_launch(
     shadow_ray_tmin: float = 0.0,
     material_ray_tmin: float = 0.0,
     debug: int = 0,
+    sort_rays: bool | None = None,
     py_offset: int | None = None,
     full_height: int | None = None,
     collect_stats: bool = False,
@@ -637,19 +818,35 @@ def render_launch(
 
     Runs on the scene's device. Tonemapping is the Render layer's job.
 
+    The wavefront's order is the reference's (:1044-1067). On the
+    accelerator path (accelerated: the scene is on a CUDA device) pixels go
+    in Z-order unless STRELKA_NO_ZORDER=1, read at each launch (a captured
+    launch keeps the order of its capture), and the per-pixel results come
+    back to row-major order in one packed [n, 11] permute; sort_rays=None
+    sorts the bounces there by sort_by_default. On the CPU both stay off
+    unless sort_rays=True. Neither changes an untextured image.
+
     py_offset/full_height: a row band (parallel/sharding.py) renders the
     [height, width] band of a [full_height, width] frame whose top row is
     global row py_offset. The global row feeds the Sobol seed and the camera
     NDC, so the bands of a frame equal the whole launch bit for bit; state
-    and image stay band-local."""
+    and image stay band-local, and so do the Z-order and the sort (a
+    textured scene's bands key their texels by band-local slots, as in the
+    reference)."""
     dev = scene.device
     n = width * height
     spl = 1 if debug == 1 else samples_per_launch
     fh = height if full_height is None else full_height
 
     # all samples of the launch ride ONE wavefront of spl*W*H rays, pixels
-    # in row-major order (the CPU reference's order)
-    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    # in Z-order on the accelerator path (a ray tile is a square screen
+    # block, not a thin strip) and row-major on the CPU reference's
+    zorder = None
+    if accelerated(scene) and os.environ.get("STRELKA_NO_ZORDER") != "1":
+        zorder, z_inv = pixel_zorder(width, height, dev)
+        idx = zorder
+    else:
+        idx = torch.arange(n, dtype=torch.int64, device=dev)
     px = (idx % width).repeat(spl)
     py = (idx // width).repeat(spl)
     if py_offset is not None:
@@ -672,6 +869,7 @@ def render_launch(
         debug=debug,
         depth0_dims=dims0,
         cone_spread=ray_cone_spread(params, fh) if params.cone_spread is None else params.cone_spread,
+        sort_rays=sort_by_default(scene) if sort_rays is None else sort_rays,
         collect_stats=collect_stats,
     )
     # [spl*n] components -> [spl, n] -> reduce over samples
@@ -684,6 +882,11 @@ def render_launch(
     ssum = Vec3(*[torch.where(is_s, c, 0.0).sum(0) for c in rad])
     dcount = is_d.to(torch.int32).sum(0, dtype=torch.int32)
     scount = is_s.to(torch.int32).sum(0, dtype=torch.int32)
+    if zorder is not None:
+        # back to row-major pixel order: one packed [n, 11] row gather
+        f32s, bits = _permute_packed(z_inv, [*result, *dsum, *ssum], [dcount, scount])
+        result, dsum, ssum = Vec3(*f32s[0:3]), Vec3(*f32s[3:6]), Vec3(*f32s[6:9])
+        dcount, scount = bits
 
     img = lambda v: torch.stack([v.x, v.y, v.z]).reshape(3, height, width)  # noqa: E731
     result_img = img(result * (1.0 / spl))

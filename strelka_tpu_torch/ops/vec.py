@@ -139,6 +139,14 @@ def any_nonzero(a: Vec3):
     return (a.x != 0.0) | (a.y != 0.0) | (a.z != 0.0)
 
 
+def octant(d: Vec3) -> torch.Tensor:
+    """Direction octant id [0, 8) as int32: bit c set iff component c is
+    positive (ops/vec.py:octant of the JAX package; the low 3 bits of the
+    wavefront sort key)."""
+    return ((d.x > 0).to(torch.int32) | ((d.y > 0).to(torch.int32) << 1)
+            | ((d.z > 0).to(torch.int32) << 2))
+
+
 def luminance(a: Vec3):
     """Rec601 luma (Tonemappers.cu:6-9 weights)."""
     return 0.299 * a.x + 0.587 * a.y + 0.114 * a.z

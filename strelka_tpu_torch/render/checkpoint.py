@@ -41,3 +41,11 @@ def load_checkpoint(path: str, device) -> Tuple[FrameState, int]:
         subframe = int(data["subframe_index"])
     log.info("Checkpoint loaded: {} ({} spp)", path, subframe)
     return frame_state_from_arrays(fields, torch.device(device)), subframe
+
+
+def load_meta(path: str) -> dict:
+    """The meta_<key> entries of a checkpoint by key: a 0-d entry as its
+    Python value (a number, a string), any other as a list."""
+    with np.load(path) as data:
+        return {k[len("meta_"):]: (data[k].item() if data[k].ndim == 0 else data[k].tolist())
+                for k in data.files if k.startswith("meta_")}

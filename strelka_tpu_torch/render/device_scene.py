@@ -127,6 +127,11 @@ class DeviceScene:
     # which of the material rows' texture columns (12 diffuse, 13 normal,
     # 14 roughness, 15 metallic) name a texture in any row
     tex_columns: tuple = ()
+    # the triangle points' bounds (Python floats), which quantise the
+    # wavefront sort key's position Morton code; (0,0,0)-(1,1,1) without
+    # triangles. Curve points outside them clip, as in the reference.
+    world_lo: tuple = (0.0, 0.0, 0.0)
+    world_hi: tuple = (1.0, 1.0, 1.0)
 
     @property
     def device(self) -> torch.device:
@@ -367,6 +372,13 @@ def build_device_scene(
     attr[:, ATTR_LIGHT] = light_id
     attr[:, ATTR_MASK] = geom_mask
 
+    if num_tri > 0:
+        pts = cat["p"].reshape(-1, 3)
+        world_lo = tuple(float(x) for x in pts.min(axis=0))
+        world_hi = tuple(float(x) for x in pts.max(axis=0))
+    else:
+        world_lo, world_hi = (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)
+
     mat_np = _mat_table(table)
     light_np = _light_table(scene)
     mj = np.clip(material_id.astype(np.int64), 0, mat_np.shape[0] - 1)
@@ -404,6 +416,8 @@ def build_device_scene(
         "num_lights": len(scene.lights),
         "num_triangles": num_tri,
         "textures": atlas,
+        "world_lo": world_lo,
+        "world_hi": world_hi,
         **bvh_arrays,
         **curve_arrays,
     }
@@ -431,7 +445,10 @@ def device_scene_from_arrays(arrays: dict, device) -> DeviceScene:
     (default True, the reference's) says that the cones' radii are inflated
     and the hits are to be refined. `textures`, if present, is the texture
     atlas: a TextureAtlas, or a dict with its `data`, `rects`, `size` and
-    `meta` (the JAX atlas converted field by field)."""
+    `meta` (the JAX atlas converted field by field). `world_lo` and
+    `world_hi` (three floats each) are the triangle points' bounds; without
+    them the scene takes the unit box, as a JAX DeviceScene built without
+    triangles does."""
     device = torch.device(device)
     at = np.asarray(arrays["attr_table"], np.float32)
     if at.shape[1] != ATTR_JOINED:
@@ -479,6 +496,8 @@ def device_scene_from_arrays(arrays: dict, device) -> DeviceScene:
         light_table=f32("light_table"),
         num_lights=int(arrays["num_lights"]),
         num_triangles=int(arrays["num_triangles"]),
+        **{k: tuple(float(x) for x in np.asarray(arrays[k]).ravel()) for k in ("world_lo", "world_hi")
+           if not _is_none(arrays.get(k))},
     )
 
 

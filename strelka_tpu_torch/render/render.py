@@ -433,13 +433,14 @@ class TorchRender(Render):
 
     # ---- checkpoint/resume of the progressive accumulator (render/checkpoint.py)
 
-    def save_checkpoint(self, path: str) -> None:
-        """Persist the progressive accumulator (checkpoint/resume parity)."""
+    def save_checkpoint(self, path: str, meta: Optional[dict] = None) -> None:
+        """Persist the progressive accumulator (checkpoint/resume parity);
+        `meta` goes into the file as meta_<key> arrays."""
         from strelka_tpu_torch.render.checkpoint import save_checkpoint
 
         if self._state is None:
             raise RuntimeError("nothing rendered yet")
-        save_checkpoint(path, self._frame_state(), self._ctx.subframe_index)
+        save_checkpoint(path, self._frame_state(), self._ctx.subframe_index, meta=meta)
 
     def load_checkpoint(self, path: str) -> None:
         from strelka_tpu_torch.render.checkpoint import load_checkpoint

@@ -297,6 +297,20 @@ class HostReads(TorchDispatchMode):
 
 @pytest.mark.parametrize("name", list(SCENES))
 def test_no_host_read_inside_a_launch(name, monkeypatch):
+    _check_no_host_read(name, monkeypatch)
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_no_host_read_inside_an_ordered_launch(name, monkeypatch):
+    """The card's wavefront order (Z-order pixels, the bounce sort, the
+    packed permutes), forced on the CPU, reads nothing on the host either:
+    a captured launch takes it as it is."""
+    monkeypatch.delenv("STRELKA_NO_ZORDER", raising=False)
+    monkeypatch.setattr(I, "accelerated", lambda scene: True)
+    _check_no_host_read(name, monkeypatch, sort_rays=True)
+
+
+def _check_no_host_read(name, monkeypatch, **launch_kw):
     host, scene = _scene(name)
     mode = HostReads()
     ran = []
@@ -318,7 +332,7 @@ def test_no_host_read_inside_a_launch(name, monkeypatch):
     params = _buffer_params(_host_params(host, 2))
     with mode:
         I.render_launch(scene, params, state, width=W, height=H, samples_per_launch=2, max_sample_count=64,
-                        max_depth=DEPTH, enable_accumulation=True)
+                        max_depth=DEPTH, enable_accumulation=True, **launch_kw)
     assert ran, "no plain kernel version ran"
     assert mode.reads == [], f"{name}: host reads inside the launch: {mode.reads}"
     # the recorder sees a read outside the plain versions

@@ -289,7 +289,7 @@ def test_tex_uniforms_match_jax(depth):
     rng = np.random.default_rng(depth)
     idx = rng.integers(0, 2**32, N, dtype=np.uint64).astype(np.uint32)
     idx[:4] = (0, 1, 2**31, 2**32 - 1)
-    rnd = TI.tex_uniforms(torch.tensor(idx.astype(np.int64)), depth)
+    rnd = TI.tex_uniforms(torch.tensor(idx.astype(np.int64)), torch.arange(N, dtype=torch.int32), depth)
     for slot in range(4):
         for k, (t, j) in enumerate(zip(rnd(slot), _jax_tex_rnd(jnp.asarray(idx), depth, slot))):
             assert t.dtype == torch.float32
