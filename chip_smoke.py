@@ -896,12 +896,12 @@ def grazing_scene(tris, dev):
     import torch
 
     from strelka_tpu_torch.kernels import intersect as KI
-    from strelka_tpu_torch.ops.bvh import device_bvh, timed_build
+    from strelka_tpu_torch.ops.bvh import build_threaded, device_bvh
 
     t = lambda a: torch.tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731
     flat = types.SimpleNamespace(v0=t(tris[0]), e1=t(tris[1]), e2=t(tris[2]), geom_mask=t(tris[3]),
                                  tri_bounds=t(KI.tri_group_bounds(*tris)), device=dev)
-    threaded, perm, _, _ = timed_build(*tris[:3])
+    threaded, perm, _ = build_threaded(*tris[:3])
     leaf = [t(a[perm]) for a in tris]
     tree = types.SimpleNamespace(v0=leaf[0], e1=leaf[1], e2=leaf[2], geom_mask=leaf[3],
                                  bvh=device_bvh(threaded, dev), device=dev)
@@ -1122,6 +1122,7 @@ def phase_main_path(scene, host, cfg: Config):
 
     from strelka_tpu_torch import kernels as K
     from strelka_tpu_torch.ops import integrator as I
+    from strelka_tpu_torch.utils import profiling as P
 
     dev = scene.device
     kw = main_path_kw(cfg)
@@ -1154,10 +1155,15 @@ def phase_main_path(scene, host, cfg: Config):
     if img.shape != (3, h, w) or not np.isfinite(img).all():
         raise AssertionError(f"{cfg.name} main-path image is {img.shape} with non-finite values")
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    # alive-ray accounting: one instrumented launch, same config
-    _, _, stats = I.render_launch(scene, launch_params(host, w, h, launches * cfg.spp), state,
-                                  collect_stats=True, **kw)
-    alive = float(stats["closest_rays"]) + float(stats["shadow_rays"])
+    # alive-ray accounting: one launch, same config, with the recorder's lane counters on
+    P.collect()
+    P.enable()
+    try:
+        I.render_launch(scene, launch_params(host, w, h, launches * cfg.spp), state, **kw)
+    finally:
+        P.disable()
+    lanes = P.collect()["lanes"]
+    alive = float(sum(lanes["alive"]) + sum(lanes["shadow"]))
     padded = w * h * cfg.spp * 2 * cfg.depth
     result = dict(
         scene=cfg.name,
@@ -1516,7 +1522,7 @@ def phase_flat_scene(dev):
         raise AssertionError("use_bvh=False must keep the scene flat and the default must build a BVH")
     ntri = flat.v0.shape[0]
     log(f"box_field(grid={FLAT_GRID}): {flat.num_triangles} triangles ({ntri} padded), BVH of "
-        f"{tree.bvh.num_nodes} nodes ({tree.bvh.builder} builder, {tree.bvh.build_seconds:.2f} s), "
+        f"{tree.bvh.num_nodes} nodes ({tree.bvh.builder} builder, {setup_seconds('bvh.build'):.2f} s), "
         f"{tree.bvh.depth} internal nodes deep")
     params = launch_params(host, BOX.width, BOX.height, 0)
 
@@ -1993,13 +1999,14 @@ def phase_kitchen(dev, t_start):
     t0 = time.perf_counter()
     scene = build_device_scene(host, device=dev)
     build_s = time.perf_counter() - t0
+    build_span = setup_span("bvh.build")
     atlas = scene.textures
     log(f"kitchen: {os.path.relpath(path, REPO)} loaded in {load_s:.3f} s (crate codec: "
         f"{'native' if native_codec else 'Python'}); device tables in {build_s:.2f} s: {scene.num_triangles} "
         f"triangles ({scene.v0.shape[0]} padded), {scene.num_lights} lights, {scene.mat_table.shape[0]} material "
         f"rows, texture columns {scene.tex_columns}, atlas {tuple(atlas.data.shape)} {atlas.data.dtype} with "
         f"{atlas.rects.shape[0]} rects; BVH of {scene.bvh.num_nodes} nodes ({scene.bvh.builder} builder, "
-        f"{scene.bvh.build_seconds:.2f} s), {scene.bvh.depth} internal nodes deep (K5's and K6's stack holds {STACK})")
+        f"{setup_seconds('bvh.build'):.2f} s), {scene.bvh.depth} internal nodes deep (K5's and K6's stack holds {STACK})")
     if scene.bvh is None or atlas is None or scene.num_triangles != 105168 or scene.num_lights != 4:
         raise AssertionError("kitchen must build on a BVH with a texture atlas: 105,168 triangles, 4 lights")
     params = launch_params(host, KITCHEN.width, KITCHEN.height, 0)
@@ -2024,7 +2031,8 @@ def phase_kitchen(dev, t_start):
     main = phase_main_path(scene, host, KITCHEN)
     main.update(load_seconds=load_s, native_crate_codec=native_codec, device_tables_seconds=build_s,
                 bvh_nodes=scene.bvh.num_nodes, bvh_depth=scene.bvh.depth, bvh_builder=scene.bvh.builder,
-                bvh_build_seconds=scene.bvh.build_seconds, atlas_shape=list(atlas.data.shape), regenerated=regen)
+                bvh_build_seconds=setup_seconds("bvh.build", build_span), atlas_shape=list(atlas.data.shape),
+                regenerated=regen)
     phase_launch_graph(scene, host, KITCHEN)
     phase_order_ab(scene, host, KITCHEN)
     log(f"[{time.perf_counter() - t_start:.0f} s] kitchen phases done")
@@ -2237,6 +2245,19 @@ def check_launches(run_counts: dict, shapes: dict, kernels: tuple, what: str) ->
     if missing or unheld:
         raise AssertionError(f"{what}: kernels not launched {missing}; launched at shapes not held against their "
                              f"plain versions {unheld}")
+
+
+def setup_span(name: str) -> dict:
+    """The newest of the recorder's set-up spans of that name (utils/profiling.py)."""
+    from strelka_tpu_torch.utils import profiling as P
+
+    return [s for s in P.setup_spans() if s["name"] == name][-1]
+
+
+def setup_seconds(name: str, span=None) -> float:
+    """The seconds of a set-up span: `span`, else the newest of that name."""
+    span = span or setup_span(name)
+    return (span["end_ns"] - span["start_ns"]) / 1e9
 
 
 def card_name_and_power_limit() -> str:
@@ -2654,7 +2675,7 @@ def phase_entry_points(dev, t_start):
         counted(run, BOX.kernels, "4. CLI on box_field.glb")
         img4 = png_u8(png4)
         load_s = float(re.search(r"Scene loaded in ([0-9.]+)s", run.log).group(1))
-        bvh_s = float(re.search(r"BVH built: .*, ([0-9.]+) s\)", run.log).group(1))
+        bvh_s = setup_seconds("bvh.build")  # the CLI's build, in this process
         log(f"4. CLI on box_field.glb ({os.path.getsize(glb)} bytes, {written} triangles written in {write_s:.2f} s): "
             f"loaded in {load_s:.3f} s, BVH built in {bvh_s:.2f} s; K5 {run.counts['bvh_closest']} and K6 "
             f"{run.counts['bvh_any']} launches; PNG mean {img4.mean():.3f}")
@@ -3124,19 +3145,6 @@ def profile_launches(fn, n: int) -> dict:
                 device_idle_share=(1.0 - busy / window) if window > 0 else None)
 
 
-def graph_nodes(graph) -> int:
-    """The node count of a GraphLaunch's graph (cuGraphGetNodes on the
-    cudaGraph_t it keeps)."""
-    import ctypes
-
-    count = ctypes.c_size_t(0)
-    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
-                                                     ctypes.byref(count))
-    if rc != 0:
-        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {rc}")
-    return count.value
-
-
 def phase_launch_graph(scene, host, cfg: Config):
     """Phase 10 on one main path: TorchRender's launch cache (one CUDA graph
     a config key) against render_launch run eagerly. (1) One eager launch
@@ -3163,8 +3171,10 @@ def phase_launch_graph(scene, host, cfg: Config):
     from strelka_tpu_torch.render import render as R
     from strelka_tpu_torch.render.buffer import BufferDesc, BufferFormat
     from strelka_tpu_torch.settings import SharedContext, make_default_settings
+    from strelka_tpu_torch.utils import profiling as P
 
     t_phase = time.perf_counter()
+    setup_before = time.time_ns()  # the recorder's set-up spans from here on are this phase's
     dev = scene.device
     w, h, spp = cfg.width, cfg.height, cfg.spp
     kw = main_path_kw(cfg)
@@ -3284,9 +3294,10 @@ def phase_launch_graph(scene, host, cfg: Config):
         sync_debug_mode_error="no sync", frames=frames, values_off=values_off,
         launch_counts_equal=True,
         launches_per_render_launch={k: v / len(frames) for k, v in launches.items()},
-        graph_nodes=graph_nodes(main_entry.graph),
+        graph_nodes=P.counters()["graph.nodes"][main_entry.key],
         eager_ms_per_launch=eager_ms, graph_ms_per_launch=replay_ms, turns=turns,
-        capture_seconds=[g.capture_seconds for g in graphs + [main_entry]],
+        capture_seconds=[setup_seconds("launch.capture", s) for s in P.setup_spans()
+                         if s["name"] == "launch.capture" and s["start_ns"] >= setup_before],
         peak_device_memory_mb=peak_mb, reserved_device_memory_mb=reserved_mb,
         graph_profile=prof_graph, eager_profile=prof_eager, card=card_name_and_power_limit(),
         phase_seconds=time.perf_counter() - t_phase,
@@ -3337,10 +3348,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    from strelka_tpu_torch import kernels as K
     from strelka_tpu_torch.kernels import build
     from strelka_tpu_torch.render.device_scene import build_device_scene
     from strelka_tpu_torch.scene import testscenes as TS
+    from strelka_tpu_torch.utils import profiling as P
 
+    K.count_replays = True  # the phases read launch_counts after graph replays
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -3351,7 +3365,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {'ran' if build.Built.seconds is not None else 'skipped: cached build'})")
+        f"(nvcc {'ran' if P.counters().get('kernels.built') else 'skipped: cached build'})")
     for line in build.ptxas_report().splitlines():
         if "registers" in line or "==" in line or "error" in line.lower():
             log("  " + line.strip())
@@ -3375,14 +3389,15 @@ def main() -> int:
     # ---- 4. box_field on the BVH: kernels K5/K6, golden, main path
     box_host = TS.box_field(grid=BOX_GRID)
     box = build_device_scene(box_host, device=dev)
+    box_build_span = setup_span("bvh.build")
     log(f"box_field(grid={BOX_GRID}): {box.num_triangles} triangles ({box.v0.shape[0]} padded), BVH of "
-        f"{box.bvh.num_nodes} nodes built by the {box.bvh.builder} builder in {box.bvh.build_seconds:.2f} s")
+        f"{box.bvh.num_nodes} nodes built by the {box.bvh.builder} builder in {setup_seconds('bvh.build'):.2f} s")
     box_rows, box_differ = phase_box_kernels(box, launch_params(box_host, BOX.width, BOX.height, 0))
     ssim_box = phase_golden(TS.box_field(grid=BOX_GRID), dev, "box_field_golden.png", BOX.kernels)
     box_rows += phase_order(box, box_host, BOX)
     main_box = phase_main_path(box, box_host, BOX)
     main_box.update(bvh_nodes=box.bvh.num_nodes, bvh_builder=box.bvh.builder,
-                    bvh_build_seconds=box.bvh.build_seconds)
+                    bvh_build_seconds=setup_seconds("bvh.build", box_build_span))
     phase_launch_graph(box, box_host, BOX)
     phase_order_ab(box, box_host, BOX)
     log(f"[{time.perf_counter() - t_start:.0f} s] box_field(grid={BOX_GRID}) phases done")

@@ -82,7 +82,7 @@ def main() -> int:
         tally["lanes"] += int(tmin.shape[0])
         tally["hits"] += int(won.sum())
         tally["hits_outside"] += int(outside.sum())
-        threaded, perm, _, _ = TB.timed_build(*tris[:3])
+        threaded, perm, _ = TB.build_threaded(*tris[:3])
         tree = TB.device_bvh(threaded, "cpu")
         leaf = tuple(_t(a[perm]) for a in tris)
         dense_leaf = KI.closest_plain(*flat[:5], *leaf, MASK)

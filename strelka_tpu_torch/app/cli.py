@@ -82,7 +82,8 @@ def main(argv=None) -> int:
     parser.add_argument("--resume", default="", help="resume accumulation from a checkpoint")
     parser.add_argument("--upscale", type=float, default=0.0, help="render at FACTOR res, upscale to output")
     parser.add_argument("--play-animation", action="store_true", help="advance scene animation per frame")
-    parser.add_argument("--profile", default="", help="capture a torch.profiler trace into this dir")
+    parser.add_argument("--profile", default="", help="capture a torch.profiler trace and the program's spans "
+                        "(spans.json) into this dir")
     args = parser.parse_args(argv)
 
     try:
@@ -128,16 +129,21 @@ def main(argv=None) -> int:
     if args.resume:
         render.load_checkpoint(args.resume)
 
-    from strelka_tpu_torch.utils.profiling import FrameStats, device_trace
+    from strelka_tpu_torch import kernels
+    from strelka_tpu_torch.utils import profiling
 
+    kernels.count_replays = True  # the "Kernel launches" line counts the graphs' replays too
+    if args.profile:
+        profiling.enable()
     anim_time = scene.animations[0].start if (args.play_animation and scene.animations) else 0.0
     iteration = 0
-    stats = FrameStats()
+    stats = profiling.FrameStats()
     start_total = time.perf_counter()
     import contextlib
 
-    trace_cm = device_trace(args.profile) if args.profile else contextlib.nullcontext()
-    with trace_cm:
+    trace_cm = profiling.device_trace(args.profile) if args.profile else contextlib.nullcontext()
+    per_frame = []  # each frame's device ms by span name, with the recorder on
+    with trace_cm as run_dir:
         while True:
             t0 = time.perf_counter()
             if args.play_animation and scene.animations:
@@ -147,6 +153,8 @@ def main(argv=None) -> int:
             render.render(buf)
             img = buf.map()
             dt = time.perf_counter() - t0
+            if args.profile:
+                per_frame.append(profiling.device_ms(profiling.collect()["device"]))
             rays = args.width * args.height * max(ctx.subframe_index - spp_before, 0) * 2 * args.depth
             stats.add_frame(dt, rays)
             # title-bar equivalent (app/main.cpp:399-403)
@@ -164,14 +172,17 @@ def main(argv=None) -> int:
         total,
         stats.mrays_per_sec,
     )
-    from strelka_tpu_torch import kernels
-
     log.info("Kernel launches: {}", json.dumps(kernels.launch_counts, sort_keys=True))
     if args.profile:
-        from strelka_tpu_torch.utils.profiling import summarize_trace
-
-        for name, ms in summarize_trace(args.profile, top=10):
+        profiling.disable()
+        for name, ms in profiling.summarize_trace(args.profile, top=10):
             log.info("profile: {:.2f}ms {}", ms, name)
+        spans = profiling.export()
+        spans["per_frame"] = per_frame
+        with open(os.path.join(run_dir, profiling.SPANS_NAME), "w") as f:
+            json.dump(spans, f, indent=1)
+        for name, ms in sorted(spans["device_ms"].items(), key=lambda kv: -kv[1]):
+            log.info("span: {:.3f}ms a frame {}", ms, name)
 
     if args.checkpoint:
         render.save_checkpoint(args.checkpoint)

@@ -13,8 +13,11 @@ plain version on CUDA tensors, which only a comparison against the kernel
 makes (the main path never does). All are reset with `reset_counts()`.
 
 A CUDA graph replays its kernels without the wrappers' host code, so a
-capture takes what it counted (`take_counts`) and each replay adds it back
-(`add_counts`): the counts stay those of the kernels that ran.
+capture takes what it counted (`take_counts`) and, where `count_replays` is
+set, each replay adds it back (`add_counts`): the counts then stay those of
+the kernels that ran. A caller that reads the counts after replays sets it
+(the CLI for its log line, chip_smoke.py); unset, a replay runs no Python
+loop over the counts.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ KERNEL_NAMES = ("sobol", "intersect_closest", "intersect_any", "gather_rows_t", 
                 "cone_closest", "cone_any", "open_w")
 
 launch_counts = {name: 0 for name in KERNEL_NAMES}
+count_replays = False  # whether a graph's replay adds its kernels to the counts
 launch_shapes: dict = {}  # (name, shape tuple) -> launches
 plain_cuda_calls = {name: 0 for name in KERNEL_NAMES}
 

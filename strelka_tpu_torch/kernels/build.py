@@ -4,7 +4,10 @@ Route: nvcc by hand into a shared library with a plain C interface, loaded
 with ctypes. Each source compiles to an object in its own nvcc process, all
 started together, and the objects link into `libstrelka_kernels.so`. The
 build directory is keyed by a hash of the sources and flags, so a changed
-source builds again and an unchanged one is loaded as it is.
+source builds again and an unchanged one is loaded as it is. The
+recorder (utils/profiling.py) keeps the set-up span kernels.load and counts
+the sources built (kernels.built, by source) or the library loaded as it
+was (kernels.loaded).
 
 Flags: `sm_90a`, -O3, no fast math. The intersection sources also get
 -fmad=false, so the slab tests, Möller–Trumbore and the round-cone closed
@@ -21,7 +24,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
+
+from strelka_tpu_torch.utils import profiling as P
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -70,7 +74,6 @@ SIGNATURES = {
 
 class Built:
     lib = None
-    seconds = None  # wall time of the build this process ran (None = loaded cached)
 
 
 def _nvcc() -> str:
@@ -92,9 +95,8 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _build(out_dir: str) -> float:
+def _build(out_dir: str) -> None:
     nvcc = _nvcc()
-    t0 = time.perf_counter()
     procs = []
     for name, extra in SOURCES.items():
         obj = os.path.join(out_dir, name.replace(".cu", ".o"))
@@ -116,21 +118,29 @@ def _build(out_dir: str) -> float:
     if link.returncode != 0:
         raise RuntimeError("nvcc link failed:\n" + link.stdout.decode(errors="replace"))
     os.replace(tmp, os.path.join(out_dir, LIB_NAME))
-    return time.perf_counter() - t0
 
 
 def load():
     """The loaded library, built first if this source hash has no build."""
     if Built.lib is not None:
         return Built.lib
+    with P.setup_span("kernels.load"):
+        return _load()
+
+
+def _load():
     out_dir = os.path.join(BUILD_ROOT, _digest())
     os.makedirs(out_dir, exist_ok=True)
     lib_path = os.path.join(out_dir, LIB_NAME)
     with open(os.path.join(out_dir, "lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # one build per source hash across processes
         try:
-            if not os.path.exists(lib_path):
-                Built.seconds = _build(out_dir)
+            if os.path.exists(lib_path):
+                P.count("kernels.loaded")
+            else:
+                _build(out_dir)
+                for name in SOURCES:
+                    P.count("kernels.built", name)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     lib = ctypes.CDLL(lib_path)

@@ -39,6 +39,7 @@ from strelka_tpu_torch.scene.scene import (
     UniformLightDesc,
 )
 from strelka_tpu_torch.utils import math3d as m3
+from strelka_tpu_torch.utils import profiling as P
 
 _COMPONENT_DTYPE = {
     5120: np.int8,
@@ -200,6 +201,10 @@ class GltfLoader:
     """include/sceneloader/gltfloader.h — loadGltf(path, scene)."""
 
     def load_gltf(self, model_path: str, scene: Scene) -> bool:
+        with P.setup_span("scene.load"):
+            return self._load_gltf(model_path, scene)
+
+    def _load_gltf(self, model_path: str, scene: Scene) -> bool:
         if not model_path or not os.path.exists(model_path):
             log.error("Unable to load file: {}", model_path)
             return False

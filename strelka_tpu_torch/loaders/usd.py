@@ -39,6 +39,7 @@ from strelka_tpu_torch.scene.scene import (
     UniformLightDesc,
 )
 from strelka_tpu_torch.utils import math3d as m3
+from strelka_tpu_torch.utils import profiling as P
 
 # Blackbody table from HdStrelka/Light.cpp:32-56 (public UsdLux-derived data)
 _BLACKBODY_RGB = np.array(
@@ -220,6 +221,10 @@ class UsdLoader:
         self._base_dir = ""
 
     def load(self, path: str, scene: Scene) -> bool:
+        with P.setup_span("scene.load"):
+            return self._load(path, scene)
+
+    def _load(self, path: str, scene: Scene) -> bool:
         is_crate = False
         if path.lower().endswith((".usdc", ".usd")):
             # .usd may be text or crate; sniff the magic

@@ -26,7 +26,6 @@ two child boxes and references in one 64-byte row), with a short stack;
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -35,6 +34,7 @@ import torch
 from strelka_tpu_torch import kernels as K
 from strelka_tpu_torch import log
 from strelka_tpu_torch.ops import slab
+from strelka_tpu_torch.utils import profiling as P
 
 MAX_LEAF = 4
 MISS_T = 1e16
@@ -82,7 +82,6 @@ class DeviceBvh:
 
     nodes: torch.Tensor  # [n,8] i32: pack_nodes rows
     builder: str = "carried"  # "native", "numpy", or "carried" (arrays from elsewhere)
-    build_seconds: float = 0.0
     children: Optional[torch.Tensor] = None  # [m, CHILD_COLS] i32: child_rows of `nodes`, K5's table
     depth: int = 0  # internal nodes on the longest root-to-leaf path: the stack K5's and K6's walks need
 
@@ -370,7 +369,7 @@ def child_rows(rows: np.ndarray) -> Tuple[np.ndarray, int]:
     return out, int(depth.max())
 
 
-def device_bvh(bvh: ThreadedBvh, device, builder: str = "carried", build_seconds: float = 0.0) -> DeviceBvh:
+def device_bvh(bvh: ThreadedBvh, device, builder: str = "carried") -> DeviceBvh:
     """Upload a ThreadedBvh (any 5 arrays in its field order): its packed
     rows and the child table made from them."""
     host = ThreadedBvh(
@@ -382,16 +381,17 @@ def device_bvh(bvh: ThreadedBvh, device, builder: str = "carried", build_seconds
     )
     rows = pack_nodes(host)
     children, depth = child_rows(rows)
-    return DeviceBvh(nodes=torch.tensor(rows, device=device), builder=builder, build_seconds=build_seconds,
+    return DeviceBvh(nodes=torch.tensor(rows, device=device), builder=builder,
                      children=torch.tensor(children, device=device), depth=depth)
 
 
-def timed_build(v0, e1, e2):
-    """build_bvh_sah + thread_bvh -> (ThreadedBvh, perm, builder name, seconds)."""
-    t0 = time.perf_counter()
-    nodes, perm, builder = _build(v0, e1, e2, MAX_LEAF)
-    threaded = thread_bvh(nodes)
-    return threaded, perm, builder, time.perf_counter() - t0
+def build_threaded(v0, e1, e2):
+    """build_bvh_sah + thread_bvh -> (ThreadedBvh, perm, builder name); the
+    recorder's set-up span bvh.build (utils/profiling.py) times it."""
+    with P.setup_span("bvh.build"):
+        nodes, perm, builder = _build(v0, e1, e2, MAX_LEAF)
+        threaded = thread_bvh(nodes)
+    return threaded, perm, builder
 
 
 # ---------------------------------------------------------------------------

@@ -73,6 +73,7 @@ from strelka_tpu_torch.render.device_scene import (
     RAY_MASK_SHADOW,
     DeviceScene,
 )
+from strelka_tpu_torch.utils import profiling as P
 
 Dim = S.SampleDimension
 
@@ -323,10 +324,16 @@ def _select_material(mask, a: B.SurfaceParams, b: B.SurfaceParams) -> B.SurfaceP
 
 
 def closest_curve_hit(scene: DeviceScene, origin: Vec3, direction: Vec3, tmin, tmax, active) -> CurveHit:
-    """The closest curve hit of each ray: the round-cone sweep (K7), then,
-    if the scene was built for it, the exact swept-B-spline refinement of
-    the sweep's winner; ghosts admitted by the inflated radii become misses."""
+    """The closest curve hit of each ray: the round-cone sweep (K7), then
+    refine_curve_hit."""
     chit = intersect_curves_closest(scene, origin, direction, tmin, tmax, active=active)
+    return refine_curve_hit(scene, origin, direction, chit)
+
+
+def refine_curve_hit(scene: DeviceScene, origin: Vec3, direction: Vec3, chit: CurveHit) -> CurveHit:
+    """If the scene was built for it, the exact swept-B-spline refinement of
+    the cone sweep's winner; ghosts admitted by the inflated radii become
+    misses."""
     if scene.curve_refine:
         rt, ru, keep = refine_scene_curve_hit(scene.curves, origin, direction, chit.t, chit.seg, chit.u)
         chit = CurveHit(t=torch.where(keep, rt, 1e30), seg=torch.where(keep, chit.seg, -1),
@@ -531,9 +538,8 @@ def trace_paths(
     depth0_dims: torch.Tensor,
     cone_spread,
     sort_rays: bool = False,
-    collect_stats: bool = False,
 ):
-    """One path per entry -> (radiance Vec3, first_event [N], stats).
+    """One path per entry -> (radiance Vec3, first_event [N], lanes).
 
     sort_rays: from bounce 1 on, reorder the whole wavefront by the
     position-Morton / direction-octant key before each bounce (one sort, one
@@ -551,10 +557,14 @@ def trace_paths(
     drawn already (render_launch takes the camera jitter from its rows 0
     and 1).
 
-    stats (collect_stats) counts the lanes alive at each closest sweep and
-    the shadow rays actually cast, summed over bounces (0-d tensors); a
-    scene with curves sweeps its cones with the same live lanes, counted
-    apart as cone_closest_rays and cone_shadow_rays."""
+    lanes: while the span recorder is on (utils/profiling.py), the
+    [max_depth, 3] int64 counts of each bounce on the device: the lanes
+    alive at the closest sweep, the shadow rays cast and the lanes swept (a
+    scene with curves sweeps its cones with the same lanes); else None. The
+    bounce's phases are the recorder's device spans (bounce.order,
+    bounce.sample, bounce.closest, bounce.surface with bounce.texture,
+    bounce.bsdf, bounce.nee with bounce.shadow, bounce.next, then
+    launch.unorder) inside a launch record its caller opened."""
     if scene.attr_table.shape[1] < ATTR_JOINED:
         raise ValueError("the integrator reads the joined attr table")
     n = sample_idx.shape[0]
@@ -572,8 +582,7 @@ def trace_paths(
     bg = f32_on(params.bg_color, dev)
     tmin_mat = torch.full((n,), material_ray_tmin, dtype=torch.float32, device=dev)
     tmax_big = torch.full((n,), 1e16, dtype=torch.float32, device=dev)
-    stat_closest = torch.zeros((), dtype=torch.float32, device=dev)
-    stat_shadow = torch.zeros((), dtype=torch.float32, device=dev)
+    lanes = P.lane_counts(max_depth, dev)
     has_curves = scene.has_curves
     enable_hair = has_curves or scene.has_hair
     # ray-cone mip selection: the accumulated path length (footprint =
@@ -585,6 +594,7 @@ def trace_paths(
 
     for depth in range(max_depth):
         if sort_rays and depth >= 1:
+            P.device_phase("bounce.order", depth)
             f32s, bits = _sort_wavefront(
                 scene, origin, direction, alive,
                 [origin.x, origin.y, origin.z, direction.x, direction.y, direction.z,
@@ -599,20 +609,26 @@ def trace_paths(
         # the 5 folded Sobol dimensions of this bounce in one draw (K1);
         # dimension = Dim % 5, so eBSDF2 and eLightId share dim 2, as in
         # the reference (RandomSampler.h:224)
+        P.device_phase("bounce.sample", depth)
         dim_rows = depth0_dims if depth == 0 else S.random_dims(sample_idx, depth, (0, 1, 2, 3, 4))
         rnd = lambda dim: dim_rows[int(dim) % 5]  # noqa: E731
 
-        if collect_stats:
-            stat_closest = stat_closest + alive.to(torch.float32).sum()
+        P.device_phase("bounce.closest", depth)
+        if lanes is not None:
+            lanes[depth, 0].add_(alive.sum())
+            lanes[depth, 2].add_(n)
         hit = intersect_closest(
             scene, origin, direction, tmin_mat, tmax_big, RAY_MASK_PRIMARY,
             active=alive, exclude=prev_prim,
         )
         # curve (hair) primitives: the round-cone sweep, the closest of
         # triangle and curve wins
+        if has_curves:
+            chit = intersect_curves_closest(scene, origin, direction, tmin_mat, tmax_big, active=alive)
+        P.device_phase("bounce.surface", depth)
         is_curve = torch.zeros(n, dtype=torch.bool, device=dev)
         if has_curves:
-            chit = closest_curve_hit(scene, origin, direction, tmin_mat, tmax_big, alive)
+            chit = refine_curve_hit(scene, origin, direction, chit)
             is_curve = alive & (chit.seg >= 0) & (chit.t < hit.t)
         missed = alive & (hit.prim < 0) & ~is_curve
 
@@ -646,8 +662,9 @@ def trace_paths(
             # advance the ray cone to this hit (a curve hit by its cone t)
             t_eff = torch.where(is_curve, chit.t, hit.t) if has_curves else hit.t
             t_hit = t_total + torch.where(alive & ~missed, t_eff, 0.0)
-            mat, frame = shade_textures(scene, mat, frame, mat_rows, uv, t_hit, cone_spread, sample_idx, ray_id,
-                                        depth)
+            with P.device_span("bounce.texture"):
+                mat, frame = shade_textures(scene, mat, frame, mat_rows, uv, t_hit, cone_spread, sample_idx, ray_id,
+                                            depth)
             t_total = t_hit
         if has_curves:
             position, frame, mat = curve_surface(scene, chit, is_curve, origin, direction, inside, position, frame,
@@ -661,6 +678,7 @@ def trace_paths(
 
         # ---- emissive materials (EDF): added on every BSDF/camera hit, no
         # MIS; the cutout decision comes first (a pass-through collects none)
+        P.device_phase("bounce.bsdf", depth)
         u_cut = S.uniform_hash(sample_idx, depth)
         cut = hit_surface & (mat.opacity < 1.0) & (u_cut >= mat.opacity)
         emissive = hit_surface & ~cut & V.any_nonzero(mat.emission_color)
@@ -697,6 +715,7 @@ def trace_paths(
         specular_bounce = torch.where(shade, (smp.event_type & B.BSDF_EVENT_SPECULAR) != 0, specular_bounce)
 
         # ---- NEE (estimateDirectLighting, cu:312-324 + sampleLight :260-310)
+        P.device_phase("bounce.nee", depth)
         if num_lights > 0:
             nee_able = shade & ((smp.event_type & (B.BSDF_EVENT_DIFFUSE | B.BSDF_EVENT_GLOSSY)) != 0)
             u_l = rnd(Dim.eLightId)
@@ -711,16 +730,17 @@ def trace_paths(
             geom_ok = (cos_nl > 0.0) & (-V.dot(to_light, ls.normal) > 0.0) & li_all_nonzero
             shadow_org = offset_ray_vec(position, frame.geom_normal)
             shadow_excl = torch.where(is_curve, -1, hit.prim)  # a curve hit excludes no triangle
-            if collect_stats:
-                stat_shadow = stat_shadow + (nee_able & geom_ok).to(torch.float32).sum()
             shadow_tmin = torch.full((n,), shadow_ray_tmin, dtype=torch.float32, device=dev)
-            occluded = intersect_any(
-                scene, shadow_org, to_light, shadow_tmin,
-                ls.dist_to_light, RAY_MASK_SHADOW, active=nee_able & geom_ok, exclude=shadow_excl,
-            )
-            if has_curves:
-                occluded = occluded | intersect_curves_any(
-                    scene, shadow_org, to_light, shadow_tmin, ls.dist_to_light, active=nee_able & geom_ok)
+            with P.device_span("bounce.shadow"):
+                if lanes is not None:
+                    lanes[depth, 1].add_((nee_able & geom_ok).sum())
+                occluded = intersect_any(
+                    scene, shadow_org, to_light, shadow_tmin,
+                    ls.dist_to_light, RAY_MASK_SHADOW, active=nee_able & geom_ok, exclude=shadow_excl,
+                )
+                if has_curves:
+                    occluded = occluded | intersect_curves_any(
+                        scene, shadow_org, to_light, shadow_tmin, ls.dist_to_light, active=nee_able & geom_ok)
             visibility = torch.where(geom_ok & ~occluded, 1.0, 0.0)
             nee_w = visibility * torch.clamp(cos_nl, 0.0, 1.0)
             nee_radiance = lp.color * nee_w
@@ -744,6 +764,7 @@ def trace_paths(
             shade = shade & ~canary
 
         # ---- next segment setup (cu:591-605)
+        P.device_phase("bounce.next", depth)
         transmission = (smp.event_type & B.BSDF_EVENT_TRANSMISSION) != 0
         offset_n = V.where(transmission, -frame.geom_normal, frame.geom_normal)
         new_origin = offset_ray_vec(position, offset_n)
@@ -770,17 +791,12 @@ def trace_paths(
     if sorted_once:
         # back to the entries' order: one scatter builds the inverse
         # permutation, then one packed row gather
+        P.device_phase("launch.unorder")
         inv = torch.empty(n, dtype=torch.int32, device=dev).scatter_(
             0, ray_id.to(torch.int64), torch.arange(n, dtype=torch.int32, device=dev))
         f32s, bits = _permute_packed(inv, [radiance.x, radiance.y, radiance.z], [first_event])
         radiance, first_event = Vec3(*f32s), bits[0]
-    stats = None
-    if collect_stats:
-        zero = torch.zeros_like(stat_closest)
-        stats = {"closest_rays": stat_closest, "shadow_rays": stat_shadow,
-                 "cone_closest_rays": stat_closest if has_curves else zero,
-                 "cone_shadow_rays": stat_shadow if has_curves else zero}
-    return radiance, first_event, stats
+    return radiance, first_event, lanes
 
 
 def ray_cone_spread(params: LaunchParams, height: int) -> float:
@@ -811,10 +827,9 @@ def render_launch(
     sort_rays: bool | None = None,
     py_offset: int | None = None,
     full_height: int | None = None,
-    collect_stats: bool = False,
 ):
     """__raygen__rg equivalent: run samples_per_launch paths per pixel, update
-    the accumulators, return (new_state, hdr_image [3,H,W]) (+ stats).
+    the accumulators, return (new_state, hdr_image [3,H,W]).
 
     Runs on the scene's device. Tonemapping is the Render layer's job.
 
@@ -832,7 +847,13 @@ def render_launch(
     NDC, so the bands of a frame equal the whole launch bit for bit; state
     and image stay band-local, and so do the Z-order and the sort (a
     textured scene's bands key their texels by band-local slots, as in the
-    reference)."""
+    reference).
+
+    While the span recorder is on (utils/profiling.py), the launch's phases
+    are device spans of the launch record its caller opened (launch.camera,
+    trace_paths' bounces, launch.accumulate) and the bounces' lane counts go
+    to the recorder's counter."""
+    P.device_phase("launch.camera")
     dev = scene.device
     n = width * height
     spl = 1 if debug == 1 else samples_per_launch
@@ -860,7 +881,7 @@ def render_launch(
     dims0 = S.random_dims(sample_idx, 0, (0, 1, 2, 3, 4))
     origin, direction = generate_camera_rays(params, px, py, dims0[Dim.ePixelX % 5], dims0[Dim.ePixelY % 5],
                                              width, fh)
-    radiance, first_event, stats = trace_paths(
+    radiance, first_event, lanes = trace_paths(
         scene, params, sample_idx, origin, direction,
         max_depth=max_depth,
         rect_light_sampling_method=rect_light_sampling_method,
@@ -870,8 +891,9 @@ def render_launch(
         depth0_dims=dims0,
         cone_spread=ray_cone_spread(params, fh) if params.cone_spread is None else params.cone_spread,
         sort_rays=sort_by_default(scene) if sort_rays is None else sort_rays,
-        collect_stats=collect_stats,
     )
+    P.device_phase("launch.accumulate")
+    P.add_lanes(lanes)
     # [spl*n] components -> [spl, n] -> reduce over samples
     rad = Vec3(*[c.reshape(spl, n) for c in radiance])
     fe = first_event.reshape(spl, n)
@@ -937,8 +959,6 @@ def render_launch(
         specular=new_specular,
         specular_counter=new_scount.to(torch.int32),
     )
-    if collect_stats:
-        return new_state, image, stats
     return new_state, image
 
 

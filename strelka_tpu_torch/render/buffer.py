@@ -14,6 +14,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from strelka_tpu_torch.utils import profiling as P
+
 
 class BufferFormat(enum.IntEnum):
     UNSIGNED_BYTE4 = 0
@@ -85,8 +87,10 @@ class Buffer:
         return self._device
 
     def map(self) -> np.ndarray:
-        """Device -> host copy (waits for the work that produced it)."""
-        self._host = self._device.detach().cpu().numpy()
+        """Device -> host copy (waits for the work that produced it); the
+        recorder's host span buffer.map."""
+        with P.span("buffer.map"):
+            self._host = self._device.detach().cpu().numpy()
         return self._host
 
     def unmap(self) -> None:

@@ -55,9 +55,10 @@ from strelka_tpu_torch.materials import BsdfType, MaterialManager
 from strelka_tpu_torch.kernels.cones import PackedCones
 from strelka_tpu_torch.kernels.intersect import tri_group_bounds
 from strelka_tpu_torch.ops import curves as C
-from strelka_tpu_torch.ops.bvh import DeviceBvh, ThreadedBvh, device_bvh, timed_build
+from strelka_tpu_torch.ops.bvh import DeviceBvh, ThreadedBvh, build_threaded, device_bvh
 from strelka_tpu_torch.scene.scene import InstanceType, Scene
 from strelka_tpu_torch.textures import TextureAtlas, TextureManager, atlas_to_device
+from strelka_tpu_torch.utils import profiling as P
 from strelka_tpu_torch.utils.device import resolve_device
 
 GEOMETRY_MASK_TRIANGLE = 1
@@ -327,8 +328,18 @@ def build_device_scene(
     K2/K3 sweep every triangle), True builds the BVH for any size.
     curve_subdiv: round cones per cubic segment. curve_refine: refine curve
     hits to the exact swept envelope (the cone radii are then inflated to
-    cover it). Both are the reference's defaults and both change the image."""
-    device = resolve_device(device)
+    cover it). Both are the reference's defaults and both change the image.
+
+    The recorder's set-up span device_scene.build (utils/profiling.py) times
+    it, with the children bvh.build, cones.build (the cones from the
+    segments) and tables.upload (device_scene_from_arrays: the tables packed,
+    the cones sorted and packed, all copied to the device)."""
+    with P.setup_span("device_scene.build"):
+        return _build_device_scene(scene, material_manager, resolve_device(device), use_bvh, curve_subdiv,
+                                   curve_refine)
+
+
+def _build_device_scene(scene, material_manager, device, use_bvh, curve_subdiv, curve_refine) -> DeviceScene:
     cat = flatten_scene_geometry(scene)
     num_tri = int(cat["p"].shape[0])
     if use_bvh is None:
@@ -336,13 +347,12 @@ def build_device_scene(
     bvh_arrays = {}
     if use_bvh and num_tri > 0:
         p = cat["p"]
-        threaded, perm, builder, seconds = timed_build(p[:, 0], p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+        threaded, perm, builder = build_threaded(p[:, 0], p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
         # every per-triangle array goes into leaf order: prim ids are leaf-order ids
         for k in cat:
             cat[k] = cat[k][perm]
-        bvh_arrays = {"bvh": threaded, "bvh_builder": builder, "bvh_build_seconds": seconds}
-        log.info("BVH built: {} nodes over {} triangles ({} builder, {:.2f} s)",
-                 len(threaded.count), num_tri, builder, seconds)
+        bvh_arrays = {"bvh": threaded, "bvh_builder": builder}
+        log.info("BVH built: {} nodes over {} triangles ({} builder)", len(threaded.count), num_tri, builder)
     padded = _round_up(num_tri, PAD_MULTIPLE)
     # padding triangles are degenerate (zero-area at origin) with mask 0
     p = _pad_to(cat["p"], padded)
@@ -393,7 +403,8 @@ def build_device_scene(
         nsp = _round_up(ns, PAD_MULTIPLE)
         # the cones come from the segments as they are; the segment table is
         # padded, its padding marked by the sign of the (zero) radii
-        cones_np = C.flatten_curves_np(curves_np, subdiv=curve_subdiv, refine=curve_refine)
+        with P.setup_span("cones.build"):
+            cones_np = C.flatten_curves_np(curves_np, subdiv=curve_subdiv, refine=curve_refine)
         curves_np = {k: _pad_to(v, nsp) for k, v in curves_np.items()}
         neg = np.where(np.arange(nsp) < ns, 1.0, -1.0).astype(np.float32)
         for j in range(4):
@@ -421,7 +432,8 @@ def build_device_scene(
         **bvh_arrays,
         **curve_arrays,
     }
-    return device_scene_from_arrays(arrays, device)
+    with P.setup_span("tables.upload"):
+        return device_scene_from_arrays(arrays, device)
 
 
 def _is_none(v) -> bool:
@@ -435,8 +447,7 @@ def device_scene_from_arrays(arrays: dict, device) -> DeviceScene:
     field by field (`{name: np.asarray(getattr(scene, name))}`). `bvh`, if
     present, is the scene's ThreadedBvh as five numpy arrays in field order
     (a tuple, or a dict by field name); the triangle tables are then in its
-    leaf order already (`bvh_builder` and `bvh_build_seconds` say how this
-    module's build made it). `curves` (DeviceCurves) and `cones` (FlatCones)
+    leaf order already (`bvh_builder` says how this module's build made it). `curves` (DeviceCurves) and `cones` (FlatCones)
     are dicts by field name or tuples in field order. With `cones_packed`
     and `cone_bounds` (the JAX package's TPU build) the cones are taken as
     sorted and packed already; without them (its CPU build, and this
@@ -463,8 +474,7 @@ def device_scene_from_arrays(arrays: dict, device) -> DeviceScene:
     else:
         if isinstance(bvh, dict):
             bvh = tuple(bvh[name] for name in ThreadedBvh._fields)
-        bvh = device_bvh(tuple(np.asarray(a) for a in bvh), device, builder=arrays.get("bvh_builder", "carried"),
-                         build_seconds=float(arrays.get("bvh_build_seconds", 0.0)))
+        bvh = device_bvh(tuple(np.asarray(a) for a in bvh), device, builder=arrays.get("bvh_builder", "carried"))
     mat_table = np.asarray(arrays["mat_table"], np.float32)
     tri_bounds = None
     if bvh is None:

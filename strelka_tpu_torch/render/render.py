@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import enum
 import gc
-import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -33,6 +32,7 @@ from strelka_tpu_torch.ops import tonemap as TM
 from strelka_tpu_torch.render.buffer import Buffer, BufferDesc
 from strelka_tpu_torch.render.device_scene import build_device_scene
 from strelka_tpu_torch.settings import SharedContext
+from strelka_tpu_torch.utils import profiling as P
 from strelka_tpu_torch.utils.device import resolve_device
 
 
@@ -156,12 +156,19 @@ class GraphLaunch:
       * the graph's image is overwritten by the next replay, so a call
         returns a copy.
     reset() drops the graph when the device scene or the state it read is
-    replaced; the next call starts again with an eager launch. A capture
-    that fails raises: the launch never runs eagerly in its place.
-    Launch counts (kernels.launch_counts) count each replay's kernels."""
+    replaced; the next call starts again with an eager launch. So does a
+    call that finds the recorder (utils/profiling.py) in another state than
+    the eager launch or the capture did: a graph captured with it on holds
+    its device spans' events and lane counters, one captured with it off
+    holds none. A capture that fails raises: the launch never runs eagerly
+    in its place. Launch counts (kernels.launch_counts) count each replay's
+    kernels where kernels.count_replays is set. `key` labels the
+    recorder's counters of captures and graph nodes."""
 
-    def __init__(self, launch, device, pool) -> None:
+    def __init__(self, launch, device, pool, key: str = "") -> None:
         self.launch = launch  # fn(scene, params, state) -> (new state, image)
+        self.device = torch.device(device)
+        self.key = key
         self.words = torch.zeros(_VALUE_WORDS, dtype=torch.float32, device=device)
         self.params = unpack_values(self.words)
         self.reset(pool)
@@ -172,46 +179,65 @@ class GraphLaunch:
         self.image = None
         self.counts = None  # the launch counts one replay adds
         self.bound = None  # (scene, state) of the eager launch and the capture
-        self.capture_seconds = None
+        self.traced = False  # the recorder's state at the eager launch and the capture
+        self.record = None  # the device spans the capture recorded (the recorder on)
 
     def _step(self, scene, state):
-        new_state, image = self.launch(scene, self.params, state)
-        for dst, src in zip(state, new_state):
-            dst.copy_(src)  # the state is donated: its new values go where the old ones were read
-        return image
+        with P.launch_record(self.device) as record:
+            new_state, image = self.launch(scene, self.params, state)
+            for dst, src in zip(state, new_state):
+                dst.copy_(src)  # the state is donated: its new values go where the old ones were read
+        return image, record
+
+    def nodes(self) -> int:
+        """The captured graph's node count (cuGraphGetNodes)."""
+        return P.graph_nodes(self.graph)
 
     def __call__(self, scene, params: I.LaunchParams, state):
-        self.words.copy_(torch.from_numpy(pack_values(params)).pin_memory(), non_blocking=True)
+        with P.span("launch.upload"):
+            self.words.copy_(torch.from_numpy(pack_values(params)).pin_memory(), non_blocking=True)
+        if self.bound is not None and self.traced != P.is_on():
+            self.reset(self.pool)
         if self.bound is None:
             self.bound = (scene, state)
-            return state, self._step(scene, state)
+            self.traced = P.is_on()
+            with P.setup_span("launch.eager"):
+                image, _ = self._step(scene, state)
+            return state, image
         if self.bound[0] is not scene or self.bound[1] is not state:
             raise RuntimeError("GraphLaunch: called on another scene or state than it was captured on; reset() it")
         if self.graph is None:
-            t0 = time.perf_counter()
-            graph = torch.cuda.CUDAGraph(keep_graph=True)  # its cudaGraph_t stays readable (raw_cuda_graph)
+            with P.setup_span("launch.capture"):
+                graph = torch.cuda.CUDAGraph(keep_graph=True)  # its cudaGraph_t stays readable (raw_cuda_graph)
 
-            def capture():
-                with torch.cuda.graph(graph, pool=self.pool):
-                    return self._step(scene, state)
+                def capture():
+                    with torch.cuda.graph(graph, pool=self.pool):
+                        return self._step(scene, state)
 
-            # a dead graph that Python's cycle collector freed inside the
-            # capture would end it (its destructor is a CUDA call the capture
-            # forbids): collect before, and not during
-            collecting = gc.isenabled()
-            gc.collect()
-            gc.disable()
-            try:
-                self.image, self.counts = K.take_counts(capture)
-            finally:
-                if collecting:
-                    gc.enable()
-            graph.instantiate()
+                # a dead graph that Python's cycle collector freed inside the
+                # capture would end it (its destructor is a CUDA call the capture
+                # forbids): collect before, and not during
+                collecting = gc.isenabled()
+                gc.collect()
+                gc.disable()
+                try:
+                    (self.image, self.record), self.counts = K.take_counts(capture)
+                finally:
+                    if collecting:
+                        gc.enable()
+                graph.instantiate()
             self.graph = graph
-            self.capture_seconds = time.perf_counter() - t0
+            P.count("graph.captures", self.key)
+            P.set_count("graph.nodes", self.key, self.nodes())
+        P.phase("launch.replay")
+        P.replayed(self.record)
         self.graph.replay()
-        K.add_counts(self.counts)
-        return state, self.image.clone()
+        if K.count_replays:
+            K.add_counts(self.counts)
+        P.phase("frame.copy")
+        with P.device_span("frame.copy", self.device):
+            image = self.image.clone()
+        return state, image
 
 
 class TorchRender(Render):
@@ -273,23 +299,26 @@ class TorchRender(Render):
 
         def make_launch(local_height, full_height):
             def launch(scene, params, state, py_offset=None):
-                new_state, planar = I.render_launch(scene, params, state, height=local_height, py_offset=py_offset,
-                                                    full_height=full_height, **kw)
-                return new_state, _post(planar, debug, tm_type, params.exposure, gamma)
+                with P.launch_record(scene.device):
+                    new_state, planar = I.render_launch(scene, params, state, height=local_height,
+                                                        py_offset=py_offset, full_height=full_height, **kw)
+                    P.device_phase("launch.post")
+                    return new_state, _post(planar, debug, tm_type, params.exposure, gamma)
 
             return launch
 
         on_card = any(d.type == "cuda" for d in (self._bands or [self.device]))
         if on_card and self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
+        label = ",".join(str(k) for k in key)  # the recorder's counters are by key
         if self._bands is not None:
             from strelka_tpu_torch.parallel.sharding import shard_launch
 
             pool = self._graph_pool  # not self: the cached launch must not hold the renderer
-            graph = (lambda launch, d: GraphLaunch(launch, d, pool)) if on_card else None
+            graph = (lambda launch, d: GraphLaunch(launch, d, pool, f"{label}@{d}")) if on_card else None
             fn = shard_launch(make_launch, self._bands, copies=self._scene_copies, graph_launch=graph)
         elif on_card:
-            fn = GraphLaunch(make_launch(height, height), self.device, self._graph_pool)
+            fn = GraphLaunch(make_launch(height, height), self.device, self._graph_pool, label)
         else:
             fn = make_launch(height, height)
         self._launch_cache[key] = fn
@@ -315,6 +344,11 @@ class TorchRender(Render):
         return gather_state(self._state, self.device)
 
     def render(self, output: Buffer) -> None:
+        with P.frame_span():
+            P.phase("render.prepare")
+            self._render(output)
+
+    def _render(self, output: Buffer) -> None:
         ctx = self._ctx
         settings = ctx.settings
         scene = self._scene
@@ -416,9 +450,12 @@ class TorchRender(Render):
             image = _post(planar, debug, tm_type, exposure, gamma)
 
         if (height, width) != (out_height, out_width):
-            image = resize_bilinear(image, out_height, out_width)
+            P.phase("frame.resize")
+            with P.device_span("frame.resize", image.device):
+                image = resize_bilinear(image, out_height, out_width)
 
         if settings.get_bool("render/enableValidation"):
+            P.phase("render.validate")
             # validation mode parity (OptixRender.cpp:178-185): device NaN
             # canaries paint red pixels; host check reports them per frame
             nan_count = int(torch.isnan(image).sum())

@@ -34,6 +34,7 @@ from strelka_tpu_torch import kernels as K
 from strelka_tpu_torch.kernels import bvh as KB
 from strelka_tpu_torch.native import native_build_bvh
 from strelka_tpu_torch.ops import bvh as TB
+from strelka_tpu_torch.utils import profiling as P
 
 
 def _random_tris(n, rng, spread=10.0):
@@ -86,8 +87,9 @@ def test_native_builder_bit_equal(kind):
 def test_build_reports_its_builder():
     v0, e1, e2 = _random_tris(300, np.random.default_rng(2))
     nodes, perm = TB.build_bvh_sah(v0, e1, e2)
-    threaded, perm2, builder, seconds = TB.timed_build(v0, e1, e2)
-    assert builder in ("native", "numpy") and seconds > 0
+    threaded, perm2, builder = TB.build_threaded(v0, e1, e2)
+    span = P.setup_spans()[-1]  # the build's set-up span
+    assert builder in ("native", "numpy") and span["name"] == "bvh.build" and span["end_ns"] > span["start_ns"]
     np.testing.assert_array_equal(perm2, perm)
     _assert_trees_equal(threaded, TB.thread_bvh(nodes))
     covered = np.zeros(300, bool)

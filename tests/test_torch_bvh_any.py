@@ -63,7 +63,7 @@ def _case(tris, rays):
     """The same triangles and rays twice: K3's arguments over the scene's
     order and K6's over a BVH of them in its leaf order."""
     v0, e1, e2, mask = tris
-    threaded, perm, _, _ = TB.timed_build(v0, e1, e2)
+    threaded, perm, _ = TB.build_threaded(v0, e1, e2)
     flat = _rays(rays) + tuple(_t(a) for a in tris)
     tree = _rays(rays, perm) + (TB.device_bvh(threaded, "cpu"),) + tuple(_t(a[perm]) for a in tris)
     return flat, tree

@@ -54,7 +54,7 @@ def _bits(a):
 def _tree(tris):
     """A BVH over numpy triangles -> (DeviceBvh, the triangles in its leaf order as tensors)."""
     v0, e1, e2, mask = tris
-    threaded, perm, _, _ = TB.timed_build(v0, e1, e2)
+    threaded, perm, _ = TB.build_threaded(v0, e1, e2)
     return TB.device_bvh(threaded, "cpu"), tuple(_t(a[perm]) for a in (v0, e1, e2, mask)), perm
 
 
@@ -249,7 +249,7 @@ def test_twin_tree_ties_go_to_the_lowest_id():
     lower id), and the reference's DFS walk, which keeps the first hit of
     equal t, differs from both on exactly the lanes that hit."""
     tris, rays = G.soup_case("dups", 1)
-    threaded, perm, _, _ = TB.timed_build(*tris[:3])
+    threaded, perm, _ = TB.build_threaded(*tris[:3])
     ntri = perm.shape[0]
     twin = TB.device_bvh(G.twin_tree(threaded, ntri), "cpu")
     leaf = [np.concatenate([a[perm], a[perm]]) for a in tris]

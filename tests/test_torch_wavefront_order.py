@@ -55,6 +55,7 @@ from strelka_tpu_torch.ops import vec as TV
 from strelka_tpu_torch.render.device_scene import build_device_scene, device_scene_from_arrays
 from strelka_tpu_torch.scene import testscenes as TTS
 from strelka_tpu_torch.scene.kitchen import kitchen_dir
+from strelka_tpu_torch.utils import profiling as P
 
 WOOD = os.path.join(kitchen_dir(), "textures", "wood.png")
 _CORNELL = dict(light_intensity=5000.0, metal_box=True, glass_sphere=True)
@@ -360,7 +361,7 @@ def test_ordered_launch_matches_jax_zorder_wavefront(monkeypatch, one_thread):
 def test_ordered_equals_unordered_untextured(monkeypatch, one_thread):
     """box_field(grid=6), 16x12, 2 spp, depth 4: sorted, Z-ordered, and both
     (the card's path, forced), bit-equal to the row-major unsorted launch in
-    image, accum, AOVs and counters, and the launch's stats equal."""
+    image, accum, AOVs and counters, and the recorder's lane counts equal."""
     monkeypatch.delenv("STRELKA_NO_ZORDER", raising=False)
     host = TTS.box_field(grid=6)
     tds = build_device_scene(host, device="cpu")
@@ -370,13 +371,18 @@ def test_ordered_equals_unordered_untextured(monkeypatch, one_thread):
 
     def launch(sort_rays, forced):
         monkeypatch.setattr(TI, "accelerated", lambda scene: forced)
-        st, img, stats = TI.render_launch(tds, tp, TI.make_frame_state(h, w, "cpu"), width=w, height=h,
-                                          samples_per_launch=2, max_sample_count=MAX_SPP, max_depth=4,
-                                          enable_accumulation=True, sort_rays=sort_rays, collect_stats=True)
-        return [img, *st], {k: float(v) for k, v in stats.items()}
+        P.reset()
+        P.enable()
+        try:
+            st, img = TI.render_launch(tds, tp, TI.make_frame_state(h, w, "cpu"), width=w, height=h,
+                                       samples_per_launch=2, max_sample_count=MAX_SPP, max_depth=4,
+                                       enable_accumulation=True, sort_rays=sort_rays)
+        finally:
+            P.disable()
+        return [img, *st], P.collect()["lanes"]
 
     base, base_stats = launch(False, False)
-    assert float(base[0].mean()) > 0.0
+    assert float(base[0].mean()) > 0.0 and base_stats["swept"] == [2 * w * h] * 4
     for sort_rays, forced in ((True, False), (False, True), (True, True), (None, True)):
         out, stats = launch(sort_rays, forced)
         for a, b in zip(out, base):
