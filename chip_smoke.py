@@ -166,7 +166,16 @@ Phases (any failure raises and the script exits non-zero):
      bands hold it too;
  14. (run before 11) the north-star showcase: scripts/torch_northstar.py
      at 1024x768, 32 spp, cut at 16 spp by --max-seconds in a child process,
-     resumed, bit-equal to an uninterrupted run, its PNG written.
+     resumed, bit-equal to an uninterrupted run, its PNG written;
+ 15. (run after 1) kernel K10, the BSDF phase (kernels/shade.py): each of
+     its three instances (no fibre, Chiang, Kajiya-Kay) bit for bit against
+     the plain phase on random lanes of every material type at depths 0 and
+     1 at 1, 1,023 and 2^20 + 3 lanes; the no-fibre and Chiang instances
+     held and timed at 786,432 and 196,608 lanes (the benchmark's converge
+     and viewport wavefronts): ms by events, device_ms replayed from a CUDA
+     graph, the plain phase both ways, bound_ms from the bytes a lane must
+     move at 3.35 TB/s. Every main path and entry point holds K10 first at
+     its own lanes and instance (hold_shade).
 
 Since the round-cone closed form follows the JAX package's CPU rounding
 (XLA's FMA contraction, ops/curves.py:ray_round_cone), K8 is held against
@@ -258,11 +267,12 @@ REPLACES = {
     "cone_closest": ("strelka_tpu/ops/curves.py:895", "strelka_tpu_torch/csrc/cones.cu"),
     "cone_any": ("strelka_tpu/ops/curves.py:895", "strelka_tpu_torch/csrc/cones.cu"),
     "open_w": ("strelka_tpu/ops/pallas_intersect.py:1002", "strelka_tpu_torch/csrc/open_w.cu"),
+    "shade_bsdf": ("none: the TPU package leaves the BSDF phase to XLA", "strelka_tpu_torch/csrc/shade.cu"),
 }
 OPEN_K = 16  # superblocks a tile has swept when the open flag is asked (the reference's CONE_RESIDUAL_K)
 # what a walking kernel's entry in the kernels line carries beside the numbers of every entry
 # what an entry of a kernel's "shapes" carries beside those numbers where its row has it
-SHAPE_KEYS = ("dense_bound_ms", "device_ms", "host_us", "schedule", "order_ms", "order_device_ms")
+SHAPE_KEYS = ("dense_bound_ms", "device_ms", "host_us", "schedule", "order_ms", "order_device_ms", "plain_device_ms")
 WALK_KEYS = ("nodes_per_ray", "ideal_nodes_per_ray", "primed_nodes_per_ray", "dfs_nodes_per_ray", "stack_depth",
              "registers", "local_bytes")
 
@@ -1127,6 +1137,7 @@ def phase_main_path(scene, host, cfg: Config):
     dev = scene.device
     kw = main_path_kw(cfg)
     w, h = cfg.width, cfg.height
+    hold_shade(dev, w * h * cfg.spp, scene, cfg.name)
     state = I.make_frame_state(h, w, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2156,6 +2167,7 @@ def hold_at(scene, host, w: int, h: int, spp: int, where: str) -> None:
     sample_idx, camera, bounce1, shadow, prims, lid, _ = main_path_rays(scene, launch_params(host, w, h, 0),
                                                                         scene.device, cfg)
     order_gathers(scene, cfg, where, I.pixel_zorder(w, h, scene.device)[1], launch_lanes(scene, cfg, bounce1)[2], False)
+    hold_shade(scene.device, sample_idx.shape[0], scene, where)
     for dims, depths in ((JITTER_DIMS, (0,)), (BOUNCE_DIMS, range(cfg.depth))):
         for depth in depths:
             a = held(lambda: KS.random_dims(sample_idx, depth, dims))
@@ -3100,6 +3112,94 @@ def phase_showcase(t_start) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 15: kernel K10, the BSDF phase
+# ---------------------------------------------------------------------------
+
+SHADE_EDGES = (1, 1023, 2 ** 20 + 3)  # one lane, a short last block, a ragged edge past 2^20
+SHADE_TIMED = (786432, 196608)  # the benchmark's wavefronts: 1024x768 and 512x384 at 1 spp
+# bytes K10 moves a lane: a lane that hit a surface reads 39 f32 words, its
+# type, first event (int32) and sample index (int64) and four flags; one
+# that did not reads its state (8 words, 2 flags); every lane writes 15
+# words and 3 flags
+SHADE_HIT_BYTES = 39 * 4 + 4 + 4 + 8 + 4
+SHADE_DEAD_BYTES = 7 * 4 + 2
+SHADE_OUT_BYTES = 15 * 4 + 3
+
+
+def shade_plain(lanes: dict, depth: int, variant: int):
+    """The plain phase on the lanes, with the hair lobes of the kernel instance."""
+    from strelka_tpu_torch.kernels import shade as KS
+    from strelka_tpu_torch.ops import bsdf as B
+
+    kk = B._HAIR_KAJIYA_KAY
+    B._HAIR_KAJIYA_KAY = variant == KS.KAJIYA_KAY
+    try:
+        return KS.shade_bsdf_plain(**lanes, depth=depth, enable_hair=variant != KS.NO_FIBRE)
+    finally:
+        B._HAIR_KAJIYA_KAY = kk
+
+
+def hold_shade(dev, n: int, variant, where: str) -> None:
+    """K10 held bit for bit against its plain version at n lanes of one
+    kernel instance (`variant`, or a scene: the instance its launch takes),
+    on random lanes of every material type (kernels/shade.py:random_lanes)
+    at depths 0 and 1."""
+    from strelka_tpu_torch.kernels import shade as KS
+
+    if not isinstance(variant, int):
+        variant = KS.fibre_variant(variant.has_curves or variant.has_hair)
+    if ("shade_bsdf", (n, variant)) in HELD:
+        return
+    for depth in (0, 1):
+        lanes = KS.random_lanes(n, 3 * n + 2 * variant + depth, dev)
+        got = held(lambda: KS.shade_bsdf(**lanes, depth=depth, enable_hair=variant != KS.NO_FIBRE, variant=variant))
+        off = KS.lanes_off(got, shade_plain(lanes, depth, variant), lanes["hit_surface"])
+        if any(off.values()):
+            raise AssertionError(f"K10 differs from its plain version at {n} lanes, instance {variant}, depth "
+                                 f"{depth} ({where}): {off}")
+    log(f"K10 bit-equal (tolerance: none) at {n} lanes, instance {variant}, depths 0 and 1 ({where})")
+
+
+def phase_shade(dev):
+    """Phase 15 -> K10's rows (timed at SHADE_TIMED)."""
+    import torch
+
+    from strelka_tpu_torch.kernels import shade as KS
+
+    t0 = time.perf_counter()
+    for variant in (KS.NO_FIBRE, KS.CHIANG, KS.KAJIYA_KAY):
+        for n in SHADE_EDGES:
+            hold_shade(dev, n, variant, "edge")
+    rows = []
+    for n in SHADE_TIMED:
+        for variant, label in ((KS.NO_FIBRE, "no fibre"), (KS.CHIANG, "Chiang fibre")):
+            hold_shade(dev, n, variant, "timed")
+            lanes = KS.random_lanes(n, n + variant, dev)
+            hit = int(lanes["hit_surface"].sum())
+
+            def kern():
+                return KS.shade_bsdf(**lanes, depth=1, enable_hair=variant != KS.NO_FIBRE, variant=variant)
+
+            def plain():
+                return shade_plain(lanes, 1, variant)
+
+            rows.append(dict(
+                kernel="shade_bsdf", at=f"random lanes, {label}", shape=(n, variant),
+                ms=time_ms(kern), device_ms=graph_ms(kern),
+                plain_ms=time_ms(plain, samples=5, inner=2), plain_device_ms=graph_ms(plain, calls=2, samples=5),
+                bound_bytes=hit * SHADE_HIT_BYTES + (n - hit) * SHADE_DEAD_BYTES + n * SHADE_OUT_BYTES,
+                bound_ops_s=0.0, max_abs_err=0.0, library_ms=None))
+    torch.cuda.synchronize()
+    finish_bounds(rows)
+    for r in rows:
+        log(f"K10 at {r['shape'][0]} lanes ({r['at']}): {r['device_ms']:.4f} ms alone (events {r['ms']:.4f}), "
+            f"the plain phase {r['plain_device_ms']:.3f} ms alone (events {r['plain_ms']:.3f}), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_bytes']} bytes)")
+    log(f"K10 phase in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 10: the launch cache (render/render.py: one CUDA graph a config key)
 # ---------------------------------------------------------------------------
 
@@ -3370,6 +3470,9 @@ def main() -> int:
         if "registers" in line or "==" in line or "error" in line.lower():
             log("  " + line.strip())
 
+    # ---- 15. kernel K10, the BSDF phase
+    shade_rows = phase_shade(dev)
+
     # ---- 2. Cornell: kernels K1-K4, fidelity through the library API, main path
     host, scene = cornell_scene(dev)
     rows = phase_kernels(scene, launch_params(host, CORNELL.width, CORNELL.height, 0))
@@ -3445,6 +3548,7 @@ def main() -> int:
                       "bvh_any_vs_bruteforce": kitchen_differ}), flush=True)
     print_kernel_lines(coffee_rows, main_coffee)
     print_kernel_lines(kitchen_rows, main_kitchen)
+    print_kernel_lines(shade_rows)
     for g in LAUNCH_GRAPH:
         print(json.dumps({"launch_graph": g}), flush=True)
     for o in ORDER:
@@ -3466,7 +3570,7 @@ def main() -> int:
     tagged = ([(r, main_cornell) for r in rows] + [(r, None) for r in flat["kernels"]]
               + [(r, main_box) for r in box_rows] + [(r, main_hair) for r in hair_rows]
               + [(r, main_long) for r in long_rows] + [(r, main_coffee) for r in coffee_rows]
-              + [(r, main_kitchen) for r in kitchen_rows])
+              + [(r, main_kitchen) for r in kitchen_rows] + [(r, None) for r in shade_rows])
     mains = (main_cornell, main_box, main_hair, main_long, main_coffee, main_kitchen, main_entry)
     kernels = []
     for name in KERNEL_NAMES:

@@ -8,8 +8,8 @@ Run on a machine with one CUDA card, from the root of a checkout:
 
 Each mutant is a copy of the checkout in a fresh temporary directory
 (outside the checkout; build outputs and `build/` left out), with one
-textual change, and runs `chip_smoke.py` there. A mutant is caught when
-chip_smoke.py exits non-zero; the script prints one JSON line
+textual change, and runs its check there: `chip_smoke.py`, or the card
+test named in CHECKS. A mutant is caught when its check exits non-zero; the script prints one JSON line
 per mutant (its name, exit code, seconds, and the check that failed: the
 last AssertionError line) and writes each run's output to --out (default
 build/mutations/<name>.log). It exits non-zero if a mutant is not caught or
@@ -41,7 +41,10 @@ Mutants:
                   order check against the plain twin must catch it;
   k4_vec_short    K4's 16-byte row path drops the last word of each row's
                   last chunk: the bit-equality at the main path's widths
-                  must catch it.
+                  must catch it;
+  k10_p_spec_swapped  K10's OmniPBR lobe probability clamped with its
+                  bounds swapped (always 0.05): K10's card test
+                  (tests/test_torch_shade_bsdf_card.py) must catch it.
 """
 
 from __future__ import annotations
@@ -106,6 +109,15 @@ constexpr float kStrelkaPad = 0x1p-13f;"""),
     "k4_vec_short": [
         ("strelka_tpu_torch/csrc/gather.cu", "col[(f + 3) * kLanes] = v.w;", "if (f + 4 < cols) col[(f + 3) * kLanes] = v.w;"),
     ],
+    "k10_p_spec_swapped": [
+        ("strelka_tpu_torch/csrc/bsdf.cuh", "clamp(p_spec, SB_F(0.05), SB_F(0.95))",
+         "clamp(p_spec, SB_F(0.95), SB_F(0.05))"),
+    ],
+}
+# a mutant's check where it is not chip_smoke.py (the interpreter's arguments)
+CHECKS = {
+    "k10_p_spec_swapped": ["-m", "pytest", "--noconftest", "-m", "card", "-q", "-x", "-p", "no:cacheprovider",
+                           "tests/test_torch_shade_bsdf_card.py"],
 }
 LEFT_OUT = shutil.ignore_patterns("build", "_build", ".git", "__pycache__")
 
@@ -136,7 +148,7 @@ def main() -> int:
         for name in args.only:
             tree = mutant_copy(name, root)
             t0 = time.perf_counter()
-            run = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree, stdout=subprocess.PIPE,
+            run = subprocess.run([sys.executable, *CHECKS.get(name, ["chip_smoke.py"])], cwd=tree, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
             with open(os.path.join(args.out, f"{name}.log"), "w") as f:
                 f.write(run.stdout)

@@ -11,7 +11,8 @@ was (kernels.loaded).
 
 Flags: `sm_90a`, -O3, no fast math. The intersection sources also get
 -fmad=false, so the slab tests, Möller–Trumbore and the round-cone closed
-form round every product and sum on their own, as the CPU reference and the plain PyTorch versions do.
+form round every product and sum on their own, as the CPU reference and the plain PyTorch versions do;
+so does the BSDF phase (shade.cu), as each elementwise PyTorch kernel rounds its one operation.
 
 Nothing here runs at import: `load()` builds on first use.
 """
@@ -41,8 +42,9 @@ SOURCES = {
     "bvh.cu": ["-fmad=false"],
     "cones.cu": ["-fmad=false"],
     "open_w.cu": ["-fmad=false"],
+    "shade.cu": ["-fmad=false"],
 }
-HEADERS = ["common.cuh"]
+HEADERS = ["common.cuh", "bsdf.cuh"]
 
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -68,6 +70,8 @@ SIGNATURES = {
     "strelka_cone_occupancy": [_I32] * 4 + [_VP, _VP],
     # 8 ray components, superblock boxes, nsb, d2, r2t, tile, n; open, W, min_tn, order, tnear, count, stream
     "strelka_open_w": [_VP] * 9 + [_I32, _VP, _VP, _I32, _I64] + [_VP] * 7,
+    # the inputs' and the outputs' pointers (host arrays, kernels/shade.py's orders), n, depth, variant, stream
+    "strelka_shade_bsdf": [_VP, _VP, _I64, _I32, _I32, _VP],
     "strelka_error_string": [_I32],
 }
 

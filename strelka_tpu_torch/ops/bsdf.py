@@ -19,6 +19,10 @@ Chiang fibre model of ops/hair.py, evaluated only with enable_hair=True:
 scenes without hair materials skip the fibre lobes; STRELKA_HAIR_KK=1 in
 the environment at import selects the Kajiya-Kay model of _hair_eval
 instead, as the reference's switch does).
+
+On the card bsdf_sample runs inside kernel K10 (kernels/shade.py, whose
+csrc/bsdf.cuh repeats these functions' f32 operations lane by lane); here
+it is the plain version the kernel is held to.
 """
 
 from __future__ import annotations
@@ -53,6 +57,16 @@ BSDF_EVENT_SPECULAR_REFLECTION = BSDF_EVENT_SPECULAR | BSDF_EVENT_REFLECTION
 BSDF_EVENT_SPECULAR_TRANSMISSION = BSDF_EVENT_SPECULAR | BSDF_EVENT_TRANSMISSION
 
 _SPECULAR_ROUGHNESS_EPS = 1e-3
+
+
+class EventType:
+    """A path's first event (OptixRenderParams.h:68-76): what the camera
+    ray's first surface did."""
+
+    eUndef = 0
+    eAbsorb = 1
+    eDiffuse = 2
+    eSpecular = 3
 
 
 class ShadingFrame(NamedTuple):

@@ -6,13 +6,15 @@ OptixRender_radiance_closest_hit.cu:456-606).
 All W*H*spp rays of a launch advance together through the bounce loop;
 branch divergence becomes masked selects. Each bounce runs one Sobol draw
 (kernel K1), one closest-hit sweep (radiance rays, mask PRIMARY: K5 over
-the scene's BVH, K2 over a flat scene), one attribute-row gather (K4) and
-one any-hit sweep (NEE shadow rays, mask SHADOW: K6 or K3); the shading in
-between is plain PyTorch on component-major Vec3. A scene with curves adds,
-per bounce, the closest round-cone sweep (K7), the Newton refinement of its
-winner to the exact swept envelope (ops/curve_refine.py), the curve's
-shading frame and material row (a second K4 gather, of mat_table) and the
-cone shadow sweep (K8), and turns on the fibre lobes of ops/hair.py.
+the scene's BVH, K2 over a flat scene), one attribute-row gather (K4), the
+BSDF phase (the cutout, the emission and bsdf_sample: K10 on the card,
+kernels/shade.py) and one any-hit sweep (NEE shadow rays, mask SHADOW: K6
+or K3); the rest of the shading is plain PyTorch on component-major Vec3.
+A scene with curves adds, per bounce, the closest round-cone sweep (K7),
+the Newton refinement of its winner to the exact swept envelope
+(ops/curve_refine.py), the curve's shading frame and material row (a second
+K4 gather, of mat_table) and the cone shadow sweep (K8), and turns on the
+fibre lobes of ops/hair.py.
 
 A scene with textures (DeviceScene.textures) adds, per bounce, the ray
 cone's footprint at the hit and the texture lookups of shade_textures:
@@ -46,10 +48,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from strelka_tpu_torch.kernels import shade as KS
 from strelka_tpu_torch.ops import bsdf as B
 from strelka_tpu_torch.ops import light_sampling as LS
 from strelka_tpu_torch.ops import sampler as S
 from strelka_tpu_torch.ops import vec as V
+from strelka_tpu_torch.ops.bsdf import EventType
 from strelka_tpu_torch.ops.curve_refine import refine_scene_curve_hit
 from strelka_tpu_torch.ops.curves import CurveHit, curve_shading_frame_vec
 from strelka_tpu_torch.ops.intersect import (
@@ -76,15 +80,6 @@ from strelka_tpu_torch.render.device_scene import (
 from strelka_tpu_torch.utils import profiling as P
 
 Dim = S.SampleDimension
-
-
-class EventType:
-    """OptixRenderParams.h:68-76."""
-
-    eUndef = 0
-    eAbsorb = 1
-    eDiffuse = 2
-    eSpecular = 3
 
 
 class LaunchParams(NamedTuple):
@@ -676,43 +671,13 @@ def trace_paths(
             first_event = torch.where(hit_surface, EventType.eUndef, first_event).to(torch.int32)
             break
 
-        # ---- emissive materials (EDF): added on every BSDF/camera hit, no
-        # MIS; the cutout decision comes first (a pass-through collects none)
+        # ---- the cutout decision, the emission, bsdf_sample, the cutout's
+        # override and the path state it updates: kernel K10 on the card
         P.device_phase("bounce.bsdf", depth)
-        u_cut = S.uniform_hash(sample_idx, depth)
-        cut = hit_surface & (mat.opacity < 1.0) & (u_cut >= mat.opacity)
-        emissive = hit_surface & ~cut & V.any_nonzero(mat.emission_color)
-        front = V.dot(frame.geom_normal, direction) < 0.0
-        radiance = V.where(emissive & front, radiance + throughput * mat.emission_color, radiance)
-
-        ior1 = torch.where(inside, mat.ior, 1.0)
-        ior2 = torch.where(inside, 1.0, mat.ior)
         xi = (rnd(Dim.eBSDF0), rnd(Dim.eBSDF1), rnd(Dim.eBSDF2), rnd(Dim.eBSDF3))
-        k1 = -direction
-        smp = B.bsdf_sample(mat, frame, k1, xi, ior1, ior2, enable_hair=enable_hair)
-
-        # ---- stochastic alpha cutout (opacity < 1): pass straight through
-        # as a specular-transmission event without flipping the medium
-        ones3 = V.full(n, 1.0, dev)
-        smp = B.BsdfSample(
-            k2=V.where(cut, direction, smp.k2),
-            pdf=torch.where(cut, 0.0, smp.pdf),
-            bsdf_over_pdf=V.where(cut, ones3, smp.bsdf_over_pdf),
-            event_type=torch.where(cut, B.BSDF_EVENT_SPECULAR_TRANSMISSION, smp.event_type).to(torch.int32),
-        )
-
-        absorbed = hit_surface & (smp.event_type == B.BSDF_EVENT_ABSORB)
-        if depth == 0:
-            first_event = torch.where(absorbed, EventType.eAbsorb, first_event)
-            first_event = torch.where(
-                hit_surface & ((smp.event_type & B.BSDF_EVENT_DIFFUSE) != 0), EventType.eDiffuse, first_event
-            )
-            first_event = torch.where(
-                hit_surface & ((smp.event_type & B.BSDF_EVENT_GLOSSY) != 0), EventType.eSpecular, first_event
-            ).to(torch.int32)
-        throughput = V.where(absorbed, V.full(n, 0.0, dev), throughput)
-        shade = hit_surface & ~absorbed
-        specular_bounce = torch.where(shade, (smp.event_type & B.BSDF_EVENT_SPECULAR) != 0, specular_bounce)
+        smp, cut, shade, radiance, throughput, first_event, specular_bounce = KS.shade_bsdf(
+            mat, frame, direction, xi, sample_idx, inside, hit_surface, radiance, throughput, first_event,
+            specular_bounce, depth=depth, enable_hair=enable_hair)
 
         # ---- NEE (estimateDirectLighting, cu:312-324 + sampleLight :260-310)
         P.device_phase("bounce.nee", depth)
@@ -750,7 +715,7 @@ def trace_paths(
             nan1 = nee_able & (V.any_nan(nee_radiance) | torch.isnan(light_pdf))
 
             next_event_valid = ((cos_nl > 0.0) != inside) & (light_pdf != 0.0) & nee_able
-            ev = B.bsdf_evaluate(mat, frame, k1, to_light, enable_hair=enable_hair)
+            ev = B.bsdf_evaluate(mat, frame, -direction, to_light, enable_hair=enable_hair)
             nan2 = nee_able & (V.any_nan(ev.bsdf_diffuse) | V.any_nan(ev.bsdf_glossy))
             contribute = next_event_valid & (ev.pdf > 0.0) & ~nan1 & ~nan2
             inv_lpdf = 1.0 / torch.clamp(light_pdf, min=1e-20)
