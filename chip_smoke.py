@@ -176,6 +176,16 @@ Phases (any failure raises and the script exits non-zero):
      graph, the plain phase both ways, bound_ms from the bytes a lane must
      move at 3.35 TB/s. Every main path and entry point holds K10 first at
      its own lanes and instance (hold_shade).
+ 16. (run after 15) kernels K11 and K12, the NEE phase less its shadow sweep
+     (kernels/nee.py): K11 at both rect light sampling methods, then K12 on
+     K11's handoff at each of its three instances, bit for bit against the
+     plain halves on random lanes of every light and material type with NaN
+     planted (both canaries) at 1, 1,023 and 2^20 + 3 lanes; K11 (both
+     methods) and K12's no-fibre and Chiang instances held and timed alone at
+     786,432 and 196,608 lanes (ms by events, device_ms replayed from a CUDA
+     graph, the plain half both ways, bound_ms from the bytes a lane must
+     move at 3.35 TB/s). Every main path and entry point holds both first at
+     its own lanes (hold_nee).
 
 Since the round-cone closed form follows the JAX package's CPU rounding
 (XLA's FMA contraction, ops/curves.py:ray_round_cone), K8 is held against
@@ -199,6 +209,7 @@ strelka_tpu_torch package beside it. It imports nothing of JAX.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import statistics
@@ -268,6 +279,8 @@ REPLACES = {
     "cone_any": ("strelka_tpu/ops/curves.py:895", "strelka_tpu_torch/csrc/cones.cu"),
     "open_w": ("strelka_tpu/ops/pallas_intersect.py:1002", "strelka_tpu_torch/csrc/open_w.cu"),
     "shade_bsdf": ("none: the TPU package leaves the BSDF phase to XLA", "strelka_tpu_torch/csrc/shade.cu"),
+    "nee_light": ("none: the TPU package leaves the NEE phase to XLA", "strelka_tpu_torch/csrc/nee.cu"),
+    "nee_shade": ("none: the TPU package leaves the NEE phase to XLA", "strelka_tpu_torch/csrc/nee.cu"),
 }
 OPEN_K = 16  # superblocks a tile has swept when the open flag is asked (the reference's CONE_RESIDUAL_K)
 # what a walking kernel's entry in the kernels line carries beside the numbers of every entry
@@ -487,7 +500,7 @@ def main_path_rays(scene, params, device, cfg: Config):
     nee_able = alive1 & ((smp.event_type & (B.BSDF_EVENT_DIFFUSE | B.BSDF_EVENT_GLOSSY)) != 0)
     lid = torch.clamp((scene.num_lights * dims[int(S.SampleDimension.eLightId) % 5]).to(torch.int32), 0,
                       scene.num_lights - 1)
-    lp = I._gather_light(scene, lid)
+    lp = LS.gather_light(scene.light_table, lid)
     ls = LS.sample_light(lp, dims[int(S.SampleDimension.eLightPointX) % 5],
                          dims[int(S.SampleDimension.eLightPointY) % 5], position, 0)
     geom_ok = (V.dot(frame.normal, ls.L) > 0.0) & (-V.dot(ls.L, ls.normal) > 0.0) & V.all_nonzero(lp.color)
@@ -1138,6 +1151,7 @@ def phase_main_path(scene, host, cfg: Config):
     kw = main_path_kw(cfg)
     w, h = cfg.width, cfg.height
     hold_shade(dev, w * h * cfg.spp, scene, cfg.name)
+    hold_nee(dev, w * h * cfg.spp, scene, cfg.name)
     state = I.make_frame_state(h, w, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2168,6 +2182,7 @@ def hold_at(scene, host, w: int, h: int, spp: int, where: str) -> None:
                                                                         scene.device, cfg)
     order_gathers(scene, cfg, where, I.pixel_zorder(w, h, scene.device)[1], launch_lanes(scene, cfg, bounce1)[2], False)
     hold_shade(scene.device, sample_idx.shape[0], scene, where)
+    hold_nee(scene.device, sample_idx.shape[0], scene, where)
     for dims, depths in ((JITTER_DIMS, (0,)), (BOUNCE_DIMS, range(cfg.depth))):
         for depth in depths:
             a = held(lambda: KS.random_dims(sample_idx, depth, dims))
@@ -3126,17 +3141,26 @@ SHADE_DEAD_BYTES = 7 * 4 + 2
 SHADE_OUT_BYTES = 15 * 4 + 3
 
 
-def shade_plain(lanes: dict, depth: int, variant: int):
-    """The plain phase on the lanes, with the hair lobes of the kernel instance."""
+@contextlib.contextmanager
+def hair_lobes(variant: int):
+    """ops/bsdf.py's hair lobes set to those of a kernel instance (K10, K12) while inside."""
     from strelka_tpu_torch.kernels import shade as KS
     from strelka_tpu_torch.ops import bsdf as B
 
     kk = B._HAIR_KAJIYA_KAY
     B._HAIR_KAJIYA_KAY = variant == KS.KAJIYA_KAY
     try:
-        return KS.shade_bsdf_plain(**lanes, depth=depth, enable_hair=variant != KS.NO_FIBRE)
+        yield
     finally:
         B._HAIR_KAJIYA_KAY = kk
+
+
+def shade_plain(lanes: dict, depth: int, variant: int):
+    """The plain phase on the lanes, with the hair lobes of the kernel instance."""
+    from strelka_tpu_torch.kernels import shade as KS
+
+    with hair_lobes(variant):
+        return KS.shade_bsdf_plain(**lanes, depth=depth, enable_hair=variant != KS.NO_FIBRE)
 
 
 def hold_shade(dev, n: int, variant, where: str) -> None:
@@ -3196,6 +3220,109 @@ def phase_shade(dev):
             f"the plain phase {r['plain_device_ms']:.3f} ms alone (events {r['plain_ms']:.3f}), bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_bytes']} bytes)")
     log(f"K10 phase in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: kernels K11 and K12, the NEE phase less its shadow sweep
+# ---------------------------------------------------------------------------
+
+# bytes a lane moves: K11 reads 12 f32 words, event_type and prim (int32) and
+# two flags, and writes 8 words, exclude and light_id (int32) and two flags;
+# K12 reads on a nee_able lane 29 f32 words, light_id and the type (int32) and
+# five flags, on the others 6 words and 2 flags, and writes 6 words and a flag
+NEE_LIGHT_BYTES = 12 * 4 + 4 + 4 + 2 + 8 * 4 + 4 + 4 + 2
+NEE_SHADE_ABLE_BYTES = 29 * 4 + 4 + 4 + 5
+NEE_SHADE_OTHER_BYTES = 6 * 4 + 2
+NEE_SHADE_OUT_BYTES = 6 * 4 + 1
+
+
+def nee_shade_plain(lanes: dict, nl, variant: int):
+    """The plain half after the sweep on the lanes, with the hair lobes of the kernel instance."""
+    from strelka_tpu_torch.kernels import nee as KN
+    from strelka_tpu_torch.kernels import shade as KS
+
+    with hair_lobes(variant):
+        return KN.nee_shade_plain(nl, **KN.shade_args(lanes), enable_hair=variant != KS.NO_FIBRE)
+
+
+def hold_nee(dev, n: int, variant, where: str) -> None:
+    """K11 at both rect light sampling methods and K12 at one instance
+    (`variant`, or a scene: the instance its launch takes) held bit for bit
+    against their plain halves at n lanes, on random lanes of every light and
+    material type with NaN planted (kernels/nee.py:random_lanes)."""
+    from strelka_tpu_torch.kernels import nee as KN
+    from strelka_tpu_torch.kernels import shade as KS
+
+    if not isinstance(variant, int):
+        variant = KS.fibre_variant(variant.has_curves or variant.has_hair)
+    if {("nee_light", (n, m)) for m in KN.METHODS} | {("nee_shade", (n, variant))} <= HELD:
+        return
+    for method in KN.METHODS:
+        lanes = KN.random_lanes(n, 5 * n + 2 * variant + method, dev, nan_share=0.01)
+        nl = held(lambda: KN.nee_light(**KN.light_args(lanes), method=method))
+        off = KN.lanes_off(nl, KN.nee_light_plain(**KN.light_args(lanes), method=method))
+        got = held(lambda: KN.nee_shade(nl, **KN.shade_args(lanes), enable_hair=variant != KS.NO_FIBRE,
+                                        variant=variant))
+        off.update(KN.lanes_off(got, nee_shade_plain(lanes, nl, variant)))
+        if any(off.values()):
+            raise AssertionError(f"K11/K12 differ from their plain halves at {n} lanes, method {method}, instance "
+                                 f"{variant} ({where}): {off}")
+    log(f"K11 and K12 bit-equal (tolerance: none) at {n} lanes, both methods, instance {variant} ({where})")
+
+
+def phase_nee(dev):
+    """Phase 16 -> K11's and K12's rows (timed at SHADE_TIMED)."""
+    import torch
+
+    from strelka_tpu_torch.kernels import nee as KN
+    from strelka_tpu_torch.kernels import shade as KS
+
+    t0 = time.perf_counter()
+    for variant in (KS.NO_FIBRE, KS.CHIANG, KS.KAJIYA_KAY):
+        for n in SHADE_EDGES:
+            hold_nee(dev, n, variant, "edge")
+    rows = []
+    for n in SHADE_TIMED:
+        for variant in (KS.NO_FIBRE, KS.CHIANG):
+            hold_nee(dev, n, variant, "timed")
+        lanes = KN.random_lanes(n, n + 1, dev)
+        for method in KN.METHODS:
+            def light():
+                return KN.nee_light(**KN.light_args(lanes), method=method)
+
+            def light_plain():
+                return KN.nee_light_plain(**KN.light_args(lanes), method=method)
+
+            rows.append(dict(
+                kernel="nee_light", at=f"random lanes, rect method {method}", shape=(n, method),
+                ms=time_ms(light), device_ms=graph_ms(light),
+                plain_ms=time_ms(light_plain, samples=5, inner=2),
+                plain_device_ms=graph_ms(light_plain, calls=2, samples=5),
+                bound_bytes=n * NEE_LIGHT_BYTES, bound_ops_s=0.0, max_abs_err=0.0, library_ms=None))
+        nl = KN.nee_light(**KN.light_args(lanes), method=0)
+        able = int(nl.nee_able.sum())
+        for variant, label in ((KS.NO_FIBRE, "no fibre"), (KS.CHIANG, "Chiang fibre")):
+            def shade():
+                return KN.nee_shade(nl, **KN.shade_args(lanes), enable_hair=variant != KS.NO_FIBRE, variant=variant)
+
+            def shade_plain():
+                return nee_shade_plain(lanes, nl, variant)
+
+            rows.append(dict(
+                kernel="nee_shade", at=f"random lanes, {label}", shape=(n, variant),
+                ms=time_ms(shade), device_ms=graph_ms(shade),
+                plain_ms=time_ms(shade_plain, samples=5, inner=2),
+                plain_device_ms=graph_ms(shade_plain, calls=2, samples=5),
+                bound_bytes=able * NEE_SHADE_ABLE_BYTES + (n - able) * NEE_SHADE_OTHER_BYTES + n * NEE_SHADE_OUT_BYTES,
+                bound_ops_s=0.0, max_abs_err=0.0, library_ms=None))
+    torch.cuda.synchronize()
+    finish_bounds(rows)
+    for r in rows:
+        log(f"{r['kernel']} at {r['shape'][0]} lanes ({r['at']}): {r['device_ms']:.4f} ms alone (events "
+            f"{r['ms']:.4f}), the plain half {r['plain_device_ms']:.3f} ms alone (events {r['plain_ms']:.3f}), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_bytes']} bytes)")
+    log(f"K11/K12 phase in {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -3472,6 +3599,8 @@ def main() -> int:
 
     # ---- 15. kernel K10, the BSDF phase
     shade_rows = phase_shade(dev)
+    # ---- 16. kernels K11 and K12, the NEE phase less its shadow sweep
+    shade_rows += phase_nee(dev)
 
     # ---- 2. Cornell: kernels K1-K4, fidelity through the library API, main path
     host, scene = cornell_scene(dev)

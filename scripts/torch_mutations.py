@@ -44,7 +44,11 @@ Mutants:
                   must catch it;
   k10_p_spec_swapped  K10's OmniPBR lobe probability clamped with its
                   bounds swapped (always 0.05): K10's card test
-                  (tests/test_torch_shade_bsdf_card.py) must catch it.
+                  (tests/test_torch_shade_bsdf_card.py) must catch it;
+  k12_mis_swapped  K12's balance heuristic with its two pdfs swapped (the
+                  light's weight given to the BSDF's sample): K11 and K12's
+                  card test (tests/test_torch_shade_nee_card.py) must catch
+                  it.
 """
 
 from __future__ import annotations
@@ -113,11 +117,16 @@ constexpr float kStrelkaPad = 0x1p-13f;"""),
         ("strelka_tpu_torch/csrc/bsdf.cuh", "clamp(p_spec, SB_F(0.05), SB_F(0.95))",
          "clamp(p_spec, SB_F(0.95), SB_F(0.05))"),
     ],
+    "k12_mis_swapped": [
+        ("strelka_tpu_torch/csrc/nee.cu", "recip(1.0f + pdf / lpdf)", "recip(1.0f + lpdf / pdf)"),
+    ],
 }
 # a mutant's check where it is not chip_smoke.py (the interpreter's arguments)
 CHECKS = {
     "k10_p_spec_swapped": ["-m", "pytest", "--noconftest", "-m", "card", "-q", "-x", "-p", "no:cacheprovider",
                            "tests/test_torch_shade_bsdf_card.py"],
+    "k12_mis_swapped": ["-m", "pytest", "--noconftest", "-m", "card", "-q", "-x", "-p", "no:cacheprovider",
+                        "tests/test_torch_shade_nee_card.py"],
 }
 LEFT_OUT = shutil.ignore_patterns("build", "_build", ".git", "__pycache__")
 

@@ -27,6 +27,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace strelka_bsdf {
 
 #define SB_F(x) static_cast<float>(x)
@@ -74,6 +76,45 @@ __device__ __forceinline__ F3 operator*(F3 a, F3 b) { return {a.x * b.x, a.y * b
 __device__ __forceinline__ F3 operator*(F3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
 __device__ __forceinline__ F3 operator-(F3 a) { return {-a.x, -a.y, -a.z}; }
 __device__ __forceinline__ F3 splat(float v) { return {v, v, v}; }
+
+// The [n] field arrays of a shading kernel that takes one lane a thread
+// (K10-K12): kIn inputs and kOut outputs, in the order of the wrapper's field
+// lists (kernels/shade.py, kernels/nee.py). Inputs go through the read-only
+// cache; a flag is one byte.
+template <int kIn, int kOut>
+struct Lanes {
+    const void* in[kIn];
+    void* out[kOut];
+
+    template <typename T>
+    __device__ __forceinline__ T ld(int field, long long i) const {
+        if constexpr (std::is_same<T, bool>::value)
+            return static_cast<const bool*>(in[field])[i];
+        else
+            return __ldg(static_cast<const T*>(in[field]) + i);
+    }
+    __device__ __forceinline__ F3 ld3(int field, long long i) const {
+        return {ld<float>(field, i), ld<float>(field + 1, i), ld<float>(field + 2, i)};
+    }
+    template <typename T>
+    __device__ __forceinline__ void st(int field, long long i, T v) const {
+        static_cast<T*>(out[field])[i] = v;
+    }
+    __device__ __forceinline__ void st3(int field, long long i, F3 v) const {
+        st(field, i, v.x);
+        st(field + 1, i, v.y);
+        st(field + 2, i, v.z);
+    }
+};
+
+// Lanes from host arrays of the inputs' and the outputs' device pointers
+template <int kIn, int kOut>
+inline Lanes<kIn, kOut> make_lanes(const void* const* in, void* const* out) {
+    Lanes<kIn, kOut> p;
+    for (int k = 0; k < kIn; ++k) p.in[k] = in[k];
+    for (int k = 0; k < kOut; ++k) p.out[k] = out[k];
+    return p;
+}
 
 __device__ __forceinline__ float dot(F3 a, F3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
 

@@ -54,35 +54,7 @@ enum : int {
     kFirstEventOut, kSpecularBounceOut, kOutCount
 };
 
-struct ShadePtrs {
-    const void* in[kInCount];
-    void* out[kOutCount];
-};
-
-template <typename T>
-__device__ __forceinline__ T ld(const ShadePtrs& p, int field, long long i) {
-    return __ldg(static_cast<const T*>(p.in[field]) + i);
-}
-
-template <>
-__device__ __forceinline__ bool ld<bool>(const ShadePtrs& p, int field, long long i) {
-    return static_cast<const bool*>(p.in[field])[i];
-}
-
-__device__ __forceinline__ F3 ld3(const ShadePtrs& p, int field, long long i) {
-    return {ld<float>(p, field, i), ld<float>(p, field + 1, i), ld<float>(p, field + 2, i)};
-}
-
-template <typename T>
-__device__ __forceinline__ void st(const ShadePtrs& p, int field, long long i, T v) {
-    static_cast<T*>(p.out[field])[i] = v;
-}
-
-__device__ __forceinline__ void st3(const ShadePtrs& p, int field, long long i, F3 v) {
-    st(p, field, i, v.x);
-    st(p, field + 1, i, v.y);
-    st(p, field + 2, i, v.z);
-}
+using ShadePtrs = Lanes<kInCount, kOutCount>;
 
 // ops/sampler.py:uniform_hash: the PCG hash of the sample index salted by
 // the bounce, as an f32 in [0, 1)
@@ -101,22 +73,22 @@ template <int kFibre>
 __global__ void __launch_bounds__(kThreads) shade_bsdf_kernel(const ShadePtrs p, long long n, int depth) {
     const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
     if (i >= n) return;
-    F3 radiance = ld3(p, kRadianceX, i);
-    F3 throughput = ld3(p, kThroughputX, i);
-    int first_event = ld<int>(p, kFirstEvent, i);
-    bool specular_bounce = ld<bool>(p, kSpecularBounce, i);
+    F3 radiance = p.ld3(kRadianceX, i);
+    F3 throughput = p.ld3(kThroughputX, i);
+    int first_event = p.ld<int>(kFirstEvent, i);
+    bool specular_bounce = p.ld<bool>(kSpecularBounce, i);
     F3 k2 = splat(0.0f), over_pdf = splat(0.0f);
     float pdf = 0.0f;
     int event = kEventAbsorb;
     bool cut = false, shade = false;
-    if (ld<bool>(p, kHitSurface, i)) {
-        const F3 direction = ld3(p, kDirectionX, i);
-        const float opacity = ld<float>(p, kOpacity, i);
+    if (p.ld<bool>(kHitSurface, i)) {
+        const F3 direction = p.ld3(kDirectionX, i);
+        const float opacity = p.ld<float>(kOpacity, i);
         // the cutout decision comes first: a pass-through collects no emission
-        cut = (opacity < 1.0f) & (uniform_hash(ld<long long>(p, kSampleIdx, i), depth) >= opacity);
-        const F3 emission = ld3(p, kEmissionX, i);
+        cut = (opacity < 1.0f) & (uniform_hash(p.ld<long long>(kSampleIdx, i), depth) >= opacity);
+        const F3 emission = p.ld3(kEmissionX, i);
         const bool emissive = !cut & ((emission.x != 0.0f) | (emission.y != 0.0f) | (emission.z != 0.0f));
-        const bool front = dot(ld3(p, kGeomNormalX, i), direction) < 0.0f;
+        const bool front = dot(p.ld3(kGeomNormalX, i), direction) < 0.0f;
         if (emissive & front) radiance = radiance + throughput * emission;
         if (cut) {  // straight through as a specular transmission, in the same medium
             k2 = direction;
@@ -124,21 +96,21 @@ __global__ void __launch_bounds__(kThreads) shade_bsdf_kernel(const ShadePtrs p,
             event = kEventSpecularTransmission;
         } else {
             Material m;
-            m.type = ld<int>(p, kType, i);
-            m.diffuse = ld3(p, kDiffuseX, i);
-            m.metallic = ld<float>(p, kMetallic, i);
-            m.roughness = ld<float>(p, kRoughness, i);
-            m.specular_level = ld<float>(p, kSpecularLevel, i);
-            m.ior = ld<float>(p, kIor, i);
-            m.glass = ld3(p, kGlassX, i);
-            m.thin_walled = ld<bool>(p, kThinWalled, i);
+            m.type = p.ld<int>(kType, i);
+            m.diffuse = p.ld3(kDiffuseX, i);
+            m.metallic = p.ld<float>(kMetallic, i);
+            m.roughness = p.ld<float>(kRoughness, i);
+            m.specular_level = p.ld<float>(kSpecularLevel, i);
+            m.ior = p.ld<float>(kIor, i);
+            m.glass = p.ld3(kGlassX, i);
+            m.thin_walled = p.ld<bool>(kThinWalled, i);
             Frame fr;
-            fr.normal = ld3(p, kNormalX, i);
-            fr.tangent_u = ld3(p, kTangentUX, i);
-            fr.tangent_v = ld3(p, kTangentVX, i);
-            const float xi[4] = {ld<float>(p, kXi0, i), ld<float>(p, kXi1, i), ld<float>(p, kXi2, i),
-                                 ld<float>(p, kXi3, i)};
-            const bool inside = ld<bool>(p, kInside, i);
+            fr.normal = p.ld3(kNormalX, i);
+            fr.tangent_u = p.ld3(kTangentUX, i);
+            fr.tangent_v = p.ld3(kTangentVX, i);
+            const float xi[4] = {p.ld<float>(kXi0, i), p.ld<float>(kXi1, i), p.ld<float>(kXi2, i),
+                                 p.ld<float>(kXi3, i)};
+            const bool inside = p.ld<bool>(kInside, i);
             const float ior1 = inside ? m.ior : 1.0f;
             const float ior2 = inside ? 1.0f : m.ior;
             const Sample s = bsdf_sample<kFibre>(m, fr, -direction, xi, ior1, ior2);
@@ -157,16 +129,16 @@ __global__ void __launch_bounds__(kThreads) shade_bsdf_kernel(const ShadePtrs p,
         shade = !absorbed;
         if (shade) specular_bounce = (event & kEventSpecular) != 0;
     }
-    st3(p, kK2X, i, k2);
-    st(p, kPdf, i, pdf);
-    st3(p, kOverPdfX, i, over_pdf);
-    st(p, kEventType, i, event);
-    st(p, kCut, i, cut);
-    st(p, kShade, i, shade);
-    st3(p, kRadianceOutX, i, radiance);
-    st3(p, kThroughputOutX, i, throughput);
-    st(p, kFirstEventOut, i, first_event);
-    st(p, kSpecularBounceOut, i, specular_bounce);
+    p.st3(kK2X, i, k2);
+    p.st(kPdf, i, pdf);
+    p.st3(kOverPdfX, i, over_pdf);
+    p.st(kEventType, i, event);
+    p.st(kCut, i, cut);
+    p.st(kShade, i, shade);
+    p.st3(kRadianceOutX, i, radiance);
+    p.st3(kThroughputOutX, i, throughput);
+    p.st(kFirstEventOut, i, first_event);
+    p.st(kSpecularBounceOut, i, specular_bounce);
 }
 
 }  // namespace
@@ -176,9 +148,7 @@ __global__ void __launch_bounds__(kThreads) shade_bsdf_kernel(const ShadePtrs p,
 extern "C" int strelka_shade_bsdf(const void* const* in, void* const* out, long long n, int depth, int variant,
                                   void* stream) {
     if (n < 1 || variant < kNoFibre || variant > kKajiyaKay) return static_cast<int>(cudaErrorInvalidValue);
-    ShadePtrs p;
-    for (int k = 0; k < kInCount; ++k) p.in[k] = in[k];
-    for (int k = 0; k < kOutCount; ++k) p.out[k] = out[k];
+    const ShadePtrs p = make_lanes<kInCount, kOutCount>(in, out);
     const unsigned int blocks = strelka_blocks(n, kThreads);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (variant == kChiang)

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
 One module per kernel family (sobol, intersect, bvh, gather, cones, open_w,
-shade). Each wrapper sends a CPU tensor to the plain version and a CUDA
+shade, nee). Each wrapper sends a CPU tensor to the plain version and a CUDA
 tensor to its kernel; there is no fallback from one to the other. Sources
 are in ../csrc, built by build.py.
 
@@ -24,7 +24,7 @@ loop over the counts.
 from __future__ import annotations
 
 KERNEL_NAMES = ("sobol", "intersect_closest", "intersect_any", "gather_rows_t", "bvh_closest", "bvh_any",
-                "cone_closest", "cone_any", "open_w", "shade_bsdf")
+                "cone_closest", "cone_any", "open_w", "shade_bsdf", "nee_light", "nee_shade")
 
 launch_counts = {name: 0 for name in KERNEL_NAMES}
 count_replays = False  # whether a graph's replay adds its kernels to the counts

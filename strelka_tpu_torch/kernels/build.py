@@ -12,7 +12,7 @@ was (kernels.loaded).
 Flags: `sm_90a`, -O3, no fast math. The intersection sources also get
 -fmad=false, so the slab tests, Möller–Trumbore and the round-cone closed
 form round every product and sum on their own, as the CPU reference and the plain PyTorch versions do;
-so does the BSDF phase (shade.cu), as each elementwise PyTorch kernel rounds its one operation.
+so do the BSDF and NEE phases (shade.cu, nee.cu), as each elementwise PyTorch kernel rounds its one operation.
 
 Nothing here runs at import: `load()` builds on first use.
 """
@@ -43,6 +43,7 @@ SOURCES = {
     "cones.cu": ["-fmad=false"],
     "open_w.cu": ["-fmad=false"],
     "shade.cu": ["-fmad=false"],
+    "nee.cu": ["-fmad=false"],
 }
 HEADERS = ["common.cuh", "bsdf.cuh"]
 
@@ -72,6 +73,10 @@ SIGNATURES = {
     "strelka_open_w": [_VP] * 9 + [_I32, _VP, _VP, _I32, _I64] + [_VP] * 7,
     # the inputs' and the outputs' pointers (host arrays, kernels/shade.py's orders), n, depth, variant, stream
     "strelka_shade_bsdf": [_VP, _VP, _I64, _I32, _I32, _VP],
+    # the same pointers (kernels/nee.py's orders), the light table and its rows, n; num_lights, the rect method
+    # (K11) or the variant (K12); stream
+    "strelka_nee_light": [_VP, _VP, _VP, _I32, _I64, _I32, _I32, _VP],
+    "strelka_nee_shade": [_VP, _VP, _VP, _I32, _I64, _I32, _VP],
     "strelka_error_string": [_I32],
 }
 

@@ -57,9 +57,6 @@ DTYPES = {"type": torch.int32, "first_event": torch.int32, "event_type": torch.i
           "first_event_out": torch.int32, "sample_idx": torch.int64, "thin_walled": torch.bool,
           "inside": torch.bool, "hit_surface": torch.bool, "specular_bounce": torch.bool, "cut": torch.bool,
           "shade": torch.bool, "specular_bounce_out": torch.bool}
-_F32_OUT = [f for f in OUT_FIELDS if f not in DTYPES]
-_I32_OUT = [f for f in OUT_FIELDS if DTYPES.get(f) == torch.int32]
-_BOOL_OUT = [f for f in OUT_FIELDS if DTYPES.get(f) == torch.bool]
 
 
 class Shaded(NamedTuple):
@@ -137,16 +134,47 @@ def _inputs(mat: B.SurfaceParams, frame: B.ShadingFrame, direction: Vec3, xi, sa
           *mat.glass_color, mat.opacity, *mat.emission_color, mat.thin_walled,
           *frame.normal, *frame.tangent_u, *frame.tangent_v, *frame.geom_normal,
           *direction, *xi, sample_idx, inside, hit_surface, *radiance, *throughput, first_event, specular_bounce]
-    n, dev = sample_idx.shape[0], sample_idx.device
-    for name, t in zip(IN_FIELDS, ts):
-        want = DTYPES.get(name, torch.float32)
+    return checked("shade_bsdf", IN_FIELDS, ts, DTYPES, "sample_idx")
+
+
+def checked(kernel: str, fields, ts: list, dtypes: dict, like: str) -> list:
+    """A lane kernel's inputs `ts` in the order of `fields`, each checked: a
+    contiguous [N] tensor of its dtype (f32 unless `dtypes` names it) on the
+    device of the input named `like`, whose length is N."""
+    ref = ts[fields.index(like)]
+    n, dev = ref.shape[0], ref.device
+    for name, t in zip(fields, ts):
+        want = dtypes.get(name, torch.float32)
         if not isinstance(t, torch.Tensor) or t.dtype != want or t.shape != (n,) or not t.is_contiguous():
             what = (f"{t.dtype} {tuple(t.shape)}{'' if t.is_contiguous() else ' non-contiguous'}"
                     if isinstance(t, torch.Tensor) else type(t).__name__)
-            raise ValueError(f"shade_bsdf: {name} must be a contiguous [{n}] {want} tensor, not {what}")
+            raise ValueError(f"{kernel}: {name} must be a contiguous [{n}] {want} tensor, not {what}")
         if t.device != dev:
-            raise ValueError(f"shade_bsdf: {name} is on {t.device}, sample_idx on {dev}")
+            raise ValueError(f"{kernel}: {name} is on {t.device}, {like} on {dev}")
     return ts
+
+
+def outputs(fields, dtypes: dict, n: int, dev) -> dict:
+    """A lane kernel's outputs by name, allocated on the current stream: one
+    [k, n] block a dtype (f32 unless `dtypes` names it), a row an output."""
+    rows = {}
+    for dtype in (torch.float32, torch.int32, torch.bool):
+        names = [f for f in fields if dtypes.get(f, torch.float32) == dtype]
+        if names:
+            rows.update(zip(names, torch.empty((len(names), n), dtype=dtype, device=dev)))
+    return rows
+
+
+def launch(kernel: str, ins: list, out: list, *args, shape: tuple) -> None:
+    """Call a lane kernel's C entry (strelka_<kernel>) with host arrays of its
+    inputs' and outputs' device pointers, `args` and the current stream, and
+    count the launch."""
+    rc = getattr(build.load(), "strelka_" + kernel)(
+        (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins)),
+        (ctypes.c_void_p * len(out))(*(t.data_ptr() for t in out)),
+        *args, build.stream_ptr(ins[0].device))
+    build.check(rc, kernel)
+    K.count_launch(kernel, shape)
 
 
 def shade_bsdf(mat: B.SurfaceParams, frame: B.ShadingFrame, direction: Vec3, xi, sample_idx, inside, hit_surface,
@@ -168,19 +196,10 @@ def shade_bsdf(mat: B.SurfaceParams, frame: B.ShadingFrame, direction: Vec3, xi,
                                 first_event, specular_bounce, depth=depth, enable_hair=enable_hair)
     K.require_cuda(sample_idx, "shade_bsdf")
     n, dev = sample_idx.shape[0], sample_idx.device
-    f32 = torch.empty((len(_F32_OUT), n), dtype=torch.float32, device=dev)
-    i32 = torch.empty((len(_I32_OUT), n), dtype=torch.int32, device=dev)
-    flags = torch.empty((len(_BOOL_OUT), n), dtype=torch.bool, device=dev)
-    rows = {**dict(zip(_F32_OUT, f32)), **dict(zip(_I32_OUT, i32)), **dict(zip(_BOOL_OUT, flags))}
-    out = [rows[f] for f in OUT_FIELDS]
+    o = outputs(OUT_FIELDS, DTYPES, n, dev)
+    out = [o[f] for f in OUT_FIELDS]
     if n > 0:
-        rc = build.load().strelka_shade_bsdf(
-            (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins)),
-            (ctypes.c_void_p * len(out))(*(t.data_ptr() for t in out)),
-            n, int(depth), int(variant), build.stream_ptr(dev))
-        build.check(rc, "shade_bsdf")
-        K.count_launch("shade_bsdf", (n, variant))
-    o = dict(zip(OUT_FIELDS, out))
+        launch("shade_bsdf", ins, out, n, int(depth), int(variant), shape=(n, variant))
     smp = B.BsdfSample(k2=Vec3(o["k2_x"], o["k2_y"], o["k2_z"]), pdf=o["pdf"],
                        bsdf_over_pdf=Vec3(o["over_pdf_x"], o["over_pdf_y"], o["over_pdf_z"]),
                        event_type=o["event_type"])

@@ -8,8 +8,10 @@ branch divergence becomes masked selects. Each bounce runs one Sobol draw
 (kernel K1), one closest-hit sweep (radiance rays, mask PRIMARY: K5 over
 the scene's BVH, K2 over a flat scene), one attribute-row gather (K4), the
 BSDF phase (the cutout, the emission and bsdf_sample: K10 on the card,
-kernels/shade.py) and one any-hit sweep (NEE shadow rays, mask SHADOW: K6
-or K3); the rest of the shading is plain PyTorch on component-major Vec3.
+kernels/shade.py) and the NEE phase: its light sample and shadow ray (K11),
+one any-hit sweep (the shadow rays, mask SHADOW: K6 or K3) and the light's
+contribution (K12, kernels/nee.py); the rest of the shading is plain
+PyTorch on component-major Vec3.
 A scene with curves adds, per bounce, the closest round-cone sweep (K7),
 the Newton refinement of its winner to the exact swept envelope
 (ops/curve_refine.py), the curve's shading frame and material row (a second
@@ -48,6 +50,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from strelka_tpu_torch.kernels import nee as KN
 from strelka_tpu_torch.kernels import shade as KS
 from strelka_tpu_torch.ops import bsdf as B
 from strelka_tpu_torch.ops import light_sampling as LS
@@ -355,27 +358,6 @@ def curve_surface(scene: DeviceScene, chit: CurveHit, is_curve, origin: Vec3, di
     return V.where(is_curve, pos_curve, position), frame, mat
 
 
-def _light_from_rows(rows) -> LS.LightParams:
-    """LightParams from 20 light rows (a light_table gather, a broadcast row
-    or the light columns joined into the attr table)."""
-    c3 = lambda a: Vec3(rows[a], rows[a + 1], rows[a + 2])  # noqa: E731
-    return LS.LightParams(
-        p0=c3(0), p1=c3(3), p2=c3(6), p3=c3(9), color=c3(12), normal=c3(15),
-        type=rows[18].to(torch.int32), half_angle=rows[19], radius=rows[0],
-    )
-
-
-def _gather_light(scene: DeviceScene, light_id) -> LS.LightParams:
-    n = light_id.shape[0]
-    if scene.light_table.shape[0] == 1:
-        # single light: broadcast its row, no gather at all
-        rows = scene.light_table[0][:, None].expand(20, n)
-    else:
-        lid = torch.clamp(light_id, 0, scene.light_table.shape[0] - 1)
-        rows = V.gather_rows_t(scene.light_table, lid)
-    return _light_from_rows(rows)
-
-
 # ---- the wavefront order of the reference's accelerator path
 # (strelka_tpu/ops/integrator.py:371-563 and render_launch :1044-1067): pixels
 # in Z-order, and from bounce 1 on the whole wavefront sorted by a
@@ -577,6 +559,7 @@ def trace_paths(
     bg = f32_on(params.bg_color, dev)
     tmin_mat = torch.full((n,), material_ray_tmin, dtype=torch.float32, device=dev)
     tmax_big = torch.full((n,), 1e16, dtype=torch.float32, device=dev)
+    shadow_tmin = torch.full((n,), shadow_ray_tmin, dtype=torch.float32, device=dev)
     lanes = P.lane_counts(max_depth, dev)
     has_curves = scene.has_curves
     enable_hair = has_curves or scene.has_hair
@@ -638,7 +621,7 @@ def trace_paths(
 
         # ---- __closesthit__light (cu:315-341)
         if num_lights > 0:
-            lp = _light_from_rows(attr_rows[ATTR_LIGHT_ROW:ATTR_JOINED])
+            lp = LS.light_from_rows(attr_rows[ATTR_LIGHT_ROW:ATTR_JOINED])
             hit_point_l = origin + direction * hit.t
             light_n = LS.calc_light_normal(lp, hit_point_l)
             cos_l = -V.dot(direction, light_n)
@@ -679,54 +662,26 @@ def trace_paths(
             mat, frame, direction, xi, sample_idx, inside, hit_surface, radiance, throughput, first_event,
             specular_bounce, depth=depth, enable_hair=enable_hair)
 
-        # ---- NEE (estimateDirectLighting, cu:312-324 + sampleLight :260-310)
+        # ---- NEE (estimateDirectLighting, cu:312-324 + sampleLight :260-310):
+        # the light sample and the shadow ray (kernel K11 on the card), the
+        # shadow sweep, then the light's contribution (kernel K12)
         P.device_phase("bounce.nee", depth)
         if num_lights > 0:
-            nee_able = shade & ((smp.event_type & (B.BSDF_EVENT_DIFFUSE | B.BSDF_EVENT_GLOSSY)) != 0)
-            u_l = rnd(Dim.eLightId)
-            light_id = torch.clamp((num_lights * u_l).to(torch.int32), 0, num_lights - 1)
-            lp = _gather_light(scene, light_id)
-            ls = LS.sample_light(
-                lp, rnd(Dim.eLightPointX), rnd(Dim.eLightPointY), position, rect_light_sampling_method
-            )
-            to_light = ls.L
-            li_all_nonzero = V.all_nonzero(lp.color)
-            cos_nl = V.dot(frame.normal, to_light)
-            geom_ok = (cos_nl > 0.0) & (-V.dot(to_light, ls.normal) > 0.0) & li_all_nonzero
-            shadow_org = offset_ray_vec(position, frame.geom_normal)
-            shadow_excl = torch.where(is_curve, -1, hit.prim)  # a curve hit excludes no triangle
-            shadow_tmin = torch.full((n,), shadow_ray_tmin, dtype=torch.float32, device=dev)
+            nl = KN.nee_light(shade, smp.event_type, rnd(Dim.eLightId), rnd(Dim.eLightPointX),
+                              rnd(Dim.eLightPointY), position, frame, is_curve, hit.prim, scene.light_table,
+                              num_lights=num_lights, method=rect_light_sampling_method)
             with P.device_span("bounce.shadow"):
                 if lanes is not None:
-                    lanes[depth, 1].add_((nee_able & geom_ok).sum())
+                    lanes[depth, 1].add_(nl.active.sum())
                 occluded = intersect_any(
-                    scene, shadow_org, to_light, shadow_tmin,
-                    ls.dist_to_light, RAY_MASK_SHADOW, active=nee_able & geom_ok, exclude=shadow_excl,
+                    scene, nl.shadow_org, nl.to_light, shadow_tmin,
+                    nl.dist_to_light, RAY_MASK_SHADOW, active=nl.active, exclude=nl.exclude,
                 )
                 if has_curves:
                     occluded = occluded | intersect_curves_any(
-                        scene, shadow_org, to_light, shadow_tmin, ls.dist_to_light, active=nee_able & geom_ok)
-            visibility = torch.where(geom_ok & ~occluded, 1.0, 0.0)
-            nee_w = visibility * torch.clamp(cos_nl, 0.0, 1.0)
-            nee_radiance = lp.color * nee_w
-
-            # NaN canary #1 (cu:552-558)
-            light_pdf = torch.where(geom_ok, ls.pdf, 0.0) * (1.0 / num_lights)
-            nan1 = nee_able & (V.any_nan(nee_radiance) | torch.isnan(light_pdf))
-
-            next_event_valid = ((cos_nl > 0.0) != inside) & (light_pdf != 0.0) & nee_able
-            ev = B.bsdf_evaluate(mat, frame, -direction, to_light, enable_hair=enable_hair)
-            nan2 = nee_able & (V.any_nan(ev.bsdf_diffuse) | V.any_nan(ev.bsdf_glossy))
-            contribute = next_event_valid & (ev.pdf > 0.0) & ~nan1 & ~nan2
-            inv_lpdf = 1.0 / torch.clamp(light_pdf, min=1e-20)
-            mis_w = LS.mis_weight_balance(torch.clamp(light_pdf, min=1e-20), ev.pdf)
-            nee_contrib = throughput * nee_radiance * (inv_lpdf * mis_w) * (ev.bsdf_diffuse + ev.bsdf_glossy)
-            radiance = V.where(contribute, radiance + nee_contrib, radiance)
-            # canary: radiance = (1e4, 0, 0), kill
-            canary = nan1 | nan2
-            radiance = V.where(canary, V.splat((1e4, 0.0, 0.0), n, dev), radiance)
-            throughput = V.where(canary, V.full(n, 0.0, dev), throughput)
-            shade = shade & ~canary
+                        scene, nl.shadow_org, nl.to_light, shadow_tmin, nl.dist_to_light, active=nl.active)
+            radiance, throughput, shade = KN.nee_shade(nl, occluded, inside, mat, frame, direction, radiance,
+                                                       throughput, shade, scene.light_table, enable_hair=enable_hair)
 
         # ---- next segment setup (cu:591-605)
         P.device_phase("bounce.next", depth)

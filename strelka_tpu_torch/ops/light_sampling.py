@@ -44,6 +44,30 @@ class LightSampleData(NamedTuple):
     dist_to_light: torch.Tensor
 
 
+def light_from_rows(rows) -> LightParams:
+    """LightParams from 20 light rows (a light_table gather, a broadcast row
+    or the light columns joined into the attr table)."""
+    c3 = lambda a: Vec3(rows[a], rows[a + 1], rows[a + 2])  # noqa: E731
+    return LightParams(
+        p0=c3(0), p1=c3(3), p2=c3(6), p3=c3(9), color=c3(12), normal=c3(15),
+        type=rows[18].to(torch.int32), half_angle=rows[19], radius=rows[0],
+    )
+
+
+def light_rows(light_table: torch.Tensor, light_id: torch.Tensor) -> torch.Tensor:
+    """The [20, N] rows of each lane's light in the [L, 20] light table: a
+    broadcast of the one row of a single light, else a row gather (kernel
+    K4 on the card) at the ids clamped to the table."""
+    n = light_id.shape[0]
+    if light_table.shape[0] == 1:
+        return light_table[0][:, None].expand(20, n)
+    return V.gather_rows_t(light_table, torch.clamp(light_id, 0, light_table.shape[0] - 1))
+
+
+def gather_light(light_table: torch.Tensor, light_id: torch.Tensor) -> LightParams:
+    return light_from_rows(light_rows(light_table, light_id))
+
+
 def mis_weight_balance(a, b):
     """Lights.h:28-31 (note: NOT guarded against a==0; callers guard)."""
     return 1.0 / (1.0 + b / a)

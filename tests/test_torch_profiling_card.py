@@ -2,7 +2,8 @@
 
 TorchRender's replayed frames of Cornell at 64x64, 1 spp, depth 4:
 (a) with the recorder off the key's graph has the node count recorded for
-    it (NODES_OFF, each bounce's BSDF phase one K10 node). Off, the recorder
+    it (NODES_OFF: each bounce's BSDF phase one K10 node, its NEE phase a K11
+    and a K12 node around the shadow sweep). Off, the recorder
     adds no node to a graph;
 (b) with it on, a replayed frame's top-level device spans sum to within 2%
     of the frame's device time by CUDA events (from a mark right before the
@@ -29,7 +30,7 @@ from strelka_tpu_torch.utils import profiling as P
 
 SIZE = 64
 FRAMES = 5  # the key's eager launch, its capture and replay, three replays
-NODES_OFF = 6373  # cuGraphGetNodes of the key's graph, recorder off (NVIDIA H100 80GB HBM3, torch 2.11)
+NODES_OFF = 3198  # cuGraphGetNodes of the key's graph, recorder off (NVIDIA H100 80GB HBM3, torch 2.11)
 
 
 @pytest.fixture

@@ -189,7 +189,7 @@ def _light_rows(rng):
 
 
 def _light_params(rows):
-    return JI._light_from_rows(jnp.asarray(rows)), TI._light_from_rows(torch.tensor(rows))
+    return JI._light_from_rows(jnp.asarray(rows)), TL.light_from_rows(torch.tensor(rows))
 
 
 @pytest.mark.parametrize("method", [0, 1])
