@@ -186,6 +186,16 @@ Phases (any failure raises and the script exits non-zero):
      graph, the plain half both ways, bound_ms from the bytes a lane must
      move at 3.35 TB/s). Every main path and entry point holds both first at
      its own lanes (hold_nee).
+ 17. (run after 16) kernel K13, the surface phase less its texture lookups
+     (kernels/surface.py): each of its six instances (curves or not, the
+     refinement or not, the uv outputs or not) bit for bit against the plain
+     phase on random lanes (misses, light hits of every type, triangles from
+     both sides, curve hits that converge, graze or are ghosts) at depths 0
+     and 1 at 1, 1,023 and 2^20 + 3 lanes, then held and timed alone at
+     786,432 and 196,608 lanes (ms by events, device_ms replayed from a CUDA
+     graph, the plain phase both ways, bound_ms from the bytes a lane must
+     move at 3.35 TB/s). Every main path and entry point holds it first at
+     its own lanes and instance (hold_surface).
 
 Since the round-cone closed form follows the JAX package's CPU rounding
 (XLA's FMA contraction, ops/curves.py:ray_round_cone), K8 is held against
@@ -281,6 +291,7 @@ REPLACES = {
     "shade_bsdf": ("none: the TPU package leaves the BSDF phase to XLA", "strelka_tpu_torch/csrc/shade.cu"),
     "nee_light": ("none: the TPU package leaves the NEE phase to XLA", "strelka_tpu_torch/csrc/nee.cu"),
     "nee_shade": ("none: the TPU package leaves the NEE phase to XLA", "strelka_tpu_torch/csrc/nee.cu"),
+    "shade_surface": ("none: the TPU package leaves the surface phase to XLA", "strelka_tpu_torch/csrc/surface.cu"),
 }
 OPEN_K = 16  # superblocks a tile has swept when the open flag is asked (the reference's CONE_RESIDUAL_K)
 # what a walking kernel's entry in the kernels line carries beside the numbers of every entry
@@ -453,6 +464,7 @@ def main_path_rays(scene, params, device, cfg: Config):
     trace_paths makes them (a textured scene's lookups included)."""
     import torch
 
+    from strelka_tpu_torch.kernels import surface as KSF
     from strelka_tpu_torch.ops import bsdf as B
     from strelka_tpu_torch.ops import integrator as I
     from strelka_tpu_torch.ops import light_sampling as LS
@@ -474,10 +486,10 @@ def main_path_rays(scene, params, device, cfg: Config):
     hit = intersect_closest(scene, origin, direction, tmin, tmax, RAY_MASK_PRIMARY)
     # bounce 0 shading, as trace_paths does it, to get the bounce-1 rays
     inside = torch.zeros(m, dtype=torch.bool, device=device)
-    position, frame, light_id, rows, uv = I._gather_surface(scene, hit, inside)
-    mat = I._material_from_rows(rows[ATTR_MAT_ROW:ATTR_LIGHT_ROW])
+    position, frame, light_id, rows, uv = KSF.gather_surface(scene.attr_table, hit, inside, scene.textures is not None)
+    mat = KSF.material_from_rows(rows[ATTR_MAT_ROW:ATTR_LIGHT_ROW])
     if scene.textures is not None:
-        mat, frame = I.shade_textures(scene, mat, frame, rows[ATTR_MAT_ROW:ATTR_LIGHT_ROW], uv,
+        mat, frame = I.shade_textures(scene, mat, frame, tuple(rows[ATTR_MAT_ROW + 12:ATTR_MAT_ROW + 20]), uv,
                                       torch.where(hit.prim >= 0, hit.t, 0.0),
                                       I.ray_cone_spread(params, cfg.height), sample_idx,
                                       torch.arange(m, dtype=torch.int32, device=device), 0)
@@ -486,7 +498,8 @@ def main_path_rays(scene, params, device, cfg: Config):
     if scene.has_curves:
         chit = I.closest_curve_hit(scene, origin, direction, tmin, tmax, None)
         is_curve = (chit.seg >= 0) & (chit.t < hit.t)
-        position, frame, mat = I.curve_surface(scene, chit, is_curve, origin, direction, inside, position, frame, mat)
+        position, frame, mat = KSF.curve_surface(scene.curves, scene.mat_table, chit, is_curve, origin, direction,
+                                                 inside, position, frame, mat)
         seg_mat = torch.clamp(scene.curves.material_id[torch.clamp(chit.seg, min=0).to(torch.int64)], min=0)
     smp = B.bsdf_sample(mat, frame, -direction, (dims[0], dims[1], dims[2], dims[3]),
                         torch.ones_like(mat.ior), mat.ior, enable_hair=scene.has_curves or scene.has_hair)
@@ -1150,6 +1163,7 @@ def phase_main_path(scene, host, cfg: Config):
     dev = scene.device
     kw = main_path_kw(cfg)
     w, h = cfg.width, cfg.height
+    hold_surface(dev, w * h * cfg.spp, scene, cfg.name)
     hold_shade(dev, w * h * cfg.spp, scene, cfg.name)
     hold_nee(dev, w * h * cfg.spp, scene, cfg.name)
     state = I.make_frame_state(h, w, dev)
@@ -2181,6 +2195,7 @@ def hold_at(scene, host, w: int, h: int, spp: int, where: str) -> None:
     sample_idx, camera, bounce1, shadow, prims, lid, _ = main_path_rays(scene, launch_params(host, w, h, 0),
                                                                         scene.device, cfg)
     order_gathers(scene, cfg, where, I.pixel_zorder(w, h, scene.device)[1], launch_lanes(scene, cfg, bounce1)[2], False)
+    hold_surface(scene.device, sample_idx.shape[0], scene, where)
     hold_shade(scene.device, sample_idx.shape[0], scene, where)
     hold_nee(scene.device, sample_idx.shape[0], scene, where)
     for dims, depths in ((JITTER_DIMS, (0,)), (BOUNCE_DIMS, range(cfg.depth))):
@@ -3327,6 +3342,92 @@ def phase_nee(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 17: kernel K13, the surface phase less its texture lookups
+# ---------------------------------------------------------------------------
+
+# bytes a lane moves at least: every lane reads alive, inside (flags), hit_t,
+# prim and its radiance and throughput (8 words); a live lane that hit a
+# cone its segment id; every lane writes 35 f32 words, the type (int32) and
+# 3 flags, and a textured scene's lanes 12 words more; the triangle rows a
+# lane reads (columns 0-47) count once a row
+SURFACE_IN_BYTES = 8 * 4 + 2
+SURFACE_OUT_BYTES = 35 * 4 + 4 + 3
+SURFACE_UV_OUT_BYTES = 12 * 4
+SURFACE_ROW_BYTES = 48 * 4
+# (curves, refine, uv): the kernel's instances
+SURFACE_INSTANCES = ((False, False, False), (False, False, True), (True, False, False), (True, True, False),
+                     (True, False, True), (True, True, True))
+
+
+def surface_instance(scene) -> tuple:
+    """The K13 instance a launch of the scene takes (kernels/surface.py:shade_surface)."""
+    return scene.has_curves, scene.has_curves and bool(scene.curve_refine), scene.textures is not None
+
+
+def hold_surface(dev, n: int, instance, where: str) -> None:
+    """K13 held bit for bit against its plain version at n lanes of one
+    kernel instance (`instance`, or a scene: the instance its launch takes),
+    on random lanes (kernels/surface.py:random_lanes) at depths 0 and 1."""
+    from strelka_tpu_torch.kernels import surface as KSF
+
+    if not isinstance(instance, tuple):
+        instance = surface_instance(instance)
+    curves, refine, uv = instance
+    if ("shade_surface", (n, int(curves), int(refine), int(uv))) in HELD:
+        return
+    for depth in (0, 1):
+        lanes = KSF.random_lanes(n, 7 * n + 2 * depth + 4 * curves + 2 * refine + uv, dev, curves=curves,
+                                 refine=refine, uv=uv)
+        got = held(lambda: KSF.shade_surface(**lanes, depth=depth))
+        off = KSF.lanes_off(got, KSF.shade_surface_plain(**lanes, depth=depth))
+        if any(off.values()):
+            raise AssertionError(f"K13 differs from its plain version at {n} lanes, instance {instance}, depth "
+                                 f"{depth} ({where}): {off}")
+    log(f"K13 bit-equal (tolerance: none) at {n} lanes, instance {instance}, depths 0 and 1 ({where})")
+
+
+def phase_surface(dev):
+    """Phase 17 -> K13's rows (timed at SHADE_TIMED)."""
+    import torch
+
+    from strelka_tpu_torch.kernels import surface as KSF
+
+    t0 = time.perf_counter()
+    for instance in SURFACE_INSTANCES:
+        for n in SHADE_EDGES:
+            hold_surface(dev, n, instance, "edge")
+    rows = []
+    for n in SHADE_TIMED:
+        for instance in SURFACE_INSTANCES:
+            hold_surface(dev, n, instance, "timed")
+            curves, refine, uv = instance
+            lanes = KSF.random_lanes(n, n + 1, dev, curves=curves, refine=refine, uv=uv)
+
+            def kern():
+                return KSF.shade_surface(**lanes, depth=1)
+
+            def plain():
+                return KSF.shade_surface_plain(**lanes, depth=1)
+
+            seg_lanes = int((lanes["alive"] & (lanes["chit"].seg >= 0)).sum()) if curves else 0
+            row_count = int(torch.unique(torch.clamp(lanes["hit"].prim, min=0)).numel())
+            rows.append(dict(
+                kernel="shade_surface", at=f"random lanes, curves {curves}, refine {refine}, uv {uv}",
+                shape=(n, int(curves), int(refine), int(uv)), ms=time_ms(kern), device_ms=graph_ms(kern),
+                plain_ms=time_ms(plain, samples=5, inner=2), plain_device_ms=graph_ms(plain, calls=2, samples=5),
+                bound_bytes=n * (SURFACE_IN_BYTES + SURFACE_OUT_BYTES + uv * SURFACE_UV_OUT_BYTES) + 4 * seg_lanes
+                + row_count * SURFACE_ROW_BYTES, bound_ops_s=0.0, max_abs_err=0.0, library_ms=None))
+    torch.cuda.synchronize()
+    finish_bounds(rows)
+    for r in rows:
+        log(f"K13 at {r['shape'][0]} lanes ({r['at']}): {r['device_ms']:.4f} ms alone (events {r['ms']:.4f}), the "
+            f"plain phase {r['plain_device_ms']:.3f} ms alone (events {r['plain_ms']:.3f}), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_bytes']} bytes)")
+    log(f"K13 phase in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 10: the launch cache (render/render.py: one CUDA graph a config key)
 # ---------------------------------------------------------------------------
 
@@ -3601,6 +3702,8 @@ def main() -> int:
     shade_rows = phase_shade(dev)
     # ---- 16. kernels K11 and K12, the NEE phase less its shadow sweep
     shade_rows += phase_nee(dev)
+    # ---- 17. kernel K13, the surface phase less its texture lookups
+    shade_rows += phase_surface(dev)
 
     # ---- 2. Cornell: kernels K1-K4, fidelity through the library API, main path
     host, scene = cornell_scene(dev)

@@ -48,7 +48,10 @@ Mutants:
   k12_mis_swapped  K12's balance heuristic with its two pdfs swapped (the
                   light's weight given to the BSDF's sample): K11 and K12's
                   card test (tests/test_torch_shade_nee_card.py) must catch
-                  it.
+                  it;
+  k13_inside_flip_dropped  K13's geometric normal left unflipped on the lanes
+                  that hit a triangle from inside: K13's card test
+                  (tests/test_torch_shade_surface_card.py) must catch it.
 """
 
 from __future__ import annotations
@@ -120,6 +123,10 @@ constexpr float kStrelkaPad = 0x1p-13f;"""),
     "k12_mis_swapped": [
         ("strelka_tpu_torch/csrc/nee.cu", "recip(1.0f + pdf / lpdf)", "recip(1.0f + lpdf / pdf)"),
     ],
+    "k13_inside_flip_dropped": [
+        ("strelka_tpu_torch/csrc/surface.cu", "fr.geom_normal = normalize(gcross) * flip;",
+         "fr.geom_normal = normalize(gcross);"),
+    ],
 }
 # a mutant's check where it is not chip_smoke.py (the interpreter's arguments)
 CHECKS = {
@@ -127,6 +134,8 @@ CHECKS = {
                            "tests/test_torch_shade_bsdf_card.py"],
     "k12_mis_swapped": ["-m", "pytest", "--noconftest", "-m", "card", "-q", "-x", "-p", "no:cacheprovider",
                         "tests/test_torch_shade_nee_card.py"],
+    "k13_inside_flip_dropped": ["-m", "pytest", "--noconftest", "-m", "card", "-q", "-x", "-p", "no:cacheprovider",
+                                "tests/test_torch_shade_surface_card.py"],
 }
 LEFT_OUT = shutil.ignore_patterns("build", "_build", ".git", "__pycache__")
 

@@ -1,9 +1,9 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
 One module per kernel family (sobol, intersect, bvh, gather, cones, open_w,
-shade, nee). Each wrapper sends a CPU tensor to the plain version and a CUDA
-tensor to its kernel; there is no fallback from one to the other. Sources
-are in ../csrc, built by build.py.
+surface, shade, nee). Each wrapper sends a CPU tensor to the plain version
+and a CUDA tensor to its kernel; there is no fallback from one to the other.
+Sources are in ../csrc, built by build.py.
 
 `launch_counts` counts kernel launches by name: a wrapper adds one where it
 launches its kernel (`count_launch`), and nowhere else. `launch_shapes`
@@ -24,7 +24,7 @@ loop over the counts.
 from __future__ import annotations
 
 KERNEL_NAMES = ("sobol", "intersect_closest", "intersect_any", "gather_rows_t", "bvh_closest", "bvh_any",
-                "cone_closest", "cone_any", "open_w", "shade_bsdf", "nee_light", "nee_shade")
+                "cone_closest", "cone_any", "open_w", "shade_bsdf", "nee_light", "nee_shade", "shade_surface")
 
 launch_counts = {name: 0 for name in KERNEL_NAMES}
 count_replays = False  # whether a graph's replay adds its kernels to the counts

@@ -12,7 +12,8 @@ was (kernels.loaded).
 Flags: `sm_90a`, -O3, no fast math. The intersection sources also get
 -fmad=false, so the slab tests, Möller–Trumbore and the round-cone closed
 form round every product and sum on their own, as the CPU reference and the plain PyTorch versions do;
-so do the BSDF and NEE phases (shade.cu, nee.cu), as each elementwise PyTorch kernel rounds its one operation.
+so do the surface, BSDF and NEE phases (surface.cu, shade.cu, nee.cu), as each elementwise PyTorch kernel
+rounds its one operation.
 
 Nothing here runs at import: `load()` builds on first use.
 """
@@ -44,6 +45,7 @@ SOURCES = {
     "open_w.cu": ["-fmad=false"],
     "shade.cu": ["-fmad=false"],
     "nee.cu": ["-fmad=false"],
+    "surface.cu": ["-fmad=false"],
 }
 HEADERS = ["common.cuh", "bsdf.cuh"]
 
@@ -77,6 +79,9 @@ SIGNATURES = {
     # (K11) or the variant (K12); stream
     "strelka_nee_light": [_VP, _VP, _VP, _I32, _I64, _I32, _I32, _VP],
     "strelka_nee_shade": [_VP, _VP, _VP, _I32, _I64, _I32, _VP],
+    # the lanes' pointers (kernels/surface.py's orders), the tables' pointers; the attr and material tables' rows,
+    # the curve segments, n; num_lights, depth, the instance (curves, refine, uv); stream
+    "strelka_shade_surface": [_VP, _VP, _VP, _I32, _I32, _I32, _I64] + [_I32] * 5 + [_VP],
     "strelka_error_string": [_I32],
 }
 

@@ -165,14 +165,18 @@ def outputs(fields, dtypes: dict, n: int, dev) -> dict:
     return rows
 
 
+def pointers(ts: list):
+    """A host array of the tensors' device pointers (NULL for None)."""
+    return (ctypes.c_void_p * len(ts))(*(None if t is None else t.data_ptr() for t in ts))
+
+
 def launch(kernel: str, ins: list, out: list, *args, shape: tuple) -> None:
     """Call a lane kernel's C entry (strelka_<kernel>) with host arrays of its
-    inputs' and outputs' device pointers, `args` and the current stream, and
+    inputs' and outputs' device pointers (NULL for None, a field the kernel
+    instance does not read or write), `args` and the current stream, and
     count the launch."""
-    rc = getattr(build.load(), "strelka_" + kernel)(
-        (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins)),
-        (ctypes.c_void_p * len(out))(*(t.data_ptr() for t in out)),
-        *args, build.stream_ptr(ins[0].device))
+    rc = getattr(build.load(), "strelka_" + kernel)(pointers(ins), pointers(out), *args,
+                                                    build.stream_ptr(ins[0].device))
     build.check(rc, kernel)
     K.count_launch(kernel, shape)
 

@@ -6,20 +6,20 @@ OptixRender_radiance_closest_hit.cu:456-606).
 All W*H*spp rays of a launch advance together through the bounce loop;
 branch divergence becomes masked selects. Each bounce runs one Sobol draw
 (kernel K1), one closest-hit sweep (radiance rays, mask PRIMARY: K5 over
-the scene's BVH, K2 over a flat scene), one attribute-row gather (K4), the
-BSDF phase (the cutout, the emission and bsdf_sample: K10 on the card,
-kernels/shade.py) and the NEE phase: its light sample and shadow ray (K11),
-one any-hit sweep (the shadow rays, mask SHADOW: K6 or K3) and the light's
-contribution (K12, kernels/nee.py); the rest of the shading is plain
-PyTorch on component-major Vec3.
+the scene's BVH, K2 over a flat scene), the surface phase (the miss, the
+hit triangle's attributes from its attr row, the light hit, the material:
+K13 on the card, kernels/surface.py), the BSDF phase (the cutout, the
+emission and bsdf_sample: K10, kernels/shade.py) and the NEE phase: its
+light sample and shadow ray (K11), one any-hit sweep (the shadow rays, mask
+SHADOW: K6 or K3) and the light's contribution (K12, kernels/nee.py); the
+rest of the shading is plain PyTorch on component-major Vec3.
 A scene with curves adds, per bounce, the closest round-cone sweep (K7),
-the Newton refinement of its winner to the exact swept envelope
-(ops/curve_refine.py), the curve's shading frame and material row (a second
-K4 gather, of mat_table) and the cone shadow sweep (K8), and turns on the
-fibre lobes of ops/hair.py.
+in K13 the Newton refinement of its winner to the exact swept envelope
+(ops/curve_refine.py) and the curve's shading frame and material row, and
+the cone shadow sweep (K8), and turns on the fibre lobes of ops/hair.py.
 
 A scene with textures (DeviceScene.textures) adds, per bounce, the ray
-cone's footprint at the hit and the texture lookups of shade_textures:
+cone's footprint at the hit (in K13) and the texture lookups of shade_textures:
 one-texel stochastic trilinear by default, its uniforms hashed from the
 sample index, the ray's slot, the bounce and the lookup slot, so that the
 port draws the texels the JAX package draws. A scene without textures takes
@@ -52,13 +52,12 @@ import torch
 
 from strelka_tpu_torch.kernels import nee as KN
 from strelka_tpu_torch.kernels import shade as KS
+from strelka_tpu_torch.kernels import surface as KSF
 from strelka_tpu_torch.ops import bsdf as B
-from strelka_tpu_torch.ops import light_sampling as LS
 from strelka_tpu_torch.ops import sampler as S
 from strelka_tpu_torch.ops import vec as V
 from strelka_tpu_torch.ops.bsdf import EventType
-from strelka_tpu_torch.ops.curve_refine import refine_scene_curve_hit
-from strelka_tpu_torch.ops.curves import CurveHit, curve_shading_frame_vec
+from strelka_tpu_torch.ops.curves import CurveHit
 from strelka_tpu_torch.ops.intersect import (
     Hit,
     intersect_any,
@@ -70,12 +69,6 @@ from strelka_tpu_torch.ops.intersect import (
 from strelka_tpu_torch.ops.vec import Vec3
 from strelka_tpu_torch.render.device_scene import (
     ATTR_JOINED,
-    ATTR_LIGHT,
-    ATTR_LIGHT_ROW,
-    ATTR_MAT_ROW,
-    ATTR_N,
-    ATTR_T,
-    ATTR_UV,
     RAY_MASK_PRIMARY,
     RAY_MASK_SHADOW,
     DeviceScene,
@@ -150,78 +143,6 @@ def generate_camera_rays(params: LaunchParams, px, py, jx, jy, width: int, heigh
     return origin, direction
 
 
-def _oct_decode24(code: torch.Tensor) -> Vec3:
-    """[N] f32 of 24-bit (12:12) octahedral codes -> unit Vec3."""
-    qu = torch.floor(code * (1.0 / 4096.0))
-    qv = code - qu * 4096.0
-    u = qu * (2.0 / 4094.0) - 1.0
-    v = qv * (2.0 / 4094.0) - 1.0
-    z = 1.0 - torch.abs(u) - torch.abs(v)
-    t = torch.clamp(-z, min=0.0)
-    x = u + torch.where(u >= 0.0, -t, t)
-    y = v + torch.where(v >= 0.0, -t, t)
-    return V.normalize(Vec3(x, y, z))
-
-
-def _gather_surface(scene: DeviceScene, hit: Hit, inside):
-    """fillTriangleGeomData (cu:365-421): interpolate attributes at the hit.
-
-    ONE fat row gather (kernel K4) of the joined attr table per hit; the
-    material and hit-light rows ride along. Returns (position, frame,
-    light_id, rows [68, N], uv), uv being None for a scene without textures
-    and else ((u, v), uv_density_log2): the interpolated texture
-    coordinates and the prim's log2 sqrt(uv area / world area), which the
-    mip selection adds to the ray cone's footprint."""
-    prim = torch.clamp(hit.prim, min=0)
-    rows = V.gather_rows_t(scene.attr_table, prim)
-    wu, wv = hit.u, hit.v
-    w0 = 1.0 - wu - wv
-    col = lambda a: Vec3(rows[a], rows[a + 1], rows[a + 2])  # noqa: E731
-    v0, e1, e2 = col(0), col(3), col(6)
-    position = v0 + e1 * wu + e2 * wv
-    n0d, n1d, n2d = (_oct_decode24(rows[ATTR_N + i]) for i in range(3))
-    t0d, t1d, t2d = (_oct_decode24(rows[ATTR_T + i]) for i in range(3))
-    normal = V.normalize(n0d * w0 + n1d * wu + n2d * wv)
-    tangent = V.normalize(t0d * w0 + t1d * wu + t2d * wv)
-    gcross = V.cross(e1, e2)
-    uv = None
-    if scene.textures is not None:
-        r = lambda i: rows[ATTR_UV + i]  # noqa: E731
-        uv_u = r(0) * w0 + r(2) * wu + r(4) * wv
-        uv_v = r(1) * w0 + r(3) * wu + r(5) * wv
-        # both areas share the 1/2 factor, so the parallelogram ratio is exact
-        uv_area2 = torch.abs((r(2) - r(0)) * (r(5) - r(1)) - (r(4) - r(0)) * (r(3) - r(1)))
-        world_area2 = V.length(gcross)
-        uv_density_log2 = 0.5 * (torch.log2(torch.clamp(uv_area2, min=1e-20))
-                                 - torch.log2(torch.clamp(world_area2, min=1e-20)))
-        uv = ((uv_u, uv_v), uv_density_log2)
-    geom_normal = V.normalize(gcross)
-    flip = torch.where(inside, -1.0, 1.0)
-    normal = normal * flip
-    geom_normal = geom_normal * flip
-    binormal = V.cross(normal, tangent)
-    frame = B.ShadingFrame(normal=normal, tangent_u=tangent, tangent_v=binormal, geom_normal=geom_normal)
-    light_id = rows[ATTR_LIGHT].to(torch.int32)
-    return position, frame, light_id, rows, uv
-
-
-def _material_from_rows(rows) -> B.SurfaceParams:
-    """SurfaceParams from 24 material rows (the material columns joined
-    into the attr table)."""
-    return B.SurfaceParams(
-        bsdf_type=rows[0].to(torch.int32),
-        diffuse_color=Vec3(rows[1], rows[2], rows[3]),
-        metallic=rows[4],
-        roughness=rows[5],
-        specular_level=rows[6],
-        ior=rows[7],
-        glass_color=Vec3(rows[8], rows[9], rows[10]),
-        opacity=rows[11],
-        emission_color=Vec3(rows[20], rows[21], rows[22]),
-        thin_walled=rows[23] > 0.5,
-    )
-
-
 def tex_stochastic() -> bool:
     """One-texel stochastic filtering, resolved as the JAX package resolves
     its `tex_stochastic` flag: STRELKA_TEX_STOCHASTIC if set, else on."""
@@ -257,7 +178,7 @@ def tex_uniforms(sample_idx: torch.Tensor, ray_slot: torch.Tensor, depth: int):
     return rnd
 
 
-def shade_textures(scene: DeviceScene, mat: B.SurfaceParams, frame: B.ShadingFrame, mat_rows, uv, t_hit,
+def shade_textures(scene: DeviceScene, mat: B.SurfaceParams, frame: B.ShadingFrame, tex_rows, uv, t_hit,
                    cone_spread: float, sample_idx: torch.Tensor, ray_slot: torch.Tensor, depth: int):
     """Texture lookups modulating material params + normal mapping, at one
     bounce (the tex_lookup path of the MDL runtime,
@@ -265,8 +186,9 @@ def shade_textures(scene: DeviceScene, mat: B.SurfaceParams, frame: B.ShadingFra
     constant color, roughness/metallic textures override their scalars (R
     channel), a normal map perturbs the frame.
 
-    mat_rows: [24, N] material rows (12-15 texture ids, 16-19 the uv
-    transform); uv: _gather_surface's ((u, v), uv_density_log2). Lookups
+    tex_rows: 8 [N] rows, a material row's columns 12-19 (12-15 the texture
+    ids, 16-19 the uv transform); uv: ((u, v), uv_density_log2)
+    (kernels/surface.py:shade_surface's). Lookups
     are trilinear across the mip chain, the footprint the ray cone's at the
     hit (cone_spread * t_hit, t_hit the path length so far) with the prim's
     uv density and the uv transform's scale; one-texel stochastic by
@@ -278,6 +200,7 @@ def shade_textures(scene: DeviceScene, mat: B.SurfaceParams, frame: B.ShadingFra
     from strelka_tpu_torch.textures import sample_trilinear, sample_trilinear_stochastic
 
     atlas = scene.textures
+    mat_rows = dict(zip(range(12, 20), tex_rows))  # by the material row's column
     (uv_u, uv_v), uv_density_log2 = uv
     uv_t = torch.stack([uv_u * mat_rows[16] + mat_rows[18], uv_v * mat_rows[17] + mat_rows[19]], -1)
     lod_uv = torch.log2(torch.clamp(t_hit * cone_spread, min=1e-20)) + uv_density_log2
@@ -310,52 +233,12 @@ def shade_textures(scene: DeviceScene, mat: B.SurfaceParams, frame: B.ShadingFra
     return mat, frame
 
 
-def _gather_material_by_id(scene: DeviceScene, mid) -> B.SurfaceParams:
-    """SurfaceParams of material ids: one fat row gather (K4) of mat_table."""
-    return _material_from_rows(V.gather_rows_t(scene.mat_table, mid))
-
-
-def _select_material(mask, a: B.SurfaceParams, b: B.SurfaceParams) -> B.SurfaceParams:
-    return B.SurfaceParams(*(
-        V.where(mask, x, y) if isinstance(x, Vec3) else torch.where(mask, x, y) for x, y in zip(a, b)
-    ))
-
-
 def closest_curve_hit(scene: DeviceScene, origin: Vec3, direction: Vec3, tmin, tmax, active) -> CurveHit:
-    """The closest curve hit of each ray: the round-cone sweep (K7), then
-    refine_curve_hit."""
+    """The closest curve hit of each ray: the round-cone sweep (K7), then,
+    where the scene was built for it, the refinement (kernels/surface.py:
+    refine_curve_hit)."""
     chit = intersect_curves_closest(scene, origin, direction, tmin, tmax, active=active)
-    return refine_curve_hit(scene, origin, direction, chit)
-
-
-def refine_curve_hit(scene: DeviceScene, origin: Vec3, direction: Vec3, chit: CurveHit) -> CurveHit:
-    """If the scene was built for it, the exact swept-B-spline refinement of
-    the cone sweep's winner; ghosts admitted by the inflated radii become
-    misses."""
-    if scene.curve_refine:
-        rt, ru, keep = refine_scene_curve_hit(scene.curves, origin, direction, chit.t, chit.seg, chit.u)
-        chit = CurveHit(t=torch.where(keep, rt, 1e30), seg=torch.where(keep, chit.seg, -1),
-                        u=torch.where(keep, ru, 0.0))
-    return chit
-
-
-def curve_surface(scene: DeviceScene, chit: CurveHit, is_curve, origin: Vec3, direction: Vec3, inside,
-                  position: Vec3, frame: B.ShadingFrame, mat: B.SurfaceParams):
-    """fillCurveGeomData (cu:423-454): on the lanes that hit a curve, the hit
-    point, the curve's frame (spine-offset normal, spline tangent) and its
-    material row (a K4 gather of mat_table) take the triangle's place."""
-    pos_curve = origin + direction * chit.t
-    cn, ct, _ = curve_shading_frame_vec(scene.curves, chit.seg, chit.u, pos_curve)
-    cn = cn * torch.where(inside, -1.0, 1.0)
-    frame = B.ShadingFrame(
-        normal=V.where(is_curve, cn, frame.normal),
-        tangent_u=V.where(is_curve, ct, frame.tangent_u),
-        tangent_v=V.where(is_curve, V.cross(cn, ct), frame.tangent_v),
-        geom_normal=V.where(is_curve, cn, frame.geom_normal),
-    )
-    seg_mat = torch.clamp(scene.curves.material_id[torch.clamp(chit.seg, min=0).to(torch.int64)], min=0)
-    mat = _select_material(is_curve, _gather_material_by_id(scene, seg_mat), mat)
-    return V.where(is_curve, pos_curve, position), frame, mat
+    return KSF.refine_curve_hit(scene.curves, origin, direction, chit) if scene.curve_refine else chit
 
 
 # ---- the wavefront order of the reference's accelerator path
@@ -556,6 +439,7 @@ def trace_paths(
     # primitive the ray originates from: rejected BY ID in the intersector
     prev_prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
     num_lights = scene.num_lights
+    surface_tables = KSF.tables_of(scene)
     bg = f32_on(params.bg_color, dev)
     tmin_mat = torch.full((n,), material_ray_tmin, dtype=torch.float32, device=dev)
     tmax_big = torch.full((n,), 1e16, dtype=torch.float32, device=dev)
@@ -601,52 +485,22 @@ def trace_paths(
         )
         # curve (hair) primitives: the round-cone sweep, the closest of
         # triangle and curve wins
+        chit = None
         if has_curves:
             chit = intersect_curves_closest(scene, origin, direction, tmin_mat, tmax_big, active=alive)
+        # ---- the curve refinement, the miss, the triangle's attributes, the
+        # light hit, the material and the curve's frame (kernel K13 on the
+        # card), then the texture lookups
         P.device_phase("bounce.surface", depth)
-        is_curve = torch.zeros(n, dtype=torch.bool, device=dev)
-        if has_curves:
-            chit = refine_curve_hit(scene, origin, direction, chit)
-            is_curve = alive & (chit.seg >= 0) & (chit.t < hit.t)
-        missed = alive & (hit.prim < 0) & ~is_curve
-
-        # __miss__ms (cu:250-257)
-        radiance = V.where(missed, radiance + throughput * Vec3(bg[0], bg[1], bg[2]), radiance)
-        throughput = V.where(missed, V.full(n, 0.0, dev), throughput)
-
-        position, frame, raw_light_id, attr_rows, uv = _gather_surface(scene, hit, inside)
-        prim_light_id = torch.where(hit.prim >= 0, raw_light_id, -1)
-        hit_light = alive & ~missed & (prim_light_id >= 0) & ~is_curve
-        hit_surface = alive & ~missed & ~hit_light
-
-        # ---- __closesthit__light (cu:315-341)
-        if num_lights > 0:
-            lp = LS.light_from_rows(attr_rows[ATTR_LIGHT_ROW:ATTR_JOINED])
-            hit_point_l = origin + direction * hit.t
-            light_n = LS.calc_light_normal(lp, hit_point_l)
-            cos_l = -V.dot(direction, light_n)
-            direct_vis = specular_bounce if depth > 0 else torch.ones_like(specular_bounce)
-            light_pdf_hit = LS.get_light_pdf(lp, hit_point_l, origin) / num_lights
-            mis_w = LS.mis_weight_balance(torch.clamp(last_bsdf_pdf, min=1e-20), light_pdf_hit)
-            w = cos_l * torch.where(direct_vis, 1.0, mis_w)
-            add = hit_light & (cos_l > 0.0)
-            radiance = V.where(add, radiance + throughput * lp.color * w, radiance)
-        throughput = V.where(hit_light, V.full(n, 0.0, dev), throughput)
-
-        # ---- __closesthit__radiance (surface shading)
-        mat_rows = attr_rows[ATTR_MAT_ROW:ATTR_LIGHT_ROW]
-        mat = _material_from_rows(mat_rows)
+        sf = KSF.shade_surface(surface_tables, hit, chit, origin, direction, inside, alive, specular_bounce,
+                               last_bsdf_pdf, radiance, throughput, t_total, bg, depth=depth)
+        radiance, throughput, position, frame, mat = sf.radiance, sf.throughput, sf.position, sf.frame, sf.mat
+        is_curve, hit_surface = sf.is_curve, sf.hit_surface
         if scene.textures is not None:
-            # advance the ray cone to this hit (a curve hit by its cone t)
-            t_eff = torch.where(is_curve, chit.t, hit.t) if has_curves else hit.t
-            t_hit = t_total + torch.where(alive & ~missed, t_eff, 0.0)
             with P.device_span("bounce.texture"):
-                mat, frame = shade_textures(scene, mat, frame, mat_rows, uv, t_hit, cone_spread, sample_idx, ray_id,
-                                            depth)
-            t_total = t_hit
-        if has_curves:
-            position, frame, mat = curve_surface(scene, chit, is_curve, origin, direction, inside, position, frame,
-                                                 mat)
+                mat, frame = shade_textures(scene, mat, frame, sf.tex_rows, sf.uv, sf.t_hit, cone_spread, sample_idx,
+                                            ray_id, depth)
+            t_total = sf.t_hit
 
         if debug == 1:
             normals_col = (frame.normal + 1.0) * 0.5

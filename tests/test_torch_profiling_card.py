@@ -1,9 +1,10 @@
 """The span-and-counter recorder (utils/profiling.py) on the card.
 
-TorchRender's replayed frames of Cornell at 64x64, 1 spp, depth 4:
+TorchRender's replayed frames of Cornell at 512x512, 1 spp, depth 4:
 (a) with the recorder off the key's graph has the node count recorded for
-    it (NODES_OFF: each bounce's BSDF phase one K10 node, its NEE phase a K11
-    and a K12 node around the shadow sweep). Off, the recorder
+    it (NODES_OFF: each bounce's surface phase less its texture lookups one
+    K13 node, its BSDF phase one K10 node, its NEE phase a K11 and a K12 node
+    around the shadow sweep). Off, the recorder
     adds no node to a graph;
 (b) with it on, a replayed frame's top-level device spans sum to within 2%
     of the frame's device time by CUDA events (from a mark right before the
@@ -28,9 +29,11 @@ from strelka_tpu_torch.scene import testscenes as TS
 from strelka_tpu_torch.settings import SharedContext, make_default_settings
 from strelka_tpu_torch.utils import profiling as P
 
-SIZE = 64
+# a frame long enough that its work, not the graph's per-node latency, sets it (as on the benchmark's cells):
+# the ~0.04 ms from the mark before the replay to the graph's first node is outside every span
+SIZE = 512
 FRAMES = 5  # the key's eager launch, its capture and replay, three replays
-NODES_OFF = 3198  # cuGraphGetNodes of the key's graph, recorder off (NVIDIA H100 80GB HBM3, torch 2.11)
+NODES_OFF = 789  # cuGraphGetNodes of the key's graph, recorder off (NVIDIA H100 80GB HBM3, torch 2.11)
 
 
 @pytest.fixture

@@ -34,6 +34,7 @@ from strelka_tpu.ops import light_sampling as JL
 from strelka_tpu.ops import tonemap as JT
 from strelka_tpu.ops.vec import Vec3 as JVec3
 from strelka_tpu.settings import make_default_settings as jax_settings
+from strelka_tpu_torch.kernels import surface as KSF
 from strelka_tpu_torch.ops import bsdf as TB
 from strelka_tpu_torch.ops import integrator as TI
 from strelka_tpu_torch.ops import light_sampling as TL
@@ -264,4 +265,4 @@ def test_camera_rays_and_oct_decode_match():
     out = TI.generate_camera_rays(tp, torch.tensor(px), torch.tensor(py), torch.tensor(jx), torch.tensor(jy), 64, 64)
     _close(out, ref)
     codes = (rng.integers(0, 4095, N) * 4096 + rng.integers(0, 4095, N)).astype(np.float32)
-    _close(TI._oct_decode24(torch.tensor(codes)), JI._oct_decode24(jnp.asarray(codes)))
+    _close(KSF.oct_decode24(torch.tensor(codes)), JI._oct_decode24(jnp.asarray(codes)))
