@@ -170,8 +170,9 @@ Phases (any failure raises and the script exits non-zero):
  15. (run after 1) kernel K10, the BSDF phase (kernels/shade.py): each of
      its three instances (no fibre, Chiang, Kajiya-Kay) bit for bit against
      the plain phase on random lanes of every material type at depths 0 and
-     1 at 1, 1,023 and 2^20 + 3 lanes; the no-fibre and Chiang instances
-     held and timed at 786,432 and 196,608 lanes (the benchmark's converge
+     1 at 1, 1,023 and 2^20 + 3 lanes (tests/torch_lanes.py makes the lanes;
+     an instance is selected through ops/bsdf.py's switch, hair_lobes); the
+     no-fibre and Chiang instances held and timed at 786,432 and 196,608 lanes (the benchmark's converge
      and viewport wavefronts): ms by events, device_ms replayed from a CUDA
      graph, the plain phase both ways, bound_ms from the bytes a lane must
      move at 3.35 TB/s. Every main path and entry point holds K10 first at
@@ -3158,41 +3159,41 @@ SHADE_OUT_BYTES = 15 * 4 + 3
 
 @contextlib.contextmanager
 def hair_lobes(variant: int):
-    """ops/bsdf.py's hair lobes set to those of a kernel instance (K10, K12) while inside."""
-    from strelka_tpu_torch.kernels import shade as KS
+    """ops/bsdf.py's hair lobes set to those of a kernel instance (K10, K12)
+    while inside: the wrappers then launch that instance, and the plain
+    versions take the same lobes."""
+    from strelka_tpu_torch.kernels import lanes as L
     from strelka_tpu_torch.ops import bsdf as B
 
     kk = B._HAIR_KAJIYA_KAY
-    B._HAIR_KAJIYA_KAY = variant == KS.KAJIYA_KAY
+    B._HAIR_KAJIYA_KAY = variant == L.KAJIYA_KAY
     try:
         yield
     finally:
         B._HAIR_KAJIYA_KAY = kk
 
 
-def shade_plain(lanes: dict, depth: int, variant: int):
-    """The plain phase on the lanes, with the hair lobes of the kernel instance."""
-    from strelka_tpu_torch.kernels import shade as KS
-
-    with hair_lobes(variant):
-        return KS.shade_bsdf_plain(**lanes, depth=depth, enable_hair=variant != KS.NO_FIBRE)
-
-
 def hold_shade(dev, n: int, variant, where: str) -> None:
     """K10 held bit for bit against its plain version at n lanes of one
     kernel instance (`variant`, or a scene: the instance its launch takes),
-    on random lanes of every material type (kernels/shade.py:random_lanes)
-    at depths 0 and 1."""
+    on random lanes of every material type (tests/torch_lanes.py:
+    random_bsdf_lanes) at depths 0 and 1."""
+    import torch_lanes as TL
+
+    from strelka_tpu_torch.kernels import lanes as L
     from strelka_tpu_torch.kernels import shade as KS
 
     if not isinstance(variant, int):
-        variant = KS.fibre_variant(variant.has_curves or variant.has_hair)
+        variant = L.fibre_variant(variant.has_curves or variant.has_hair)
     if ("shade_bsdf", (n, variant)) in HELD:
         return
+    hair = variant != L.NO_FIBRE
     for depth in (0, 1):
-        lanes = KS.random_lanes(n, 3 * n + 2 * variant + depth, dev)
-        got = held(lambda: KS.shade_bsdf(**lanes, depth=depth, enable_hair=variant != KS.NO_FIBRE, variant=variant))
-        off = KS.lanes_off(got, shade_plain(lanes, depth, variant), lanes["hit_surface"])
+        lanes = TL.random_bsdf_lanes(n, 3 * n + 2 * variant + depth, dev)
+        with hair_lobes(variant):
+            got = held(lambda: KS.shade_bsdf(**lanes, depth=depth, enable_hair=hair))
+            off = TL.lanes_off(got, KS.shade_bsdf_plain(**lanes, depth=depth, enable_hair=hair),
+                               {"smp": lanes["hit_surface"]})
         if any(off.values()):
             raise AssertionError(f"K10 differs from its plain version at {n} lanes, instance {variant}, depth "
                                  f"{depth} ({where}): {off}")
@@ -3202,32 +3203,35 @@ def hold_shade(dev, n: int, variant, where: str) -> None:
 def phase_shade(dev):
     """Phase 15 -> K10's rows (timed at SHADE_TIMED)."""
     import torch
+    import torch_lanes as TL
 
+    from strelka_tpu_torch.kernels import lanes as L
     from strelka_tpu_torch.kernels import shade as KS
 
     t0 = time.perf_counter()
-    for variant in (KS.NO_FIBRE, KS.CHIANG, KS.KAJIYA_KAY):
+    for variant in (L.NO_FIBRE, L.CHIANG, L.KAJIYA_KAY):
         for n in SHADE_EDGES:
             hold_shade(dev, n, variant, "edge")
     rows = []
     for n in SHADE_TIMED:
-        for variant, label in ((KS.NO_FIBRE, "no fibre"), (KS.CHIANG, "Chiang fibre")):
+        for variant, label in ((L.NO_FIBRE, "no fibre"), (L.CHIANG, "Chiang fibre")):
             hold_shade(dev, n, variant, "timed")
-            lanes = KS.random_lanes(n, n + variant, dev)
+            lanes = TL.random_bsdf_lanes(n, n + variant, dev)
             hit = int(lanes["hit_surface"].sum())
 
             def kern():
-                return KS.shade_bsdf(**lanes, depth=1, enable_hair=variant != KS.NO_FIBRE, variant=variant)
+                return KS.shade_bsdf(**lanes, depth=1, enable_hair=variant != L.NO_FIBRE)
 
             def plain():
-                return shade_plain(lanes, 1, variant)
+                return KS.shade_bsdf_plain(**lanes, depth=1, enable_hair=variant != L.NO_FIBRE)
 
-            rows.append(dict(
-                kernel="shade_bsdf", at=f"random lanes, {label}", shape=(n, variant),
-                ms=time_ms(kern), device_ms=graph_ms(kern),
-                plain_ms=time_ms(plain, samples=5, inner=2), plain_device_ms=graph_ms(plain, calls=2, samples=5),
-                bound_bytes=hit * SHADE_HIT_BYTES + (n - hit) * SHADE_DEAD_BYTES + n * SHADE_OUT_BYTES,
-                bound_ops_s=0.0, max_abs_err=0.0, library_ms=None))
+            with hair_lobes(variant):
+                rows.append(dict(
+                    kernel="shade_bsdf", at=f"random lanes, {label}", shape=(n, variant),
+                    ms=time_ms(kern), device_ms=graph_ms(kern),
+                    plain_ms=time_ms(plain, samples=5, inner=2), plain_device_ms=graph_ms(plain, calls=2, samples=5),
+                    bound_bytes=hit * SHADE_HIT_BYTES + (n - hit) * SHADE_DEAD_BYTES + n * SHADE_OUT_BYTES,
+                    bound_ops_s=0.0, max_abs_err=0.0, library_ms=None))
     torch.cuda.synchronize()
     finish_bounds(rows)
     for r in rows:
@@ -3252,34 +3256,28 @@ NEE_SHADE_OTHER_BYTES = 6 * 4 + 2
 NEE_SHADE_OUT_BYTES = 6 * 4 + 1
 
 
-def nee_shade_plain(lanes: dict, nl, variant: int):
-    """The plain half after the sweep on the lanes, with the hair lobes of the kernel instance."""
-    from strelka_tpu_torch.kernels import nee as KN
-    from strelka_tpu_torch.kernels import shade as KS
-
-    with hair_lobes(variant):
-        return KN.nee_shade_plain(nl, **KN.shade_args(lanes), enable_hair=variant != KS.NO_FIBRE)
-
-
 def hold_nee(dev, n: int, variant, where: str) -> None:
     """K11 at both rect light sampling methods and K12 at one instance
     (`variant`, or a scene: the instance its launch takes) held bit for bit
     against their plain halves at n lanes, on random lanes of every light and
-    material type with NaN planted (kernels/nee.py:random_lanes)."""
+    material type with NaN planted (tests/torch_lanes.py:random_nee_lanes)."""
+    import torch_lanes as TL
+
+    from strelka_tpu_torch.kernels import lanes as L
     from strelka_tpu_torch.kernels import nee as KN
-    from strelka_tpu_torch.kernels import shade as KS
 
     if not isinstance(variant, int):
-        variant = KS.fibre_variant(variant.has_curves or variant.has_hair)
+        variant = L.fibre_variant(variant.has_curves or variant.has_hair)
     if {("nee_light", (n, m)) for m in KN.METHODS} | {("nee_shade", (n, variant))} <= HELD:
         return
+    hair = variant != L.NO_FIBRE
     for method in KN.METHODS:
-        lanes = KN.random_lanes(n, 5 * n + 2 * variant + method, dev, nan_share=0.01)
-        nl = held(lambda: KN.nee_light(**KN.light_args(lanes), method=method))
-        off = KN.lanes_off(nl, KN.nee_light_plain(**KN.light_args(lanes), method=method))
-        got = held(lambda: KN.nee_shade(nl, **KN.shade_args(lanes), enable_hair=variant != KS.NO_FIBRE,
-                                        variant=variant))
-        off.update(KN.lanes_off(got, nee_shade_plain(lanes, nl, variant)))
+        lanes = TL.random_nee_lanes(n, 5 * n + 2 * variant + method, dev, nan_share=0.01)
+        nl = held(lambda: KN.nee_light(**TL.light_args(lanes), method=method))
+        off = TL.lanes_off(nl, KN.nee_light_plain(**TL.light_args(lanes), method=method))
+        with hair_lobes(variant):
+            got = held(lambda: KN.nee_shade(nl, **TL.shade_args(lanes), enable_hair=hair))
+            off.update(TL.lanes_off(got, KN.nee_shade_plain(nl, **TL.shade_args(lanes), enable_hair=hair)))
         if any(off.values()):
             raise AssertionError(f"K11/K12 differ from their plain halves at {n} lanes, method {method}, instance "
                                  f"{variant} ({where}): {off}")
@@ -3289,25 +3287,26 @@ def hold_nee(dev, n: int, variant, where: str) -> None:
 def phase_nee(dev):
     """Phase 16 -> K11's and K12's rows (timed at SHADE_TIMED)."""
     import torch
+    import torch_lanes as TL
 
+    from strelka_tpu_torch.kernels import lanes as L
     from strelka_tpu_torch.kernels import nee as KN
-    from strelka_tpu_torch.kernels import shade as KS
 
     t0 = time.perf_counter()
-    for variant in (KS.NO_FIBRE, KS.CHIANG, KS.KAJIYA_KAY):
+    for variant in (L.NO_FIBRE, L.CHIANG, L.KAJIYA_KAY):
         for n in SHADE_EDGES:
             hold_nee(dev, n, variant, "edge")
     rows = []
     for n in SHADE_TIMED:
-        for variant in (KS.NO_FIBRE, KS.CHIANG):
+        for variant in (L.NO_FIBRE, L.CHIANG):
             hold_nee(dev, n, variant, "timed")
-        lanes = KN.random_lanes(n, n + 1, dev)
+        lanes = TL.random_nee_lanes(n, n + 1, dev)
         for method in KN.METHODS:
             def light():
-                return KN.nee_light(**KN.light_args(lanes), method=method)
+                return KN.nee_light(**TL.light_args(lanes), method=method)
 
             def light_plain():
-                return KN.nee_light_plain(**KN.light_args(lanes), method=method)
+                return KN.nee_light_plain(**TL.light_args(lanes), method=method)
 
             rows.append(dict(
                 kernel="nee_light", at=f"random lanes, rect method {method}", shape=(n, method),
@@ -3315,22 +3314,23 @@ def phase_nee(dev):
                 plain_ms=time_ms(light_plain, samples=5, inner=2),
                 plain_device_ms=graph_ms(light_plain, calls=2, samples=5),
                 bound_bytes=n * NEE_LIGHT_BYTES, bound_ops_s=0.0, max_abs_err=0.0, library_ms=None))
-        nl = KN.nee_light(**KN.light_args(lanes), method=0)
+        nl = KN.nee_light(**TL.light_args(lanes), method=0)
         able = int(nl.nee_able.sum())
-        for variant, label in ((KS.NO_FIBRE, "no fibre"), (KS.CHIANG, "Chiang fibre")):
+        for variant, label in ((L.NO_FIBRE, "no fibre"), (L.CHIANG, "Chiang fibre")):
             def shade():
-                return KN.nee_shade(nl, **KN.shade_args(lanes), enable_hair=variant != KS.NO_FIBRE, variant=variant)
+                return KN.nee_shade(nl, **TL.shade_args(lanes), enable_hair=variant != L.NO_FIBRE)
 
             def shade_plain():
-                return nee_shade_plain(lanes, nl, variant)
+                return KN.nee_shade_plain(nl, **TL.shade_args(lanes), enable_hair=variant != L.NO_FIBRE)
 
-            rows.append(dict(
-                kernel="nee_shade", at=f"random lanes, {label}", shape=(n, variant),
-                ms=time_ms(shade), device_ms=graph_ms(shade),
-                plain_ms=time_ms(shade_plain, samples=5, inner=2),
-                plain_device_ms=graph_ms(shade_plain, calls=2, samples=5),
-                bound_bytes=able * NEE_SHADE_ABLE_BYTES + (n - able) * NEE_SHADE_OTHER_BYTES + n * NEE_SHADE_OUT_BYTES,
-                bound_ops_s=0.0, max_abs_err=0.0, library_ms=None))
+            with hair_lobes(variant):
+                rows.append(dict(
+                    kernel="nee_shade", at=f"random lanes, {label}", shape=(n, variant),
+                    ms=time_ms(shade), device_ms=graph_ms(shade),
+                    plain_ms=time_ms(shade_plain, samples=5, inner=2),
+                    plain_device_ms=graph_ms(shade_plain, calls=2, samples=5),
+                    bound_bytes=able * NEE_SHADE_ABLE_BYTES + (n - able) * NEE_SHADE_OTHER_BYTES
+                    + n * NEE_SHADE_OUT_BYTES, bound_ops_s=0.0, max_abs_err=0.0, library_ms=None))
     torch.cuda.synchronize()
     finish_bounds(rows)
     for r in rows:
@@ -3367,7 +3367,10 @@ def surface_instance(scene) -> tuple:
 def hold_surface(dev, n: int, instance, where: str) -> None:
     """K13 held bit for bit against its plain version at n lanes of one
     kernel instance (`instance`, or a scene: the instance its launch takes),
-    on random lanes (kernels/surface.py:random_lanes) at depths 0 and 1."""
+    on random lanes (tests/torch_lanes.py:random_surface_lanes) at depths 0
+    and 1."""
+    import torch_lanes as TL
+
     from strelka_tpu_torch.kernels import surface as KSF
 
     if not isinstance(instance, tuple):
@@ -3376,10 +3379,10 @@ def hold_surface(dev, n: int, instance, where: str) -> None:
     if ("shade_surface", (n, int(curves), int(refine), int(uv))) in HELD:
         return
     for depth in (0, 1):
-        lanes = KSF.random_lanes(n, 7 * n + 2 * depth + 4 * curves + 2 * refine + uv, dev, curves=curves,
-                                 refine=refine, uv=uv)
+        lanes = TL.random_surface_lanes(n, 7 * n + 2 * depth + 4 * curves + 2 * refine + uv, dev, curves=curves,
+                                        refine=refine, uv=uv)
         got = held(lambda: KSF.shade_surface(**lanes, depth=depth))
-        off = KSF.lanes_off(got, KSF.shade_surface_plain(**lanes, depth=depth))
+        off = TL.lanes_off(got, KSF.shade_surface_plain(**lanes, depth=depth))
         if any(off.values()):
             raise AssertionError(f"K13 differs from its plain version at {n} lanes, instance {instance}, depth "
                                  f"{depth} ({where}): {off}")
@@ -3389,6 +3392,7 @@ def hold_surface(dev, n: int, instance, where: str) -> None:
 def phase_surface(dev):
     """Phase 17 -> K13's rows (timed at SHADE_TIMED)."""
     import torch
+    import torch_lanes as TL
 
     from strelka_tpu_torch.kernels import surface as KSF
 
@@ -3401,7 +3405,7 @@ def phase_surface(dev):
         for instance in SURFACE_INSTANCES:
             hold_surface(dev, n, instance, "timed")
             curves, refine, uv = instance
-            lanes = KSF.random_lanes(n, n + 1, dev, curves=curves, refine=refine, uv=uv)
+            lanes = TL.random_surface_lanes(n, n + 1, dev, curves=curves, refine=refine, uv=uv)
 
             def kern():
                 return KSF.shade_surface(**lanes, depth=1)
@@ -3676,6 +3680,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    sys.path.append(os.path.join(REPO, "tests"))  # torch_lanes: the lane kernels' random lanes (phases 15-17)
     from strelka_tpu_torch import kernels as K
     from strelka_tpu_torch.kernels import build
     from strelka_tpu_torch.render.device_scene import build_device_scene

@@ -3,7 +3,8 @@
 One module per kernel family (sobol, intersect, bvh, gather, cones, open_w,
 surface, shade, nee). Each wrapper sends a CPU tensor to the plain version
 and a CUDA tensor to its kernel; there is no fallback from one to the other.
-Sources are in ../csrc, built by build.py.
+The lane kernels' wrappers (surface, shade, nee) check their inputs and
+launch through lanes.py. Sources are in ../csrc, built by build.py.
 
 `launch_counts` counts kernel launches by name: a wrapper adds one where it
 launches its kernel (`count_launch`), and nowhere else. `launch_shapes`

@@ -18,7 +18,7 @@ on every lane. K12 leaves the lanes that are not nee_able as they were, as
 the plain masks do.
 
 K11 has one kernel instance per rect light sampling method (0 uniform, 1 the
-spherical quad); K12 one per fibre variant, as K10 (kernels/shade.py:
+spherical quad); K12 one per fibre variant, as K10 (kernels/lanes.py:
 fibre_variant).
 """
 
@@ -26,11 +26,10 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from strelka_tpu_torch import kernels as K
-from strelka_tpu_torch.kernels import shade as KS
+from strelka_tpu_torch.kernels import lanes as L
 from strelka_tpu_torch.ops import bsdf as B
 from strelka_tpu_torch.ops import light_sampling as LS
 from strelka_tpu_torch.ops import vec as V
@@ -140,23 +139,15 @@ def nee_shade_plain(nl: NeeLight, occluded, inside, mat: B.SurfaceParams, frame:
     return NeeShaded(radiance, throughput, shade & ~canary)
 
 
-def _table(kernel: str, light_table, device) -> None:
-    if (not isinstance(light_table, torch.Tensor) or light_table.dtype != torch.float32 or light_table.dim() != 2
-            or light_table.shape[0] < 1 or light_table.shape[1] != LIGHT_COLS or not light_table.is_contiguous()):
-        raise ValueError(f"{kernel}: light_table must be a contiguous [L >= 1, {LIGHT_COLS}] float32 tensor")
-    if light_table.device != device:
-        raise ValueError(f"{kernel}: light_table is on {light_table.device}, the lanes on {device}")
-
-
 def nee_light(shade, event_type, u_light, u_x, u_y, position: Vec3, frame: B.ShadingFrame, is_curve, prim,
               light_table, *, num_lights: int, method: int) -> NeeLight:
     """The phase up to the sweep: K11 on CUDA tensors, the plain version on
     CPU tensors. method: the rect lights' sampling method (0 uniform, 1 the
     spherical quad)."""
-    ins = KS.checked("nee_light", LIGHT_IN_FIELDS,
-                     [shade, event_type, u_light, u_x, u_y, *position, *frame.normal, *frame.geom_normal, is_curve,
-                      prim], DTYPES, "shade")
-    _table("nee_light", light_table, shade.device)
+    ins = L.checked("nee_light", LIGHT_IN_FIELDS,
+                    [shade, event_type, u_light, u_x, u_y, *position, *frame.normal, *frame.geom_normal, is_curve,
+                     prim], DTYPES, "shade")
+    L.table("nee_light", "light_table", light_table, (None, LIGHT_COLS), torch.float32, shade.device)
     if method not in METHODS:
         raise ValueError(f"nee_light: no rect light sampling method {method}")
     if num_lights < 1:
@@ -164,158 +155,29 @@ def nee_light(shade, event_type, u_light, u_x, u_y, position: Vec3, frame: B.Sha
     if shade.device.type == "cpu":
         return nee_light_plain(shade, event_type, u_light, u_x, u_y, position, frame, is_curve, prim, light_table,
                                num_lights=num_lights, method=method)
-    K.require_cuda(shade, "nee_light")
     n = shade.shape[0]
-    o = KS.outputs(LIGHT_OUT_FIELDS, DTYPES, n, shade.device)
-    if n > 0:
-        KS.launch("nee_light", ins, [o[f] for f in LIGHT_OUT_FIELDS], light_table.data_ptr(), light_table.shape[0],
-                  n, int(num_lights), int(method), shape=(n, method))
+    o = L.launch("nee_light", ins, LIGHT_OUT_FIELDS, DTYPES, light_table.data_ptr(), light_table.shape[0], n,
+                 int(num_lights), int(method), shape=(n, method))
     return NeeLight(Vec3(o["org_x"], o["org_y"], o["org_z"]), Vec3(o["to_light_x"], o["to_light_y"], o["to_light_z"]),
                     o["dist"], o["exclude"], o["active"], o["nee_able"], o["light_pdf"], o["light_id"])
 
 
 def nee_shade(nl: NeeLight, occluded, inside, mat: B.SurfaceParams, frame: B.ShadingFrame, direction: Vec3,
-              radiance: Vec3, throughput: Vec3, shade, light_table, *, enable_hair: bool,
-              variant: int | None = None) -> NeeShaded:
+              radiance: Vec3, throughput: Vec3, shade, light_table, *, enable_hair: bool) -> NeeShaded:
     """The phase after the sweep: K12 on CUDA tensors, the plain version on
-    CPU tensors. variant: the kernel instance (KS.NO_FIBRE, CHIANG,
-    KAJIYA_KAY); None takes KS.fibre_variant(enable_hair), the plain code's
-    choice."""
-    ins = KS.checked("nee_shade", SHADE_IN_FIELDS,
-                     [occluded, nl.active, nl.nee_able, nl.light_pdf, nl.light_id, *nl.to_light, inside,
-                      mat.bsdf_type, *mat.diffuse_color, mat.metallic, mat.roughness, mat.specular_level, mat.ior,
-                      *frame.normal, *frame.tangent_u, *frame.tangent_v, *direction, *radiance, *throughput, shade],
-                     DTYPES, "occluded")
-    _table("nee_shade", light_table, occluded.device)
-    if variant is None:
-        variant = KS.fibre_variant(enable_hair)
-    if variant not in (KS.NO_FIBRE, KS.CHIANG, KS.KAJIYA_KAY):
-        raise ValueError(f"nee_shade: no kernel instance {variant}")
+    CPU tensors. The kernel instance is lanes.fibre_variant(enable_hair), the
+    plain code's choice of hair lobes."""
+    ins = L.checked("nee_shade", SHADE_IN_FIELDS,
+                    [occluded, nl.active, nl.nee_able, nl.light_pdf, nl.light_id, *nl.to_light, inside,
+                     mat.bsdf_type, *mat.diffuse_color, mat.metallic, mat.roughness, mat.specular_level, mat.ior,
+                     *frame.normal, *frame.tangent_u, *frame.tangent_v, *direction, *radiance, *throughput, shade],
+                    DTYPES, "occluded")
+    L.table("nee_shade", "light_table", light_table, (None, LIGHT_COLS), torch.float32, occluded.device)
     if occluded.device.type == "cpu":
-        if variant != KS.fibre_variant(enable_hair):
-            raise ValueError("nee_shade: the plain version's lobes follow enable_hair and STRELKA_HAIR_KK")
         return nee_shade_plain(nl, occluded, inside, mat, frame, direction, radiance, throughput, shade, light_table,
                                enable_hair=enable_hair)
-    K.require_cuda(occluded, "nee_shade")
-    n = occluded.shape[0]
-    o = KS.outputs(SHADE_OUT_FIELDS, DTYPES, n, occluded.device)
-    if n > 0:
-        KS.launch("nee_shade", ins, [o[f] for f in SHADE_OUT_FIELDS], light_table.data_ptr(), light_table.shape[0],
-                  n, int(variant), shape=(n, variant))
+    n, variant = occluded.shape[0], L.fibre_variant(enable_hair)
+    o = L.launch("nee_shade", ins, SHADE_OUT_FIELDS, DTYPES, light_table.data_ptr(), light_table.shape[0], n,
+                 variant, shape=(n, variant))
     return NeeShaded(Vec3(o["radiance_out_x"], o["radiance_out_y"], o["radiance_out_z"]),
                      Vec3(o["throughput_out_x"], o["throughput_out_y"], o["throughput_out_z"]), o["shade_out"])
-
-
-def random_lights(rng, count: int, types=(0, 1, 2, 3)) -> np.ndarray:
-    """A [count, 20] light table of the light types `types` (0 rect, 1 disc,
-    2 sphere, 3 distant) in and around the unit cube: rects of any
-    orientation and either winding, spheres and discs (radius in column 0,
-    centre in 3-5), distant lights of half angles down to 0; a light in
-    eight with a colour channel at 0 (never lit)."""
-    rows = np.zeros((count, LIGHT_COLS), np.float64)
-    kind = rng.choice(np.asarray(types), count)
-    p0 = rng.uniform(-1.0, 1.0, (count, 3))
-    e1, e2 = rng.normal(size=(2, count, 3)) * 0.5
-    rows[:, 0:3] = p0
-    rows[:, 3:6] = p0 + e1
-    rows[:, 6:9] = p0 + e1 + e2
-    rows[:, 9:12] = p0 + e2
-    round_ = (kind == 1) | (kind == 2)
-    rows[:, 0] = np.where(round_, rng.uniform(0.05, 0.4, count), rows[:, 0])
-    rows[:, 12:15] = rng.uniform(1.0, 50.0, (count, 3))
-    rows[rng.random(count) < 0.125, 12 + rng.integers(0, 3)] = 0.0
-    nrm = rng.normal(size=(count, 3))
-    rows[:, 15:18] = nrm / np.linalg.norm(nrm, axis=1, keepdims=True)
-    rows[:, 18] = kind
-    rows[:, 19] = np.where(rng.random(count) < 0.1, 0.0, rng.uniform(0.005, 0.3, count))
-    return rows.astype(np.float32)
-
-
-def random_lanes(n: int, seed: int, device, types=(0, 1, 2, 3), light_types=(0, 1, 2, 3), num_lights: int = 4,
-                 nan_share: float = 0.0) -> dict:
-    """The inputs of both halves of the phase, for the checks of K11 and K12
-    against their plain versions: n random lanes made from `seed` on the host
-    and moved to `device`. The materials, frames, directions, `inside` and
-    the path state are kernels/shade.py:random_lanes' (of the material types
-    `types`); the light table holds `num_lights` random lights of
-    `light_types` (random_lights). Positions in and around the lights' cube,
-    a tenth of them at a light's centre (inside a sphere light) and a
-    twentieth far away (the spherical quad's small solid angles); normals on
-    the whole sphere (cos_nl <= 0 on about half the lanes); events of every
-    kind (absorbed lanes included), curve hits, lanes shaded or not, and a
-    random occlusion of the shadow rays. With nan_share > 0, the last light's
-    colour is NaN and that share of the lanes has a NaN diffuse colour or
-    roughness, to take both canaries.
-
-    Returns a dict: the keys of nee_light's arguments, and of nee_shade's but
-    the handoff (`light_args` and `shade_args` pick them)."""
-    base = KS.random_lanes(n, seed, "cpu", types)
-    rng = np.random.default_rng(seed + 7919)
-
-    def f32(a):
-        return torch.tensor(np.ascontiguousarray(a, dtype=np.float32))
-
-    lights = random_lights(rng, num_lights, light_types)
-    if nan_share > 0.0:
-        lights[-1, 12 + rng.integers(0, 3)] = np.nan
-    pos = rng.uniform(-1.5, 1.5, (n, 3))
-    at_centre = rng.random(n) < 0.1
-    pos[at_centre] = lights[rng.integers(0, num_lights, n), 3:6][at_centre] + rng.normal(size=(n, 3))[at_centre] * 0.05
-    far = rng.random(n) < 0.05
-    pos[far] *= 60.0
-    events = np.asarray([B.BSDF_EVENT_ABSORB, B.BSDF_EVENT_DIFFUSE_REFLECTION, B.BSDF_EVENT_GLOSSY_REFLECTION,
-                         B.BSDF_EVENT_SPECULAR_REFLECTION, B.BSDF_EVENT_SPECULAR_TRANSMISSION], np.int32)
-    mat = base["mat"]
-    if nan_share > 0.0:
-        bad = f32(np.where(rng.random(n) < nan_share, np.nan, 0.0))
-        mat = mat._replace(diffuse_color=Vec3(mat.diffuse_color.x + bad, *mat.diffuse_color[1:]),
-                           roughness=mat.roughness + f32(np.where(rng.random(n) < nan_share, np.nan, 0.0)))
-    lanes = dict(
-        shade=torch.tensor(rng.random(n) < 0.85), event_type=torch.tensor(rng.choice(events, n)),
-        u_light=base["xi"][0], u_x=base["xi"][1], u_y=base["xi"][2], position=Vec3(*(f32(pos[:, k]) for k in range(3))),
-        frame=base["frame"], is_curve=torch.tensor(rng.random(n) < 0.2),
-        prim=torch.tensor(rng.integers(-1, 1000, n, dtype=np.int32)), light_table=f32(lights), num_lights=num_lights,
-        occluded=torch.tensor(rng.random(n) < 0.3), inside=base["inside"], mat=mat, direction=base["direction"],
-        radiance=base["radiance"], throughput=base["throughput"])
-    return {k: (v if isinstance(v, int) else _to(v, device)) for k, v in lanes.items()}
-
-
-def _to(v, device):
-    if isinstance(v, torch.Tensor):
-        return v.to(device)
-    return type(v)(*(_to(x, device) for x in v))
-
-
-LIGHT_ARGS = ("shade", "event_type", "u_light", "u_x", "u_y", "position", "frame", "is_curve", "prim",
-              "light_table", "num_lights")
-SHADE_ARGS = ("occluded", "inside", "mat", "frame", "direction", "radiance", "throughput", "shade", "light_table")
-
-
-def light_args(lanes: dict) -> dict:
-    """nee_light's (and nee_light_plain's) arguments of random_lanes' dict, but method."""
-    return {k: lanes[k] for k in LIGHT_ARGS}
-
-
-def shade_args(lanes: dict) -> dict:
-    """nee_shade's (and nee_shade_plain's) arguments of random_lanes' dict, but the handoff and enable_hair."""
-    return {k: lanes[k] for k in SHADE_ARGS}
-
-
-def _differ(x, y):
-    """Lanes where two arrays differ bit for bit (NaN beside NaN counts as equal)."""
-    if x.dtype == torch.float32:
-        return (x.view(torch.int32) != y.view(torch.int32)) & ~(torch.isnan(x) & torch.isnan(y))
-    return x != y
-
-
-def lanes_off(a, b) -> dict:
-    """The lanes where two results of one half of the phase (two NeeLight or
-    two NeeShaded) differ, by output, on every lane. All 0: bit-equal."""
-    off = {}
-    for name, x, y in zip(a._fields, a, b):
-        xs, ys = (x, y) if isinstance(x, Vec3) else ((x,), (y,))
-        d = torch.zeros_like(xs[0], dtype=torch.bool)
-        for u, v in zip(xs, ys):
-            d = d | _differ(u, v)
-        off[name] = int(d.sum())
-    return off

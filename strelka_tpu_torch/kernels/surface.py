@@ -33,12 +33,10 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from strelka_tpu_torch import kernels as K
-from strelka_tpu_torch.kernels import nee as KN
-from strelka_tpu_torch.kernels import shade as KS
+from strelka_tpu_torch.kernels import lanes as L
 from strelka_tpu_torch.ops import bsdf as B
 from strelka_tpu_torch.ops import light_sampling as LS
 from strelka_tpu_torch.ops import vec as V
@@ -54,7 +52,6 @@ from strelka_tpu_torch.render.device_scene import (
     ATTR_N,
     ATTR_T,
     ATTR_UV,
-    DeviceCurves,
 )
 
 MAT_COLS = 24  # a row of the material table
@@ -289,24 +286,14 @@ def shade_surface_plain(tables: SurfaceTables, hit: Hit, chit: Optional[CurveHit
 # ---- the kernel's wrapper
 
 
-def _check_table(name: str, t, shape: tuple, dtype, dev) -> None:
-    ok = (isinstance(t, torch.Tensor) and t.dtype == dtype and t.dim() == len(shape) and t.is_contiguous()
-          and all(want is None or got == want for got, want in zip(t.shape, shape)) and t.numel() > 0)
-    if not ok:
-        dims = ", ".join("rows >= 1" if s is None else str(s) for s in shape)
-        raise ValueError(f"shade_surface: {name} must be a contiguous non-empty [{dims}] {dtype} tensor")
-    if t.device != dev:
-        raise ValueError(f"shade_surface: {name} is on {t.device}, the lanes on {dev}")
-
-
 def _tables(tables: SurfaceTables, bg, curves: bool, dev) -> list:
     """The kernel's table pointers' tensors in TABLE_FIELDS' order (None for
     the curve tables of a scene without curves), each checked."""
-    _check_table("attr_table", tables.attr_table, (None, ATTR_JOINED), torch.float32, dev)
+    L.table("shade_surface", "attr_table", tables.attr_table, (None, ATTR_JOINED), torch.float32, dev)
     if tables.attr_table.data_ptr() % 16:
         raise ValueError("shade_surface: attr_table must start on a 16-byte boundary (its rows are read as float4)")
-    _check_table("mat_table", tables.mat_table, (None, MAT_COLS), torch.float32, dev)
-    _check_table("bg", bg, (3,), torch.float32, dev)
+    L.table("shade_surface", "mat_table", tables.mat_table, (None, MAT_COLS), torch.float32, dev)
+    L.table("shade_surface", "bg", bg, (3,), torch.float32, dev)
     if not curves:
         return [tables.attr_table, tables.mat_table, bg] + [None] * 9
     if tables.curves is None:
@@ -314,10 +301,10 @@ def _tables(tables: SurfaceTables, bg, curves: bool, dev) -> list:
     c = tables.curves
     s = c.p0.shape[0] if isinstance(c.p0, torch.Tensor) else 0
     for name in ("p0", "p1", "p2", "p3"):
-        _check_table(name, getattr(c, name), (s, 3), torch.float32, dev)
+        L.table("shade_surface", name, getattr(c, name), (s, 3), torch.float32, dev)
     for name in ("w0", "w1", "w2", "w3"):
-        _check_table(name, getattr(c, name), (s,), torch.float32, dev)
-    _check_table("material_id", c.material_id, (s,), torch.int32, dev)
+        L.table("shade_surface", name, getattr(c, name), (s,), torch.float32, dev)
+    L.table("shade_surface", "material_id", c.material_id, (s,), torch.int32, dev)
     return [tables.attr_table, tables.mat_table, bg, c.p0, c.p1, c.p2, c.p3, c.w0, c.w1, c.w2, c.w3, c.material_id]
 
 
@@ -333,22 +320,19 @@ def shade_surface(tables: SurfaceTables, hit: Hit, chit: Optional[CurveHit], ori
                                  *direction, inside, alive, specular_bounce, last_bsdf_pdf, *radiance, *throughput,
                                  t_total]))
     present = tuple(f for f in IN_FIELDS if (curves or f not in CURVE_IN) and (tables.uv or f not in UV_IN))
-    KS.checked("shade_surface", present, [given[f] for f in present], DTYPES, "alive")
+    L.checked("shade_surface", present, [given[f] for f in present], DTYPES, "alive")
     dev = alive.device
     tabs = _tables(tables, bg, curves, dev)
     if dev.type == "cpu":
         return shade_surface_plain(tables, hit, chit, origin, direction, inside, alive, specular_bounce, last_bsdf_pdf,
                                    radiance, throughput, t_total, bg, depth=depth)
-    K.require_cuda(alive, "shade_surface")
     n = alive.shape[0]
-    outs = tuple(f for f in OUT_FIELDS if tables.uv or f not in UV_OUT)
-    o = KS.outputs(outs, DTYPES, n, dev)
     refine = curves and tables.refine
-    if n > 0:
-        KS.launch("shade_surface", [given[f] if f in present else None for f in IN_FIELDS],
-                  [o.get(f) for f in OUT_FIELDS], KS.pointers(tabs), tables.attr_table.shape[0],
-                  tables.mat_table.shape[0], tabs[3].shape[0] if curves else 0, n, int(tables.num_lights), int(depth),
-                  int(curves), int(refine), int(tables.uv), shape=(n, int(curves), int(refine), int(tables.uv)))
+    o = L.launch("shade_surface", [given[f] if f in present else None for f in IN_FIELDS], OUT_FIELDS, DTYPES,
+                 L.pointers(tabs), tables.attr_table.shape[0], tables.mat_table.shape[0],
+                 tabs[3].shape[0] if curves else 0, n, int(tables.num_lights), int(depth), int(curves), int(refine),
+                 int(tables.uv), shape=(n, int(curves), int(refine), int(tables.uv)),
+                 absent=() if tables.uv else UV_OUT)
     v3 = lambda name: Vec3(o[name + "_x"], o[name + "_y"], o[name + "_z"])  # noqa: E731
     mat = B.SurfaceParams(o["type"], v3("diffuse"), o["metallic"], o["roughness"], o["specular_level"], o["ior"],
                           v3("glass"), o["opacity"], v3("emission"), o["thin_walled"])
@@ -361,174 +345,3 @@ def shade_surface(tables: SurfaceTables, hit: Hit, chit: Optional[CurveHit], ori
     return Surface(v3("radiance_out"), v3("throughput_out"), v3("position"), frame, mat, o["hit_surface"],
                    o["is_curve"], tex_rows, uv, t_hit)
 
-
-# ---- checks of K13 against its plain version
-
-
-def random_tables(rng, *, curves: bool, refine: bool, uv: bool, num_lights: int = 4, rows: int = 256,
-                  materials: int = 16, segments: int = 64, textures: int = 4) -> SurfaceTables:
-    """Random tables on the host for the lane checks: an attr table of `rows`
-    triangles (random edges, a few degenerate; random octahedral codes and
-    uvs, a few of zero uv area; a third emissive, their joined light rows of
-    every light type, kernels/nee.py:random_lights), random material rows of
-    every type (texture ids -1 or below `textures`, uv transforms with zero
-    and negative scales, emission, thin walls), and with `curves` random
-    cubic segments whose material ids run past the table's ends."""
-    def mat_rows(k):
-        m = np.zeros((k, MAT_COLS))
-        m[:, 0] = rng.integers(0, 4, k)
-        m[:, 1:4] = rng.random((k, 3))
-        m[:, 4:7] = rng.random((k, 3))
-        m[:, 5] = np.where(rng.random(k) < 0.15, rng.random(k) * 1e-3, m[:, 5])
-        m[:, 7] = rng.uniform(1.0, 2.5, k)
-        m[:, 8:11] = rng.random((k, 3))
-        m[:, 11] = np.where(rng.random(k) < 0.2, rng.random(k), 1.0)
-        m[:, 12:16] = np.where(rng.random((k, 4)) < 0.5, rng.integers(0, textures, (k, 4)), -1)
-        m[:, 16:18] = np.where(rng.random((k, 2)) < 0.1, 0.0, rng.uniform(-3.0, 3.0, (k, 2)))
-        m[:, 18:20] = rng.uniform(-1.0, 1.0, (k, 2))
-        m[:, 20:23] = np.where(rng.random((k, 1)) < 0.2, rng.random((k, 3)) * 4.0, 0.0)
-        m[:, 23] = rng.random(k) < 0.3
-        return m
-
-    attr = np.zeros((rows, ATTR_JOINED))
-    attr[:, 0:3] = rng.uniform(-1.0, 1.0, (rows, 3))
-    attr[:, 3:9] = rng.normal(size=(rows, 6)) * 0.5
-    attr[rng.random(rows) < 0.03, 3:9] = 0.0
-    attr[:, 9:15] = rng.integers(0, 4095, (rows, 6)) * 4096 + rng.integers(0, 4095, (rows, 6))
-    attr[:, 15:21] = rng.uniform(-2.0, 2.0, (rows, 6))
-    flat_uv = rng.random(rows) < 0.05
-    attr[flat_uv, 15:21] = attr[flat_uv, 15:16]
-    attr[:, 21] = rng.integers(0, materials, rows)
-    attr[:, 22] = np.where(rng.random(rows) < 0.35, rng.integers(0, max(num_lights, 1), rows), -1)
-    attr[:, 23] = 1
-    attr[:, 24:48] = mat_rows(rows)
-    attr[:, 48:68] = KN.random_lights(rng, rows)
-
-    def f32(a):
-        return torch.tensor(np.ascontiguousarray(a, dtype=np.float32))
-
-    segs = None
-    if curves:
-        p0 = rng.uniform(-1.0, 1.0, (segments, 3))
-        steps = rng.normal(size=(3, segments, 3)) * 0.2
-        ctrl = [p0, p0 + steps[0], p0 + steps[0] + steps[1], p0 + steps[0] + steps[1] + steps[2]]
-        widths = rng.uniform(0.01, 0.06, (4, segments))
-        mids = rng.integers(-1, materials + 2, segments)
-        segs = DeviceCurves(*(f32(c) for c in ctrl), *(f32(w) for w in widths), torch.tensor(mids.astype(np.int32)))
-    return SurfaceTables(f32(attr), f32(mat_rows(materials)), segs, num_lights, refine, uv)
-
-
-def _basis(u):
-    """The uniform cubic B-spline basis at u (f64 [k])."""
-    u2, u3 = u * u, u * u * u
-    return (1 - 3 * u + 3 * u2 - u3) / 6, (4 - 6 * u2 + 3 * u3) / 6, (1 + 3 * u + 3 * u2 - 3 * u3) / 6, u3 / 6
-
-
-def random_lanes(n: int, seed: int, device, *, curves: bool = False, refine: bool = True, uv: bool = False,
-                 num_lights: int = 4) -> dict:
-    """shade_surface's arguments but depth, for the checks of K13 against its
-    plain version: n random lanes made from `seed` on the host and moved to
-    `device`, over random_tables. Triangle hits with barycentrics in and out
-    of the triangle, misses, dead lanes, `inside` both ways, a third of the
-    rows emissive (so light hits of every type); with `curves`, two lanes in
-    five aimed at a random point of a segment, at distances from its spine
-    inside and just outside its radius and with the sweep's t and u a little
-    off (the refinement converges, grazes or finds a ghost), beside triangle
-    hits nearer and farther than the curve's; last_bsdf_pdf 0 and NaN on a
-    few lanes."""
-    rng = np.random.default_rng(seed)
-    tables = random_tables(rng, curves=curves, refine=refine, uv=uv, num_lights=num_lights)
-    rows = tables.attr_table.shape[0]
-
-    def f32(a):
-        return torch.tensor(np.ascontiguousarray(a, dtype=np.float32))
-
-    def unit(a):
-        return a / np.linalg.norm(a, axis=1, keepdims=True)
-
-    def some(share):
-        return rng.random(n) < share
-
-    prim = np.where(some(0.15), -1, rng.integers(0, rows, n)).astype(np.int32)
-    hit_t = np.where(prim < 0, 1e16, rng.uniform(0.05, 8.0, n))
-    bary = rng.random((2, n))
-    outside = some(0.9)
-    bary = np.where(outside & (bary.sum(0) > 1.0), 1.0 - bary[::-1], bary)
-    origin = rng.uniform(-2.0, 2.0, (n, 3))
-    direction = unit(rng.normal(size=(n, 3)))
-    chit = None
-    if curves:
-        seg = np.full(n, -1, np.int32)
-        ct, cu = np.full(n, 1e16), np.zeros(n)
-        aim = some(0.4)
-        k = int(aim.sum())
-        s = rng.integers(0, tables.curves.p0.shape[0], k)
-        ctrl = [getattr(tables.curves, f"p{j}").cpu().numpy().astype(np.float64)[s] for j in range(4)]
-        radii = [getattr(tables.curves, f"w{j}").cpu().numpy().astype(np.float64)[s] for j in range(4)]
-        u0 = rng.random(k)
-        basis = _basis(u0)
-        point = sum(c * b[:, None] for c, b in zip(ctrl, basis))
-        r = sum(w * b for w, b in zip(radii, basis))
-        d = direction[aim]
-        off = unit(np.cross(d, rng.normal(size=(k, 3))))
-        dist = r * np.where(rng.random(k) < 0.7, rng.random(k) * 0.95, rng.uniform(0.95, 1.6, k))
-        t0 = rng.uniform(0.3, 4.0, k)
-        origin[aim] = point + off * dist[:, None] - d * t0[:, None]
-        depth_in = np.sqrt(np.maximum(r * r - dist * dist, 0.0))
-        seg[aim] = s
-        ct[aim] = t0 - depth_in + rng.normal(size=k) * 0.3 * r
-        cu[aim] = np.clip(u0 + rng.normal(size=k) * 0.02, -0.05, 1.05)
-        near = aim & some(0.3)
-        hit_t[near] = ct[near] * rng.uniform(0.2, 0.99, int(near.sum()))
-        prim[near] = rng.integers(0, rows, int(near.sum()))
-        chit = CurveHit(f32(ct), torch.tensor(seg), f32(cu))
-    lbp = np.where(some(0.1), 0.0, rng.uniform(0.0, 5.0, n))
-    lbp[some(0.01)] = np.nan
-    lanes = dict(
-        tables=tables, hit=Hit(f32(hit_t), torch.tensor(prim), f32(bary[0]), f32(bary[1])), chit=chit,
-        origin=Vec3(*(f32(origin[:, j]) for j in range(3))), direction=Vec3(*(f32(direction[:, j]) for j in range(3))),
-        inside=torch.tensor(some(0.3)), alive=torch.tensor(some(0.85)), specular_bounce=torch.tensor(some(0.5)),
-        last_bsdf_pdf=f32(lbp), radiance=Vec3(*(f32(rng.random(n)) for _ in range(3))),
-        throughput=Vec3(*(f32(rng.random(n)) for _ in range(3))), t_total=f32(rng.uniform(0.0, 20.0, n)),
-        bg=f32(rng.random(3)))
-    return {k: _to(v, device) for k, v in lanes.items()}
-
-
-def _to(v, device):
-    if v is None or isinstance(v, (int, bool)):
-        return v
-    if isinstance(v, torch.Tensor):
-        return v.to(device)
-    return type(v)(*(_to(x, device) for x in v))
-
-
-def _differ(x, y):
-    """Lanes where two arrays differ bit for bit (NaN beside NaN counts as equal)."""
-    if x.dtype == torch.float32:
-        return (x.view(torch.int32) != y.view(torch.int32)) & ~(torch.isnan(x) & torch.isnan(y))
-    return x != y
-
-
-def _leaves(v):
-    if v is None:
-        return []
-    if isinstance(v, torch.Tensor):
-        return [v]
-    return [t for x in v for t in _leaves(x)]
-
-
-def lanes_off(a: Surface, b: Surface) -> dict:
-    """The lanes where two results of the phase differ, by output, on every
-    lane. All 0: bit-equal."""
-    off = {}
-    for name, x, y in zip(a._fields, a, b):
-        xs, ys = _leaves(x), _leaves(y)
-        if len(xs) != len(ys):
-            raise ValueError(f"lanes_off: {name} has {len(xs)} arrays in one result and {len(ys)} in the other")
-        if not xs:
-            continue
-        d = torch.zeros_like(xs[0], dtype=torch.bool)
-        for u, v in zip(xs, ys):
-            d = d | _differ(u, v)
-        off[name] = int(d.sum())
-    return off

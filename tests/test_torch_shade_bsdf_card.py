@@ -1,10 +1,10 @@
 """Kernel K10 (kernels/shade.py, csrc/shade.cu) against its plain version on the card.
 
-(a) Random lanes (kernels/shade.py:random_lanes) of each material type
-    alone and all mixed, through each of the three kernel instances (no
-    fibre, the Chiang fibre, the Kajiya-Kay fibre: the last forced through
-    the wrapper's `variant`, its plain version with ops/bsdf.py's switch
-    set), at depth 0 and at a later depth: every output bit-equal to
+(a) Random lanes (tests/torch_lanes.py:random_bsdf_lanes) of each material
+    type alone and all mixed, through each of the three kernel instances (no
+    fibre, the Chiang fibre, the Kajiya-Kay fibre: the last, in the kernel
+    and in its plain version, through ops/bsdf.py's switch), at depth 0 and
+    at a later depth: every output bit-equal to
     shade_bsdf_plain on the lanes that hit a surface, the masks and the
     path state on every lane. The lanes hold mirrors, glass from inside
     (total internal reflection) and thin-walled, the cutout (opacity under
@@ -24,13 +24,15 @@ imports jax, which the card's machine lacks; run them there with
 import numpy as np
 import pytest
 import torch
+import torch_lanes as TL
 
 from strelka_tpu_torch import kernels as K
+from strelka_tpu_torch.kernels import lanes as L
 from strelka_tpu_torch.kernels import shade as KS
 from strelka_tpu_torch.ops import bsdf as B
 
 TYPES = {"diffuse": (0,), "omni_pbr": (1,), "omni_glass": (2,), "hair": (3,), "mixed": (0, 1, 2, 3)}
-VARIANTS = {"no_fibre": KS.NO_FIBRE, "chiang": KS.CHIANG, "kajiya_kay": KS.KAJIYA_KAY}
+VARIANTS = {"no_fibre": L.NO_FIBRE, "chiang": L.CHIANG, "kajiya_kay": L.KAJIYA_KAY}
 SIZES = (1, 1023, 2 ** 19, 2 ** 20 + 3)
 
 
@@ -43,14 +45,16 @@ def card():
 
 
 def held_off(lanes: dict, depth: int, variant: int, monkeypatch) -> dict:
-    """K10 and the plain phase on the same lanes -> the lanes off by output."""
+    """K10 and the plain phase on the same lanes, both with the hair lobes of
+    the kernel instance `variant` -> the lanes off by output."""
     K.reset_counts()
-    got = KS.shade_bsdf(**lanes, depth=depth, enable_hair=variant != KS.NO_FIBRE, variant=variant)
-    assert K.launch_counts["shade_bsdf"] == 1
     with monkeypatch.context() as m:
-        m.setattr(B, "_HAIR_KAJIYA_KAY", variant == KS.KAJIYA_KAY)
-        want = KS.shade_bsdf_plain(**lanes, depth=depth, enable_hair=variant != KS.NO_FIBRE)
-    return KS.lanes_off(got, want, lanes["hit_surface"])
+        m.setattr(B, "_HAIR_KAJIYA_KAY", variant == L.KAJIYA_KAY)
+        got = KS.shade_bsdf(**lanes, depth=depth, enable_hair=variant != L.NO_FIBRE)
+        assert K.launch_counts["shade_bsdf"] == 1
+        assert K.launch_shapes[("shade_bsdf", (lanes["sample_idx"].shape[0], variant))] == 1
+        want = KS.shade_bsdf_plain(**lanes, depth=depth, enable_hair=variant != L.NO_FIBRE)
+    return TL.lanes_off(got, want, {"smp": lanes["hit_surface"]})
 
 
 @pytest.mark.card
@@ -58,7 +62,7 @@ def held_off(lanes: dict, depth: int, variant: int, monkeypatch) -> dict:
 @pytest.mark.parametrize("types", TYPES)
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_k10_bit_equal_by_material(card, variant, types, depth, monkeypatch):
-    lanes = KS.random_lanes(65537, 11 + depth, card, TYPES[types])
+    lanes = TL.random_bsdf_lanes(65537, 11 + depth, card, TYPES[types])
     off = held_off(lanes, depth, VARIANTS[variant], monkeypatch)
     assert not any(off.values()), off
 
@@ -68,7 +72,7 @@ def test_k10_bit_equal_by_material(card, variant, types, depth, monkeypatch):
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_k10_bit_equal_at_sizes(card, variant, n, monkeypatch):
     for depth in (0, 1):
-        lanes = KS.random_lanes(n, n % 1009 + depth, card)
+        lanes = TL.random_bsdf_lanes(n, n % 1009 + depth, card)
         off = held_off(lanes, depth, VARIANTS[variant], monkeypatch)
         assert not any(off.values()), (depth, off)
 
@@ -121,7 +125,7 @@ def test_whole_launch_bit_equal_to_the_plain_phase(card, name, monkeypatch):
     kernel = _images(name, card, frames)
     assert K.launch_counts["shade_bsdf"] == 4 * frames  # one a bounce, replays counted
     assert K.plain_cuda_calls["shade_bsdf"] == 0
-    monkeypatch.setattr(KS, "shade_bsdf", lambda *a, variant=None, **k: KS.shade_bsdf_plain(*a, **k))
+    monkeypatch.setattr(KS, "shade_bsdf", KS.shade_bsdf_plain)
     K.reset_counts()
     plain = _images(name, card, frames)
     assert K.launch_counts["shade_bsdf"] == 0 and K.plain_cuda_calls["shade_bsdf"] > 0

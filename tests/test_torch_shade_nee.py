@@ -1,21 +1,20 @@
 """Kernels K11 and K12's wrappers (kernels/nee.py) on the CPU: CPU tensors go to
-the plain versions, wrong inputs are refused before either runs, the counters
-know both kernels, the CUDA source's argument order matches the Python side's,
-and the plain phase split around the shadow sweep computes what the phase
-computed in one piece, lane by lane and in whole renders. The kernels
+the plain versions, a wrong method or light count is refused, and the plain
+phase split around the shadow sweep computes what the phase computed in one
+piece, lane by lane and in whole renders. The refusals, counters and field
+order shared by the lane kernels are in tests/test_torch_lanes.py; the kernels
 themselves are held against the plain versions on the card
 (tests/test_torch_shade_nee_card.py)."""
 
 import os
-import re
 
 import numpy as np
 import pytest
 import torch
+import torch_lanes as TL
 
 from strelka_tpu_torch import kernels as K
 from strelka_tpu_torch.kernels import nee as KN
-from strelka_tpu_torch.kernels import shade as KS
 from strelka_tpu_torch.ops import bsdf as B
 from strelka_tpu_torch.ops import light_sampling as LS
 from strelka_tpu_torch.ops import vec as V
@@ -47,7 +46,7 @@ def _one_piece(stash: dict):
                            None, None)
 
     def shade_(nl, occluded, inside, mat, frame, direction, radiance, throughput, shade, light_table, *,
-               enable_hair, variant=None):
+               enable_hair):
         n, dev = occluded.shape[0], occluded.device
         nee_able, lp, ls, cos_nl, geom_ok = (stash[k] for k in ("nee_able", "lp", "ls", "cos_nl", "geom_ok"))
         num_lights = stash["num_lights"]
@@ -76,13 +75,13 @@ def _one_piece(stash: dict):
 @pytest.mark.parametrize("method", KN.METHODS)
 @pytest.mark.parametrize("n", (1, 257))
 def test_cpu_tensors_take_the_plain_versions(n, method, enable_hair):
-    lanes = KN.random_lanes(n, 3 + n + method, "cpu", nan_share=0.05)
+    lanes = TL.random_nee_lanes(n, 3 + n + method, "cpu", nan_share=0.05)
     K.reset_counts()
-    nl = KN.nee_light(**KN.light_args(lanes), method=method)
-    assert not any(KN.lanes_off(nl, KN.nee_light_plain(**KN.light_args(lanes), method=method)).values())
-    got = KN.nee_shade(nl, **KN.shade_args(lanes), enable_hair=enable_hair)
-    want = KN.nee_shade_plain(nl, **KN.shade_args(lanes), enable_hair=enable_hair)
-    assert not any(KN.lanes_off(got, want).values())
+    nl = KN.nee_light(**TL.light_args(lanes), method=method)
+    assert not any(TL.lanes_off(nl, KN.nee_light_plain(**TL.light_args(lanes), method=method)).values())
+    got = KN.nee_shade(nl, **TL.shade_args(lanes), enable_hair=enable_hair)
+    want = KN.nee_shade_plain(nl, **TL.shade_args(lanes), enable_hair=enable_hair)
+    assert not any(TL.lanes_off(got, want).values())
     for name in ("nee_light", "nee_shade"):
         assert K.launch_counts[name] == 0 and K.plain_cuda_calls[name] == 0
     assert nl.light_id.dtype == torch.int32 and nl.exclude.dtype == torch.int32 and got.shade.dtype == torch.bool
@@ -96,16 +95,16 @@ def test_split_phase_is_the_phase_in_one_piece(method, num_lights, hair, monkeyp
     """Every output of the split plain phase bit-equal to the phase in one
     piece, on every lane: lights of every type, NaN colours and materials."""
     monkeypatch.setattr(B, "_HAIR_KAJIYA_KAY", hair == "kajiya_kay")
-    lanes = KN.random_lanes(2000, 40 + 2 * num_lights + method, "cpu", num_lights=num_lights, nan_share=0.03)
+    lanes = TL.random_nee_lanes(2000, 40 + 2 * num_lights + method, "cpu", num_lights=num_lights, nan_share=0.03)
     light, shade_ = _one_piece({})
-    whole_nl = light(**KN.light_args(lanes), method=method)
-    whole = shade_(whole_nl, **KN.shade_args(lanes), enable_hair=hair != "none")
-    nl = KN.nee_light_plain(**KN.light_args(lanes), method=method)
-    split = KN.nee_shade_plain(nl, **KN.shade_args(lanes), enable_hair=hair != "none")
+    whole_nl = light(**TL.light_args(lanes), method=method)
+    whole = shade_(whole_nl, **TL.shade_args(lanes), enable_hair=hair != "none")
+    nl = KN.nee_light_plain(**TL.light_args(lanes), method=method)
+    split = KN.nee_shade_plain(nl, **TL.shade_args(lanes), enable_hair=hair != "none")
     # the one piece has no light_pdf or light_id here: the shade half's outputs hold them
-    off = KN.lanes_off(nl, whole_nl._replace(light_pdf=nl.light_pdf, light_id=nl.light_id))
+    off = TL.lanes_off(nl, whole_nl._replace(light_pdf=nl.light_pdf, light_id=nl.light_id))
     assert not any(off.values()), off
-    assert not any(KN.lanes_off(split, whole).values()), KN.lanes_off(split, whole)
+    assert not any(TL.lanes_off(split, whole).values()), TL.lanes_off(split, whole)
     assert (split.shade != lanes["shade"]).any() and (split.radiance.x == 1e4).any()  # a canary fired
 
 
@@ -152,104 +151,10 @@ def test_render_split_phase_bit_equal_to_the_phase_in_one_piece(name, monkeypatc
     assert not any(off), off
 
 
-def _lanes_with(name: str, value):
-    lanes = KN.random_lanes(64, 1, "cpu")
-    for key in ("frame", "mat", "position"):
-        if name in lanes[key]._fields:
-            lanes[key] = lanes[key]._replace(**{name: value(getattr(lanes[key], name))})
-            return lanes
-    lanes[name] = value(lanes[name])
-    return lanes
-
-
-def _halves(lanes):
-    """Call nee_light, then nee_shade on its handoff."""
-    nl = KN.nee_light(**KN.light_args(lanes), method=0)
-    return KN.nee_shade(nl, **KN.shade_args(lanes), enable_hair=False)
-
-
-@pytest.mark.parametrize("name, value, kernel", [
-    ("event_type", lambda t: t.to(torch.int64), "nee_light"),
-    ("u_light", lambda t: t.double(), "nee_light"),
-    ("is_curve", lambda t: t.to(torch.uint8), "nee_light"),
-    ("prim", lambda t: t.float(), "nee_light"),
-    ("occluded", lambda t: t.to(torch.int32), "nee_shade"),
-    ("roughness", lambda t: t.double(), "nee_shade"),
-    ("bsdf_type", lambda t: t.to(torch.int64), "nee_shade"),
-])
-def test_wrong_dtype_refused(name, value, kernel):
-    with pytest.raises(ValueError, match=kernel):
-        _halves(_lanes_with(name, value))
-
-
-@pytest.mark.parametrize("name, kernel", [("u_x", "nee_light"), ("geom_normal", "nee_light"),
-                                          ("inside", "nee_shade"), ("throughput", "nee_shade")])
-def test_non_contiguous_input_refused(name, kernel):
-    def strided(t):
-        if isinstance(t, tuple):
-            return type(t)(*(strided(c) for c in t))
-        return torch.stack([t, t], dim=1)[:, 0]
-
-    with pytest.raises(ValueError, match=kernel + ".*non-contiguous"):
-        _halves(_lanes_with(name, strided))
-
-
-def test_wrong_length_refused():
-    with pytest.raises(ValueError, match="nee_light: u_y"):
-        _halves(_lanes_with("u_y", lambda t: t[:-1].contiguous()))
-
-
-@pytest.mark.parametrize("name, kernel", [("prim", "nee_light"), ("u_light", "nee_light"), ("inside", "nee_shade"),
-                                          ("ior", "nee_shade")])
-def test_mixed_devices_refused(name, kernel):
-    with pytest.raises(ValueError, match=kernel + ".*is on meta"):
-        _halves(_lanes_with(name, lambda t: torch.empty_like(t, device="meta")))
-
-
-@pytest.mark.parametrize("table", [lambda t: t.double(), lambda t: t[:, :19].contiguous(), lambda t: t[:0],
-                                   lambda t: t.t().contiguous().t(), lambda t: torch.empty_like(t, device="meta")])
-def test_light_table_refused(table):
-    lanes = KN.random_lanes(16, 2, "cpu")
-    lanes["light_table"] = table(lanes["light_table"])
-    with pytest.raises(ValueError, match="nee_light: light_table"):
-        _halves(lanes)
-
-
 def test_method_variant_and_lights_refused():
-    lanes = KN.random_lanes(8, 1, "cpu")
+    lanes = TL.random_nee_lanes(8, 1, "cpu")
     with pytest.raises(ValueError, match="no rect light sampling method"):
-        KN.nee_light(**KN.light_args(lanes), method=2)
+        KN.nee_light(**TL.light_args(lanes), method=2)
     with pytest.raises(ValueError, match="without lights"):
-        KN.nee_light(**{**KN.light_args(lanes), "num_lights": 0}, method=0)
-    nl = KN.nee_light(**KN.light_args(lanes), method=0)
-    with pytest.raises(ValueError, match="plain version"):
-        KN.nee_shade(nl, **KN.shade_args(lanes), enable_hair=True, variant=KS.KAJIYA_KAY)
-    with pytest.raises(ValueError, match="no kernel instance"):
-        KN.nee_shade(nl, **KN.shade_args(lanes), enable_hair=False, variant=5)
+        KN.nee_light(**{**TL.light_args(lanes), "num_lights": 0}, method=0)
 
-
-def test_counters_know_the_kernels():
-    K.reset_counts()
-    for name in ("nee_light", "nee_shade"):
-        assert name in K.KERNEL_NAMES
-        K.count_launch(name, (1023, 1))
-        K.note_plain(name, torch.device("cuda"))
-        assert K.launch_counts[name] == 1 and K.launch_shapes[(name, (1023, 1))] == 1
-        assert K.plain_cuda_calls[name] == 1
-    K.reset_counts()
-    assert not K.launch_counts["nee_light"] and not K.plain_cuda_calls["nee_shade"] and not K.launch_shapes
-
-
-def _enum(text: str, first: str) -> list:
-    body = re.search(r"enum : int \{\s*(" + first + r",.*?)\};", text, re.S).group(1)
-    return [w.strip() for w in body.split(",") if w.strip()]
-
-
-@pytest.mark.parametrize("first, fields", [("kShade", KN.LIGHT_IN_FIELDS), ("kOrgX", KN.LIGHT_OUT_FIELDS),
-                                           ("kOccluded", KN.SHADE_IN_FIELDS), ("kRadianceOutX", KN.SHADE_OUT_FIELDS)])
-def test_argument_order_matches_the_source(first, fields):
-    with open(os.path.join(CSRC, "nee.cu"), encoding="utf-8") as f:
-        names = _enum(f.read(), first)
-    assert names[-1] in ("kInCount", "kOutCount")
-    camel = ["k" + "".join(w.capitalize() for w in f.split("_")) for f in fields]
-    assert [n.lower() for n in names[:-1]] == [c.lower() for c in camel]

@@ -1,12 +1,12 @@
 """Kernels K11 and K12 (kernels/nee.py, csrc/nee.cu) against their plain versions on the card.
 
-(a) Random lanes (kernels/nee.py:random_lanes) of each light type alone and
+(a) Random lanes (tests/torch_lanes.py:random_nee_lanes) of each light type alone and
     all mixed (rect lights by both sampling methods, a disc), one light and
     four, with NaN planted in a light's colour and in the materials (both
     canaries), through K11 and then, on K11's handoff, through each of the
     three instances of K12 (no fibre, the Chiang fibre, the Kajiya-Kay fibre:
-    the last forced through the wrapper's `variant`, its plain version with
-    ops/bsdf.py's switch set) on lanes of each material type: every output
+    the last, in the kernel and in its plain version, through ops/bsdf.py's
+    switch) on lanes of each material type: every output
     bit-equal to nee_light_plain and nee_shade_plain on every lane. The
     lanes hold `inside` both ways, normals facing away from the light and
     lights facing away from the lane, positions inside sphere lights and far
@@ -26,15 +26,16 @@ imports jax, which the card's machine lacks; run them there with
 import numpy as np
 import pytest
 import torch
+import torch_lanes as TL
 
 from strelka_tpu_torch import kernels as K
+from strelka_tpu_torch.kernels import lanes as L
 from strelka_tpu_torch.kernels import nee as KN
-from strelka_tpu_torch.kernels import shade as KS
 from strelka_tpu_torch.ops import bsdf as B
 
 LIGHTS = {"rect": (0,), "disc": (1,), "sphere": (2,), "distant": (3,), "mixed": (0, 1, 2, 3)}
 TYPES = {"diffuse": (0,), "omni_pbr": (1,), "omni_glass": (2,), "hair": (3,), "mixed": (0, 1, 2, 3)}
-VARIANTS = {"no_fibre": KS.NO_FIBRE, "chiang": KS.CHIANG, "kajiya_kay": KS.KAJIYA_KAY}
+VARIANTS = {"no_fibre": L.NO_FIBRE, "chiang": L.CHIANG, "kajiya_kay": L.KAJIYA_KAY}
 SIZES = (1, 1023, 2 ** 19, 2 ** 20 + 3)
 
 
@@ -49,20 +50,22 @@ def card():
 def light_off(lanes: dict, method: int) -> tuple:
     """K11 and its plain version on the same lanes -> (K11's handoff, the lanes off by output)."""
     K.reset_counts()
-    got = KN.nee_light(**KN.light_args(lanes), method=method)
+    got = KN.nee_light(**TL.light_args(lanes), method=method)
     assert K.launch_counts["nee_light"] == 1
-    return got, KN.lanes_off(got, KN.nee_light_plain(**KN.light_args(lanes), method=method))
+    return got, TL.lanes_off(got, KN.nee_light_plain(**TL.light_args(lanes), method=method))
 
 
 def shade_off(lanes: dict, nl, variant: int, monkeypatch) -> dict:
-    """K12 and its plain version on the same lanes and handoff -> the lanes off by output."""
+    """K12 and its plain version on the same lanes and handoff, both with the
+    hair lobes of the kernel instance `variant` -> the lanes off by output."""
     K.reset_counts()
-    got = KN.nee_shade(nl, **KN.shade_args(lanes), enable_hair=variant != KS.NO_FIBRE, variant=variant)
-    assert K.launch_counts["nee_shade"] == 1
     with monkeypatch.context() as m:
-        m.setattr(B, "_HAIR_KAJIYA_KAY", variant == KS.KAJIYA_KAY)
-        want = KN.nee_shade_plain(nl, **KN.shade_args(lanes), enable_hair=variant != KS.NO_FIBRE)
-    return KN.lanes_off(got, want)
+        m.setattr(B, "_HAIR_KAJIYA_KAY", variant == L.KAJIYA_KAY)
+        got = KN.nee_shade(nl, **TL.shade_args(lanes), enable_hair=variant != L.NO_FIBRE)
+        assert K.launch_counts["nee_shade"] == 1
+        assert K.launch_shapes[("nee_shade", (lanes["occluded"].shape[0], variant))] == 1
+        want = KN.nee_shade_plain(nl, **TL.shade_args(lanes), enable_hair=variant != L.NO_FIBRE)
+    return TL.lanes_off(got, want)
 
 
 @pytest.mark.card
@@ -70,7 +73,7 @@ def shade_off(lanes: dict, nl, variant: int, monkeypatch) -> dict:
 @pytest.mark.parametrize("method", KN.METHODS)
 @pytest.mark.parametrize("lights", LIGHTS)
 def test_k11_bit_equal_by_light(card, lights, method, num_lights):
-    lanes = KN.random_lanes(65537, 5 + method + num_lights, card, light_types=LIGHTS[lights],
+    lanes = TL.random_nee_lanes(65537, 5 + method + num_lights, card, light_types=LIGHTS[lights],
                             num_lights=num_lights, nan_share=0.02)
     _, off = light_off(lanes, method)
     assert not any(off.values()), off
@@ -81,7 +84,7 @@ def test_k11_bit_equal_by_light(card, lights, method, num_lights):
 @pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("method", KN.METHODS)
 def test_k12_bit_equal_by_material(card, method, variant, types, monkeypatch):
-    lanes = KN.random_lanes(65537, 17 + method, card, TYPES[types], nan_share=0.02)
+    lanes = TL.random_nee_lanes(65537, 17 + method, card, TYPES[types], nan_share=0.02)
     nl, off = light_off(lanes, method)
     assert not any(off.values()), off
     off = shade_off(lanes, nl, VARIANTS[variant], monkeypatch)
@@ -93,7 +96,7 @@ def test_k12_bit_equal_by_material(card, method, variant, types, monkeypatch):
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_k11_k12_bit_equal_at_sizes(card, variant, n, monkeypatch):
     for method in KN.METHODS:
-        lanes = KN.random_lanes(n, n % 1009 + method, card, nan_share=0.01)
+        lanes = TL.random_nee_lanes(n, n % 1009 + method, card, nan_share=0.01)
         nl, off = light_off(lanes, method)
         assert not any(off.values()), (method, off)
         off = shade_off(lanes, nl, VARIANTS[variant], monkeypatch)
@@ -149,8 +152,8 @@ def test_whole_launch_bit_equal_to_the_plain_phase(card, name, monkeypatch):
     for kname in ("nee_light", "nee_shade"):
         assert K.launch_counts[kname] == 4 * frames  # one a bounce, replays counted
         assert K.plain_cuda_calls[kname] == 0
-    monkeypatch.setattr(KN, "nee_light", lambda *a, **k: KN.nee_light_plain(*a, **k))
-    monkeypatch.setattr(KN, "nee_shade", lambda *a, variant=None, **k: KN.nee_shade_plain(*a, **k))
+    monkeypatch.setattr(KN, "nee_light", KN.nee_light_plain)
+    monkeypatch.setattr(KN, "nee_shade", KN.nee_shade_plain)
     K.reset_counts()
     plain = _images(name, card, frames)
     assert K.launch_counts["nee_light"] == 0 and K.launch_counts["nee_shade"] == 0

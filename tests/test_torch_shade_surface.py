@@ -1,9 +1,10 @@
 """Kernel K13's wrapper (kernels/surface.py) on the CPU: CPU tensors go to the
-plain version, wrong inputs are refused before either runs, the counters know
-the kernel, the CUDA source's argument order and refinement constants match the
-Python side's, and the reordered plain phase (the curve step before the texture
-lookups, which get no texture on a curve lane) computes what the phase computed
-in one piece, lane by lane and in whole renders. The kernel itself is held
+plain version, a short background and curve hits without curves are refused,
+the CUDA source's refinement constants match the Python side's, and the
+reordered plain phase (the curve step before the texture lookups, which get no
+texture on a curve lane) computes what the phase computed in one piece, lane by
+lane and in whole renders. The refusals, counters and field order shared by the
+lane kernels are in tests/test_torch_lanes.py; the kernel itself is held
 against the plain version on the card (tests/test_torch_shade_surface_card.py)."""
 
 import inspect
@@ -14,6 +15,7 @@ import types
 import numpy as np
 import pytest
 import torch
+import torch_lanes as TL
 
 from strelka_tpu_torch import kernels as K
 from strelka_tpu_torch.kernels import surface as KSF
@@ -115,11 +117,11 @@ def _refine_classes(lanes) -> dict:
 @pytest.mark.parametrize("curves, refine, uv", INSTANCES)
 @pytest.mark.parametrize("n", (1, 257))
 def test_cpu_tensors_take_the_plain_version(n, curves, refine, uv):
-    lanes = KSF.random_lanes(n, 3 + n, "cpu", curves=curves, refine=refine, uv=uv)
+    lanes = TL.random_surface_lanes(n, 3 + n, "cpu", curves=curves, refine=refine, uv=uv)
     K.reset_counts()
     got = KSF.shade_surface(**lanes, depth=1)
     assert K.launch_counts["shade_surface"] == 0 and K.plain_cuda_calls["shade_surface"] == 0
-    assert not any(KSF.lanes_off(got, KSF.shade_surface_plain(**lanes, depth=1)).values())
+    assert not any(TL.lanes_off(got, KSF.shade_surface_plain(**lanes, depth=1)).values())
     assert got.mat.bsdf_type.dtype == torch.int32 and got.is_curve.dtype == torch.bool
     assert (got.tex_rows is not None) == uv and (got.t_hit is not None) == uv
     assert not (got.is_curve & ~lanes["alive"]).any() and not (got.hit_surface & ~lanes["alive"]).any()
@@ -136,7 +138,7 @@ def test_reordered_phase_is_the_phase_in_one_piece(curves, refine, uv, depth, nu
     textures."""
     torch.set_num_threads(1)  # torch 2.13's CPU first-call sqrt fault (ROADMAP C)
     n = 3000
-    lanes = KSF.random_lanes(n, 100 + 7 * depth + num_lights, "cpu", curves=curves, refine=refine, uv=uv,
+    lanes = TL.random_surface_lanes(n, 100 + 7 * depth + num_lights, "cpu", curves=curves, refine=refine, uv=uv,
                              num_lights=num_lights)
     scene = _atlas_scene()
     rng = np.random.default_rng(depth)
@@ -154,7 +156,7 @@ def test_reordered_phase_is_the_phase_in_one_piece(curves, refine, uv, depth, nu
     split = KSF.Surface(sf.radiance, sf.throughput, sf.position, frame, mat, sf.hit_surface, sf.is_curve, None,
                         None, sf.t_hit)
     one = KSF.Surface(*whole[:7], None, None, whole[7])
-    off = KSF.lanes_off(split, one)
+    off = TL.lanes_off(split, one)
     assert not any(off.values()), off
     alive, prim = lanes["alive"], lanes["hit"].prim
     light_hit = alive & ~sf.hit_surface & (prim >= 0) & ~sf.is_curve
@@ -273,134 +275,26 @@ def test_render_reordered_phase_bit_equal_to_the_phase_in_one_piece(name, monkey
     assert not any(off), off
 
 
-def _lanes_with(name: str, value, **instance):
-    lanes = KSF.random_lanes(64, 1, "cpu", **instance)
-    for key in ("hit", "chit", "origin", "direction", "radiance", "throughput"):
-        if lanes[key] is not None and name in lanes[key]._fields:
-            lanes[key] = lanes[key]._replace(**{name: value(getattr(lanes[key], name))})
-            return lanes
-    lanes[name] = value(lanes[name])
-    return lanes
-
-
-CURVES_UV = dict(curves=True, uv=True)
-
-
-@pytest.mark.parametrize("name, value, field", [
-    ("prim", lambda t: t.float(), "prim"),
-    ("t", lambda t: t.double(), "hit_t"),
-    ("seg", lambda t: t.to(torch.int64), "seg"),
-    ("inside", lambda t: t.to(torch.uint8), "inside"),
-    ("last_bsdf_pdf", lambda t: t.half(), "last_bsdf_pdf"),
-    ("t_total", lambda t: t.double(), "t_total"),
-])
-def test_wrong_dtype_refused(name, value, field):
-    with pytest.raises(ValueError, match=f"shade_surface: {field} must be"):
-        KSF.shade_surface(**_lanes_with(name, value, **CURVES_UV), depth=0)
-
-
-@pytest.mark.parametrize("name, field", [("u", "hit_u"), ("y", "origin_y"), ("alive", "alive"),
-                                         ("seg", "seg")])
-def test_non_contiguous_input_refused(name, field):
-    def strided(t):
-        return torch.stack([t, t], dim=1)[:, 0]
-
-    with pytest.raises(ValueError, match=f"shade_surface: {field} .*non-contiguous"):
-        KSF.shade_surface(**_lanes_with(name, strided, **CURVES_UV), depth=0)
-
-
-def test_wrong_length_refused():
-    with pytest.raises(ValueError, match="shade_surface: hit_v"):
-        KSF.shade_surface(**_lanes_with("v", lambda t: t[:-1].contiguous()), depth=0)
-
-
-@pytest.mark.parametrize("name, field", [("prim", "prim"), ("specular_bounce", "specular_bounce"),
-                                         ("u", "curve_u")])
-def test_mixed_devices_refused(name, field):
-    lanes = KSF.random_lanes(16, 2, "cpu", curves=True)
-    meta = lambda t: torch.empty_like(t, device="meta")  # noqa: E731
-    if field == "curve_u":
-        lanes["chit"] = lanes["chit"]._replace(u=meta(lanes["chit"].u))
-    else:
-        lanes = _lanes_with(name, meta, curves=True)
-    with pytest.raises(ValueError, match=f"shade_surface: {field} is on meta"):
-        KSF.shade_surface(**lanes, depth=0)
-
-
-@pytest.mark.parametrize("field, change", [
-    ("attr_table", lambda t: t.double()), ("attr_table", lambda t: t[:, :67].contiguous()),
-    ("attr_table", lambda t: t[:0]), ("attr_table", lambda t: t.t().contiguous().t()),
-    ("attr_table", lambda t: torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape)),
-    ("attr_table", lambda t: torch.empty_like(t, device="meta")),
-    ("mat_table", lambda t: t[:, :23].contiguous()), ("mat_table", lambda t: t.double()),
-])
-def test_table_refused(field, change):
-    lanes = KSF.random_lanes(16, 2, "cpu")
-    lanes["tables"] = lanes["tables"]._replace(**{field: change(getattr(lanes["tables"], field))})
-    with pytest.raises(ValueError, match=f"shade_surface: {field}"):
-        KSF.shade_surface(**lanes, depth=0)
-
-
-@pytest.mark.parametrize("field, change", [("p2", lambda t: t[:-1].contiguous()), ("w1", lambda t: t.double()),
-                                           ("material_id", lambda t: t.to(torch.int64)),
-                                           ("p0", lambda t: t.t().contiguous().t())])
-def test_curve_tables_refused(field, change):
-    lanes = KSF.random_lanes(16, 2, "cpu", curves=True)
-    curves = lanes["tables"].curves
-    lanes["tables"] = lanes["tables"]._replace(curves=curves._replace(**{field: change(getattr(curves, field))}))
-    with pytest.raises(ValueError, match=f"shade_surface: {field}"):
-        KSF.shade_surface(**lanes, depth=0)
-
-
 def test_background_and_curves_refused():
-    lanes = KSF.random_lanes(16, 2, "cpu")
+    lanes = TL.random_surface_lanes(16, 2, "cpu")
     with pytest.raises(ValueError, match="shade_surface: bg"):
         KSF.shade_surface(**{**lanes, "bg": lanes["bg"][:2]}, depth=0)
-    curved = KSF.random_lanes(16, 2, "cpu", curves=True)
+    curved = TL.random_surface_lanes(16, 2, "cpu", curves=True)
     with pytest.raises(ValueError, match="curve segments"):
         KSF.shade_surface(**{**lanes, "chit": curved["chit"]}, depth=0)
 
 
 def test_untextured_phase_takes_no_path_length():
     """t_total is read on a textured scene only: None passes elsewhere."""
-    lanes = KSF.random_lanes(16, 2, "cpu")
+    lanes = TL.random_surface_lanes(16, 2, "cpu")
     assert KSF.shade_surface(**{**lanes, "t_total": None}, depth=0).t_hit is None
     with pytest.raises(ValueError, match="shade_surface: t_total"):
-        KSF.shade_surface(**{**KSF.random_lanes(16, 2, "cpu", uv=True), "t_total": None}, depth=0)
-
-
-def test_counters_know_the_kernel():
-    K.reset_counts()
-    assert "shade_surface" in K.KERNEL_NAMES
-    K.count_launch("shade_surface", (1023, 1, 1, 0))
-    K.note_plain("shade_surface", torch.device("cuda"))
-    assert K.launch_counts["shade_surface"] == 1 and K.launch_shapes[("shade_surface", (1023, 1, 1, 0))] == 1
-    assert K.plain_cuda_calls["shade_surface"] == 1
-    K.reset_counts()
-    assert not K.launch_counts["shade_surface"] and not K.plain_cuda_calls["shade_surface"] and not K.launch_shapes
-
-
-def _source() -> str:
-    with open(os.path.join(CSRC, "surface.cu"), encoding="utf-8") as f:
-        return f.read()
-
-
-def _enum(text: str, first: str) -> list:
-    body = re.search(r"enum : int \{\s*(" + first + r",.*?)\};", text, re.S).group(1)
-    return [w.strip() for w in body.split(",") if w.strip()]
-
-
-@pytest.mark.parametrize("first, fields", [("kHitT", KSF.IN_FIELDS), ("kRadianceOutX", KSF.OUT_FIELDS),
-                                           ("kAttrTable", KSF.TABLE_FIELDS)])
-def test_argument_order_matches_the_source(first, fields):
-    names = _enum(_source(), first)
-    assert names[-1] in ("kInCount", "kOutCount", "kTableCount")
-    camel = ["k" + "".join(w.capitalize() for w in f.split("_")) for f in fields]
-    assert [n.lower() for n in names[:-1]] == [c.lower() for c in camel]
+        KSF.shade_surface(**{**TL.random_surface_lanes(16, 2, "cpu", uv=True), "t_total": None}, depth=0)
 
 
 def test_refinement_constants_match_the_source():
-    src = _source()
+    with open(os.path.join(CSRC, "surface.cu"), encoding="utf-8") as f:
+        src = f.read()
     iters = int(re.search(r"constexpr int kIters = (\d+);", src).group(1))
     tol = float(re.search(r"constexpr double kTol = ([0-9.e-]+);", src).group(1))
     assert iters == inspect.signature(CR.refine_scene_curve_hit).parameters["iters"].default

@@ -1,6 +1,6 @@
 """Kernel K13 (kernels/surface.py, csrc/surface.cu) against its plain version on the card.
 
-(a) Random lanes (kernels/surface.py:random_lanes) through each of the six
+(a) Random lanes (tests/torch_lanes.py:random_surface_lanes) through each of the six
     kernel instances (curves or not, the refinement or not, the uv outputs or
     not), at bounce 0 and later, with one light and four: every output
     bit-equal to shade_surface_plain on every lane. The lanes hold misses,
@@ -24,6 +24,7 @@ imports jax, which the card's machine lacks; run them there with
 import numpy as np
 import pytest
 import torch
+import torch_lanes as TL
 
 from strelka_tpu_torch import kernels as K
 from strelka_tpu_torch.kernels import surface as KSF
@@ -48,7 +49,7 @@ def surface_off(lanes: dict, depth: int) -> dict:
     K.reset_counts()
     got = KSF.shade_surface(**lanes, depth=depth)
     assert K.launch_counts["shade_surface"] == 1 and K.plain_cuda_calls["shade_surface"] == 0
-    return KSF.lanes_off(got, KSF.shade_surface_plain(**lanes, depth=depth))
+    return TL.lanes_off(got, KSF.shade_surface_plain(**lanes, depth=depth))
 
 
 @pytest.mark.card
@@ -57,7 +58,7 @@ def surface_off(lanes: dict, depth: int) -> dict:
 @pytest.mark.parametrize("instance", INSTANCES)
 def test_k13_bit_equal_by_instance(card, instance, depth, num_lights):
     curves, refine, uv = INSTANCES[instance]
-    lanes = KSF.random_lanes(65537, 31 + depth + 2 * num_lights, card, curves=curves, refine=refine, uv=uv,
+    lanes = TL.random_surface_lanes(65537, 31 + depth + 2 * num_lights, card, curves=curves, refine=refine, uv=uv,
                              num_lights=num_lights)
     off = surface_off(lanes, depth)
     assert not any(off.values()), off
@@ -68,7 +69,7 @@ def test_k13_bit_equal_by_instance(card, instance, depth, num_lights):
 @pytest.mark.parametrize("instance", INSTANCES)
 def test_k13_bit_equal_at_sizes(card, instance, n):
     curves, refine, uv = INSTANCES[instance]
-    lanes = KSF.random_lanes(n, n % 1009, card, curves=curves, refine=refine, uv=uv)
+    lanes = TL.random_surface_lanes(n, n % 1009, card, curves=curves, refine=refine, uv=uv)
     off = surface_off(lanes, 1)
     assert not any(off.values()), off
 
