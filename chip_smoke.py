@@ -64,30 +64,31 @@ Phases (any failure raises and the script exits non-zero):
      after each main path, every (kernel, shape) it launched must be one
      that was held against its plain version before;
   5. hair_patch(n_curves=256), 1,280 cubic B-spline segments as 10,240 round
-     cones over a ground quad (kernels K1-K4, K7, K8): K7 (each ray's boxes
-     near to far) and K8 against the plain dense sweep (t, cone, y and
-     occlusion equal on every lane), against their own cull=False mode and
-     K7 against its list walk, and K7's count of sub-blocks swept against the
-     plain count of its walk, on the scene's camera, bounce-1 and shadow rays
-     (384x384x2 = 294,912 lanes each); the lane slots of the cone loop that
-     test a cone, beside those of fixed lanes; K1-K4 at this scene's shapes
+     cones over a ground quad (kernels K1-K4, K7, K8): K7 and K8, each
+     walking the cone tree, against the plain dense sweep (t, cone, y and
+     occlusion equal on every lane) and against their own cull=False mode,
+     and their counters (inner boxes, leaves, cones) against the plain count
+     of their walk, on the scene's camera, bounce-1 and shadow rays
+     (384x384x2 = 294,912 lanes each); the boxes, leaves and cones a ray
+     tests beside the cones whose own box its final interval enters (the
+     roofline's count); K1-K4 at this scene's shapes
      (K2/K3 held as on Cornell on the camera, bounce-1 and shadow rays);
      the golden config (64x64, 4 spp x 16 launches) against
      goldens/hair_patch_golden.png; the main path at 384x384, 2 spp, depth 4
      (1 warm-up + 4 timed launches);
   6. hair_patch(n_curves=20000) ("hair_long"), 100,000 segments as 800,000
-     cones in 391 superblocks, where kernel K9 gives each ray tile its list of
-     superblocks (K7's candidates, K8's order): K9 against its plain version
-     (W and min_tn bit for bit, the open flag with the reference's K = 16
-     nearest superblocks swept, and the sweep order sorted in the same
-     launch: order, count and tnear bit for bit) on every lane, also with
-     the superblocks three times over (1,173, past a block's threads) and
-     rays no multiple of the tile; K7/K8 against cull=False, the
-     list walk and their ascending sweep on every lane and against the plain
-     sweep and the plain count of K7's walk on a fixed subset of 2^14 lanes,
-     the sub-blocks and cones a ray tests beside what it needs (counted in
-     plain PyTorch); the main path at 384x384, 2 spp, depth 4 (1 warm-up + 2
-     timed launches); the golden config (32x32, 2 spp x 4 launches) against
+     cones under a cone tree of three levels: K7/K8 against cull=False on
+     every lane and against the plain sweep and the plain count of their
+     walks on a fixed subset of 2^14 lanes, the boxes, leaves and cones a
+     ray tests beside what it needs (counted in plain PyTorch); kernel K9,
+     off the cone sweeps' path, on the scene's 391 superblocks at tiles of 64
+     rays: against its plain version (W and min_tn bit for bit, the open
+     flag with the reference's K = 16 nearest superblocks swept, and the
+     sweep order sorted in the same launch: order, count and tnear bit for
+     bit) on every lane, also with the superblocks three times over (1,173,
+     past a block's threads) and rays no multiple of the tile; the main path
+     at 384x384, 2 spp, depth 4 (1 warm-up + 2 timed launches); the golden
+     config (32x32, 2 spp x 4 launches) against
      goldens/hair_long_golden.png;
   7. coffeetable (data/scenes/coffeetable.usda through the port's
      UsdLoader: 64 triangles padded to 128, flat, 2 lights; kernels K1-K4):
@@ -249,7 +250,7 @@ CORNELL = Config("cornell", 512, 512, 4, 4, 16, ("sobol", "intersect_closest", "
 BOX = Config("box_field", 512, 512, 2, 4, 4, ("sobol", "bvh_closest", "bvh_any", "gather_rows_t"))
 _HAIR_KERNELS = ("sobol", "intersect_closest", "intersect_any", "gather_rows_t", "cone_closest", "cone_any")
 HAIR = Config("hair_patch", 384, 384, 2, 4, 4, _HAIR_KERNELS)  # bench.py:238
-HAIR_LONG = Config("hair_long", 384, 384, 2, 4, 2, _HAIR_KERNELS + ("open_w",))  # bench.py:239
+HAIR_LONG = Config("hair_long", 384, 384, 2, 4, 2, _HAIR_KERNELS)  # bench.py:239
 COFFEE = Config("coffeetable", 512, 512, 2, 4, 8, CORNELL.kernels)  # bench.py:233
 KITCHEN = Config("kitchen", 512, 512, 2, 4, 4, BOX.kernels)  # bench.py:237
 COFFEE_GOLDEN = (64, 64, 4, 16)  # bench.GOLDEN_CONFIGS["coffeetable"]
@@ -269,6 +270,7 @@ GOLDEN = (64, 64, 4, 4)  # bench.GOLDEN_CONFIGS of both scenes: w, h, spp, launc
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # non-tensor f32
+SAMPLE_RAYS = 2048  # live rays of the cone roofline's count (benchmark/bounds.py samples as many)
 # Integer work, per pipe: instructions per SM per clock for compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput) x 132 SMs x 1.98 GHz boost clock.
@@ -295,6 +297,7 @@ REPLACES = {
     "shade_surface": ("none: the TPU package leaves the surface phase to XLA", "strelka_tpu_torch/csrc/surface.cu"),
 }
 OPEN_K = 16  # superblocks a tile has swept when the open flag is asked (the reference's CONE_RESIDUAL_K)
+K9_TILE = 64  # rays a tile of K9's sweep order (the cone sweeps took its order at this tile until the cone tree)
 # what a walking kernel's entry in the kernels line carries beside the numbers of every entry
 # what an entry of a kernel's "shapes" carries beside those numbers where its row has it
 SHAPE_KEYS = ("dense_bound_ms", "device_ms", "host_us", "schedule", "order_ms", "order_device_ms", "plain_device_ms")
@@ -1654,25 +1657,25 @@ def cone_args(scene, rays):
     return o, d, rays["tmin"].contiguous(), rays["tmax"].contiguous(), scene.packed_cones
 
 
-def check_open_w(pc, o, d, tmin, tmax, t_closest, name, sbounds=None):
-    """K9 against its plain version on one ray set, at the tile the cone
-    sweeps use, over the scene's superblock boxes (or `sbounds`): W equal
-    and min_tn bit for bit without the open flag (the main path's launch),
-    and with the open flag too, each tile's OPEN_K nearest superblocks taken
-    as swept and the closest sweep's t as the bound (the reference's use
-    after phase 1); and the sweep order the main path takes from the same
-    launch (sweep_order: order, count and tnear) equal to the plain twin's
-    (sweep_order_plain, computed on the card) bit for bit. Returns (plain
-    ms, mean superblocks a tile passes, the comparisons the tiles' orders
-    need: c log2 c for the c superblocks a tile passes, a comparison sort's
-    least; the others are placed by index)."""
+def check_open_w(sbounds, o, d, tmin, tmax, t_closest, name):
+    """K9 against its plain version on one ray set, at tiles of K9_TILE rays,
+    over superblock boxes `sbounds`: W equal and min_tn bit for bit without
+    the open flag, and with the open flag too, each tile's OPEN_K nearest
+    superblocks taken as swept and the closest sweep's t as the bound (the
+    reference's use after phase 1); and the sweep order from the same launch
+    (sweep_order: order, count and tnear) equal to the plain twin's
+    (sweep_order_plain, computed on the card) bit for bit. K9 is off the
+    cone sweeps' path (they walk the cone tree); it stays held as the
+    hand-written counterpart of pallas_open_w. Returns (plain ms, mean
+    superblocks a tile passes, the comparisons the tiles' orders need:
+    c log2 c for the c superblocks a tile passes, a comparison sort's least;
+    the others are placed by index)."""
     import torch
 
     from strelka_tpu_torch.kernels import open_w as KO
     from strelka_tpu_torch.ops import curves as C
 
-    tile = C.CONE_ORDER_TILE
-    sb = pc.sbounds if sbounds is None else sbounds
+    tile, sb = K9_TILE, sbounds
     bits = lambda a, b: a.view(torch.int32) != b.view(torch.int32)  # noqa: E731
     open_k, w_k, tn_k = held(lambda: KO.open_w(o, d, tmin, tmax, sb, tile=tile))
     (open_p, w_p, tn_p), plain_ms = timed_once_ms(lambda: KO.open_w_plain(o, d, tmin, tmax, sb, tile=tile))
@@ -1705,25 +1708,21 @@ def check_open_w(pc, o, d, tmin, tmax, t_closest, name, sbounds=None):
 
 
 def check_cones(scene, rays, name, subset=None):
-    """K7 and K8 on one ray set, swept as the main path sweeps them (K7 each
-    ray's boxes near to far, K8 the list walk; where the scene's dispatch asks
-    for one, both over kernel K9's list per ray tile), against their own
-    cull=False mode, K7's list walk in the same order and the ascending list
-    walk on every lane, and against the plain dense sweeps (on every lane, or
-    on the lanes `subset` where the dense sweep over the scene's cones would
-    take minutes): t bit for bit, cone index and y equal, occlusion equal to
-    the plain any-hit sweep's, whose caps are tested as the JAX package's
-    compiled any-hit sweep tests them (ops/curves.py:ray_round_cone). K7's own count
-    of sub-blocks swept must equal the plain count of the near-to-far walk
-    (ops/curves.py:near_to_far_sweep) on the same lanes.
-    Returns a dict: args, order, K7's t, the ConeStats of K7, of K7's list
-    walk and of K8, plain ms and lanes, the largest |difference| in t or y
-    against the plain version, and K9's."""
+    """K7 and K8 on one ray set, each walking the cone tree, against their
+    own cull=False mode on every lane, and against the plain dense sweeps
+    (on every lane, or on the lanes `subset` where the dense sweep over the
+    scene's cones would take minutes): t bit for bit, cone index and y
+    equal, occlusion equal to the plain any-hit sweep's, whose caps are
+    tested as the JAX package's compiled any-hit sweep tests them
+    (ops/curves.py:ray_round_cone). The kernels' own counters (boxes tested,
+    leaves swept, live cones tested) and final t / occlusion must equal the
+    plain count of the walk (ops/curves.py:cone_tree_walk) on the same lanes.
+    Returns a dict: args, K7's t, the ConeStats of K7 and of K8, plain ms and
+    lanes, the largest |difference| in t or y against the plain version."""
     import torch
 
     from strelka_tpu_torch.kernels import cones as KC
     from strelka_tpu_torch.ops import curves as C
-    from strelka_tpu_torch.ops.intersect import cone_sweep_order
 
     args = cone_args(scene, rays)
     o, d, tmin, tmax, pc = args
@@ -1732,86 +1731,62 @@ def check_cones(scene, rays, name, subset=None):
     sub = lambda a: a[lanes].contiguous()  # noqa: E731
     sub_args = (tuple(sub(c) for c in o), tuple(sub(c) for c in d), sub(tmin), sub(tmax), pc)
     block = 256 if subset is None else 4096  # the result does not depend on it
-    order = cone_sweep_order(pc, o, d, tmin, tmax)
-    t, c, y, st7 = held(lambda: KC.cone_closest(*args, stats=True, order=order))
-    occ, st8 = held(lambda: KC.cone_any(*args, stats=True, order=order))
+    t, c, y, st7 = held(lambda: KC.cone_closest(*args, stats=True))
+    occ, st8 = held(lambda: KC.cone_any(*args, stats=True))
     t_b, c_b, y_b = KC.cone_closest(*args, cull=False)
     occ_b = KC.cone_any(*args, cull=False)
-    t_l, c_l, y_l, st7_list = KC.cone_closest(*args, stats=True, order=order, near_to_far=False)
     (t_p, c_p, y_p), plain_ms = timed_once_ms(lambda: KC.closest_plain(*sub_args, block=block))
     occ_p, plain_any_ms = timed_once_ms(lambda: KC.any_plain(*sub_args, block=block))
     bits = lambda a, b: a.view(torch.int32) != b.view(torch.int32)  # noqa: E731
     differ = lambda a, b, ca, cb, ya, yb: int((bits(a, b) | (ca != cb) | (ya != yb)).sum())  # noqa: E731
     off_cull = differ(t, t_b, c, c_b, y, y_b)
-    off_list = differ(t, t_l, c, c_l, y, y_l)
     off_plain = differ(t[lanes], t_p, c[lanes], c_p, y[lanes], y_p)
     occ_off_cull, occ_off_plain = int((occ != occ_b).sum()), int((occ[lanes] != occ_p).sum())
     cap_tests_differ = int(((c_p >= 0) != occ_p).sum())  # the any-hit sweep's cap test against the closest's
-    off_asc = 0
-    if order is not None:
-        t_a, c_a, y_a = KC.cone_closest(*args, near_to_far=False)
-        off_asc = differ(t, t_a, c, c_a, y, y_a) + int((occ != KC.cone_any(*args)).sum())
-    # the near-to-far walk's sub-blocks, counted in plain PyTorch from each lane's candidates
-    cand = count = None
-    if order is not None:
-        tiles = lanes // order.tile
-        cand, count = order.order[tiles], order.count[tiles]
-    swept_p, best_p = C.near_to_far_sweep(pc.geom, pc.bounds, pc.sbounds, *sub_args[:4], cand, count)
-    off_count = int((st7.per_ray[0][lanes] != swept_p).sum()) + int(bits(t[lanes], best_p).sum())
+    # the walks, counted in plain PyTorch on the same lanes
+    off_count = 0
+    for st, walk, done in ((st7, C.cone_tree_walk(pc.geom, pc.tree, *sub_args[:4]), t),
+                           (st8, C.cone_tree_walk(pc.geom, pc.tree, *sub_args[:4], any_hit=True), occ)):
+        counts = torch.stack([walk.boxes, walk.leaves, walk.cones])
+        off_count += int((st.per_ray[:, lanes] != counts).any(dim=0).sum())
+        off_count += int(((done[lanes] != (walk.t < C.MISS_T)) if done.dtype == torch.bool
+                          else bits(done[lanes], walk.t)).sum())
     _, ties, _ = closest_mismatch(t[lanes], c[lanes], t_p, c_p)
     same = c[lanes] == c_p
     err = max(float(torch.abs(a[lanes] - b)[same].max()) if bool(same.any()) else 0.0 for a, b in ((t, t_p), (y, y_p)))
-    how = "near to far per ray" + ("" if order is None else f" over K9's list per {order.tile} rays")
     nl = int(lanes.shape[0])
-    log(f"K7 on {name} rays ({n}, {how}): {int((c >= 0).sum())} hits; t, cone, y differ from cull=False on {off_cull} "
-        f"lanes, from the list walk in the same order on {off_list} and from the plain sweep on {off_plain} of {nl} "
-        f"lanes ({ties} of them ties, max abs difference in t or y on equal cones {err:.3g}; bar: 0, 0 and 0 lanes, t "
-        f"bit for bit); sub-blocks swept and t differ from the plain count of the walk on {off_count} of {nl} lanes "
-        f"(bar: 0); plain sweep {plain_ms:.0f} ms")
+    log(f"K7 on {name} rays ({n}, the cone tree of {len(pc.levels)} levels): {int((c >= 0).sum())} hits; t, cone, y "
+        f"differ from cull=False on {off_cull} lanes and from the plain sweep on {off_plain} of {nl} lanes ({ties} of "
+        f"them ties, max abs difference in t or y on equal cones {err:.3g}; bar: 0 and 0 lanes, t bit for bit); plain "
+        f"sweep {plain_ms:.0f} ms")
     log(f"K8 on {name} rays ({n}): {int(occ.sum())} occluded; differs from cull=False on {occ_off_cull} lanes "
         f"and from the plain any-hit sweep on {occ_off_plain} of {nl} lanes (bar: 0 and 0; that sweep's occlusion "
         f"differs from the plain closest sweep's hit set on {cap_tests_differ} lanes, by the caps' two tests; plain "
-        f"any-hit sweep {plain_any_ms:.0f} ms)" +
-        ("" if order is None else f"; K7 and K8 differ from their ascending sweeps on {off_asc} lanes (bar: 0)"))
-    if off_cull or off_list or off_plain or occ_off_cull or occ_off_plain or off_asc or off_count:
-        raise AssertionError(f"K7 or K8 on {name} rays disagrees with its cull=False mode, its list walk, its "
-                             f"ascending sweep, its plain version or the plain count of its walk")
-    open_w = None if order is None else check_open_w(pc, o, d, tmin, tmax, t, name)
-    return dict(args=args, order=order, t=t, stats7=st7, stats7_list=st7_list, stats8=st8, plain_ms=plain_ms,
-                lanes=nl, err=err, open_w=open_w)
-
-
-def one_ray_a_thread_slots(steps) -> int:
-    """Lane slots a cone loop with fixed lanes issues for these per-ray cone
-    steps: one ray a thread, 32 consecutive rays a warp, and a warp steps
-    through as many cones as its busiest lane."""
-    import torch
-
-    pad = -steps.shape[0] % 32
-    s = torch.cat([steps, steps.new_zeros(pad)]).reshape(-1, 32).to(torch.int64)
-    return int(s.max(dim=1).values.sum()) * 32
+        f"any-hit sweep {plain_any_ms:.0f} ms); K7's and K8's counters and results differ from the plain count of "
+        f"their walks on {off_count} of {2 * nl} lanes (bar: 0)")
+    if off_cull or off_plain or occ_off_cull or occ_off_plain or off_count:
+        raise AssertionError(f"K7 or K8 on {name} rays disagrees with its cull=False mode, its plain version or the "
+                             f"plain count of its walk")
+    return dict(args=args, t=t, stats7=st7, stats8=st8, plain_ms=plain_ms, lanes=nl, err=err)
 
 
 def cone_rows(scene, b1, sh, where: str):
-    """K7/K8 rows: times on the bounce-1 (K7) and shadow (K8) rays and the
-    bound from what these rays need, counted in plain PyTorch and not by the
-    kernels. K7: the cones with ra >= 0 of the sub-blocks whose box the ray's
-    final interval [tmin, t] enters (ops/curves.py:sub_blocks_entered with
-    the final t). K8: the cones with ra >= 0 a ray tests up to its first
-    occluder, going through the sub-blocks it enters and their cones in
-    ascending order (ops/curves.py:any_hit_need). Operations: CONE_FLOPS a
-    test. Bytes: the rays as `ray_bytes` does, each such sub-block's cones
-    (32 bytes each: a, b, ra, rb) and box (32 bytes) once, and the sweep
-    order's rows where there is one. The kernels' own counters give the
-    swept, tested and lane-slot columns only: `lane_efficiency` is the share
-    of the cone loop's lane slots that tested a cone; `fixed_lane_efficiency`
-    the same for a design with fixed lanes (one ray a thread for its whole
-    sweep, no refill, the list walk), from the list walk's per-ray steps in
-    the same order (`one_ray_a_thread_slots`), and
-    `list_walk_sub_blocks_per_ray` that walk's sub-blocks. `list_walk_ms` is K7 by
-    the list walk in the same order, `ascending_ms` (where K9 orders the
-    sweep) the kernel over every superblock in ascending order. Where K9
-    orders the sweep, its row follows (bounce-1 rays)."""
+    """K7/K8 rows: times on the bounce-1 (K7) and shadow (K8) rays, the
+    walks' work from the kernels' counters (boxes slab-tested, leaves swept,
+    cones tested a live ray; `lane_efficiency` the share of the cone tests'
+    lane slots that tested a live cone) and the bound from what these rays
+    need, counted in plain PyTorch and not by the kernels. K7: the cones
+    with ra >= 0 whose own box the ray's final interval [tmin, t] enters
+    (ops/curves.py:cones_entered, the roofline's count, on SAMPLE_RAYS live
+    rays scaled to all), and for comparison the cones of the 256-cone
+    sub-blocks that interval enters (sub_blocks_entered). K8: the cones with
+    ra >= 0 a ray tests up to its first occluder, going through the
+    sub-blocks it enters and their cones in ascending order
+    (ops/curves.py:any_hit_need). Operations: CONE_FLOPS a test. Bytes: the
+    rays as `ray_bytes` does and each needed sub-block's cones (32 bytes
+    each) and box (32 bytes) once. Where the scene has 32 superblocks or
+    more (K9's order was on its path until the cone tree), K9's row follows
+    (bounce-1 rays)."""
     import torch
 
     from strelka_tpu_torch.kernels import cones as KC
@@ -1820,63 +1795,66 @@ def cone_rows(scene, b1, sh, where: str):
 
     pc = scene.packed_cones
     n = b1["args"][2].shape[0]
-    tblk = pc.geom.shape[0] // pc.bounds.shape[1]
+    tblk = pc.geom.shape[0] // scene.cone_bounds.shape[1]
     rows = []
-    for kernel, chk, stats, fixed, fn, out_bytes, which in (
-            ("cone_closest", b1, b1["stats7"], b1["stats7_list"], KC.cone_closest, 12, "bounce-1"),
-            ("cone_any", sh, sh["stats8"], sh["stats8"], KC.cone_any, 1, "shadow")):
-        args, order = chk["args"], chk["order"]
+    for kernel, chk, stats, fn, out_bytes, which in (
+            ("cone_closest", b1, b1["stats7"], KC.cone_closest, 12, "bounce-1"),
+            ("cone_any", sh, sh["stats8"], KC.cone_any, 1, "shadow")):
+        args = chk["args"]
         o, d, tmin, tmax, _ = args
-        live = max(int((tmax > tmin).sum()), 1)
-        swept, tested = int(stats.per_ray[0].sum()), int(stats.per_ray[1].sum())
+        live_mask = tmax > tmin
+        live = max(int(live_mask.sum()), 1)
+        boxes, leaves, tested = (int(v) for v in stats.per_ray.sum(dim=1))
         issued, slots_tested = (int(v) for v in stats.slots)
-        fixed_issued, fixed_tested = one_ray_a_thread_slots(fixed.per_ray[1]), int(fixed.slots[1])
         if kernel == "cone_closest":
-            need = C.sub_blocks_entered(pc.geom, pc.bounds, o, d, tmin, torch.minimum(chk["t"], tmax))
+            tfar = torch.minimum(chk["t"], tmax)
+            pick = torch.nonzero(live_mask)[:, 0]
+            pick = pick[torch.randperm(pick.numel(), generator=torch.Generator().manual_seed(7))[:SAMPLE_RAYS]
+                        .to(pick.device)]
+            cut = lambda a: a[pick].contiguous()  # noqa: E731
+            own = C.cones_entered(pc.geom, tuple(cut(c) for c in o), tuple(cut(c) for c in d), cut(tmin), cut(tfar))
+            own_per_ray = float(own.sum()) / max(int(pick.numel()), 1)
+            need = C.sub_blocks_entered(pc.geom, scene.cone_bounds, o, d, tmin, tfar)
+            cones_needed = own_per_ray * live
         else:
-            need = C.any_hit_need(pc.geom, pc.bounds, o, d, tmin, tmax)
-        blocks_needed, cones_needed, boxes = int(need[0].sum()), int(need[1].sum()), int(need[2].sum())
-        blocks_per_sm, threads = KC.occupancy(kernel == "cone_any", True, kernel == "cone_closest", tmin.device)
-        log(f"{kernel} on the {which} rays ({live} live of {n}): sweeps {swept / live:.2f} sub-blocks and steps "
-            f"through {tested / live:.1f} cones a live ray (the kernel's counters; the list walk "
-            f"{int(fixed.per_ray[0].sum()) / live:.2f}); needs {blocks_needed / live:.2f} sub-blocks and "
-            f"{cones_needed / live:.1f} cones (counted in plain PyTorch); {boxes} of {pc.bounds.shape[1]} sub-blocks "
-            f"touched; lane efficiency {slots_tested / max(issued, 1):.4f} ({slots_tested} of {issued} lane slots "
-            f"test a cone; with fixed lanes {fixed_tested / max(fixed_issued, 1):.4f}); {blocks_per_sm} blocks of "
-            f"{threads} threads an SM")
-        order_bytes = 0 if order is None else int(order.count.sum()) * 4 + order.count.shape[0] * 4
-        row = dict(
-            kernel=kernel, at=f"{where}, {which} rays", shape=KC.launch_shape(n, pc, order),
-            ms=time_ms(lambda: fn(*args, order=order), samples=5, inner=2, warmup=1),
-            device_ms=graph_ms(lambda: fn(*args, order=order), calls=5, samples=5),
+            need = C.any_hit_need(pc.geom, scene.cone_bounds, o, d, tmin, tmax)
+            own_per_ray, cones_needed = None, int(need[1].sum())
+        blocks_needed, block_cones, touched = int(need[0].sum()), int(need[1].sum()), int(need[2].sum())
+        blocks_per_sm, threads = KC.occupancy(kernel == "cone_any", tmin.device)
+        log(f"{kernel} on the {which} rays ({live} live of {n}): tests {boxes / live:.1f} boxes, sweeps "
+            f"{leaves / live:.2f} leaves and tests {tested / live:.1f} cones a live ray (the kernel's counters); "
+            + (f"the cones whose own box the final interval enters {own_per_ray:.2f} a live ray (the roofline's "
+               f"count, {SAMPLE_RAYS} rays), those of the 256-cone sub-blocks it enters {block_cones / live:.1f} "
+               if own_per_ray is not None else
+               f"the ascending sweep of the 256-cone sub-blocks needs {block_cones / live:.1f} cones ")
+            + f"(counted in plain PyTorch); lane efficiency {slots_tested / max(issued, 1):.4f} ({slots_tested} "
+            f"of {issued} lane slots test a live cone); {blocks_per_sm} blocks of {threads} threads an SM")
+        rows.append(dict(
+            kernel=kernel, at=f"{where}, {which} rays", shape=KC.launch_shape(n, pc),
+            ms=time_ms(lambda: fn(*args), samples=5, inner=2, warmup=1),
+            device_ms=graph_ms(lambda: fn(*args), calls=5, samples=5),
             plain_ms=chk["plain_ms"], plain_lanes=chk["lanes"],
-            bound_bytes=ray_bytes(tmin, tmax, None, out_bytes) + boxes * (tblk * 32 + 32) + order_bytes,
+            bound_bytes=ray_bytes(tmin, tmax, None, out_bytes) + touched * (tblk * 32 + 32),
             bound_ops_s=cones_needed * C.CONE_FLOPS / F32_OPS_PER_S,
             max_abs_err=chk["err"] if kernel == "cone_closest" else 0.0, library_ms=None,
-            sub_blocks_per_ray=swept / live, list_walk_sub_blocks_per_ray=int(fixed.per_ray[0].sum()) / live,
-            needed_sub_blocks_per_ray=blocks_needed / live,
-            cones_per_ray=tested / live, needed_cones_per_ray=cones_needed / live, live_rays=live,
-            sub_blocks_touched=boxes, lane_efficiency=slots_tested / max(issued, 1),
-            fixed_lane_efficiency=fixed_tested / max(fixed_issued, 1), blocks_per_sm=blocks_per_sm,
-        )
-        if kernel == "cone_closest":
-            row["list_walk_ms"] = time_ms(lambda: fn(*args, order=order, near_to_far=False), samples=5, inner=2,
-                                          warmup=1)
-        if order is not None:
-            row["ascending_ms"] = time_ms(lambda: fn(*args), samples=5, inner=2, warmup=1)
-        rows.append(row)
-    if b1["order"] is not None:
+            boxes_per_ray=boxes / live, leaves_per_ray=leaves / live, cones_per_ray=tested / live,
+            needed_cones_per_ray=cones_needed / live, sub_block_cones_per_ray=block_cones / live,
+            needed_sub_blocks_per_ray=blocks_needed / live, live_rays=live,
+            lane_efficiency=slots_tested / max(issued, 1), blocks_per_sm=blocks_per_sm,
+        ))
+    nsb = scene.cone_sbounds.shape[1]
+    if nsb >= 32:
         o, d, tmin, tmax, _ = b1["args"]
-        tile, nsb = b1["order"].tile, pc.sbounds.shape[1]
+        tile, sb = K9_TILE, scene.cone_sbounds
         n_tiles = -(-n // tile)
         live = int((tmax > tmin).sum())
-        plain_ms, passed, sort_ops = b1["open_w"]
+        plain_ms, passed, sort_ops = check_open_w(sb, o, d, tmin, tmax, b1["t"], f"{where} bounce-1")
         rows.append(dict(
             kernel="open_w", at=f"{where}, bounce-1 rays in tiles of {tile}", shape=(n, nsb, tile, 0),
-            ms=time_ms(lambda: KO.open_w(o, d, tmin, tmax, pc.sbounds, tile=tile)),
-            device_ms=graph_ms(lambda: KO.open_w(o, d, tmin, tmax, pc.sbounds, tile=tile)),
-            order_ms=time_ms(lambda: KO.sweep_order(o, d, tmin, tmax, pc.sbounds, tile)),
-            order_device_ms=graph_ms(lambda: KO.sweep_order(o, d, tmin, tmax, pc.sbounds, tile)),
+            ms=time_ms(lambda: KO.open_w(o, d, tmin, tmax, sb, tile=tile)),
+            device_ms=graph_ms(lambda: KO.open_w(o, d, tmin, tmax, sb, tile=tile)),
+            order_ms=time_ms(lambda: KO.sweep_order(o, d, tmin, tmax, sb, tile)),
+            order_device_ms=graph_ms(lambda: KO.sweep_order(o, d, tmin, tmax, sb, tile)),
             plain_ms=plain_ms,
             bound_bytes=ray_bytes(tmin, tmax, None, 1) + nsb * 24 + n_tiles * nsb * 13 + n_tiles * 4,
             bound_ops_s=(live * nsb * KO.SLAB_FLOPS + sort_ops) / F32_OPS_PER_S,
@@ -1890,7 +1868,7 @@ def phase_hair_kernels(scene, params, cfg: Config, subset_lanes=None):
     K1 on its 294,912 sample indices, K2/K3 on the ground quad (2 triangles
     padded to 128), K4 on the attr table at the camera hits and on the
     material table at the curve hits' material ids, K7/K8 on the cones and,
-    where the scene's dispatch orders their sweep, K9 on the superblock boxes."""
+    from 32 superblocks on, K9 on the superblock boxes (off the main path)."""
     import torch
 
     from strelka_tpu_torch.render.device_scene import RAY_MASK_PRIMARY, RAY_MASK_SHADOW
@@ -1916,14 +1894,14 @@ def phase_hair_kernels(scene, params, cfg: Config, subset_lanes=None):
     b1 = check_cones(scene, bounce1, f"{cfg.name} bounce-1", subset)
     sh = check_cones(scene, shadow, f"{cfg.name} shadow", subset)
     rows += cone_rows(scene, b1, sh, where)
-    if b1["order"] is not None:
+    if scene.cone_sbounds.shape[1] >= 32:
         # K9 where the boxes are no multiple of 32 and more than a block's threads (the scene's three
         # times over: every key tied with its copies') and the rays no multiple of the tile
         o, d, tmin, tmax, pc = b1["args"]
         cut = lambda a: a[:n - 37].contiguous()  # noqa: E731
-        check_open_w(pc, tuple(cut(c) for c in o), tuple(cut(c) for c in d), cut(tmin), cut(tmax), cut(b1["t"]),
-                     f"{cfg.name} bounce-1 (the first {n - 37}) x its superblocks three times over",
-                     sbounds=torch.cat([pc.sbounds] * 3, dim=1).contiguous())
+        check_open_w(torch.cat([scene.cone_sbounds] * 3, dim=1).contiguous(), tuple(cut(c) for c in o),
+                     tuple(cut(c) for c in d), cut(tmin), cut(tmax), cut(b1["t"]),
+                     f"{cfg.name} bounce-1 (the first {n - 37}) x its superblocks three times over")
 
     # ---- K4 on this scene's tables
     rows.append(gather_row(scene.attr_table, prims, f"{cfg.name} attr_table at the camera hits"))
@@ -1940,8 +1918,9 @@ def hair_scene(cfg: Config, dev):
     host = TS.hair_patch(n_curves=HAIR_CURVES[cfg.name])
     scene = build_device_scene(host, device=dev)
     log(f"{cfg.name}: hair_patch(n_curves={HAIR_CURVES[cfg.name]}), {scene.num_curve_segments} segments (padded), "
-        f"{scene.num_cones} cones ({scene.cone_geom.shape[0]} padded) in {scene.cone_bounds.shape[1]} "
-        f"sub-blocks and {scene.cone_sbounds.shape[1]} superblocks, {scene.num_triangles} triangles; host scene and "
+        f"{scene.num_cones} cones ({scene.cone_geom.shape[0]} padded) under a tree of levels "
+        f"{[c for _, c in scene.packed_cones.levels]} boxes ({scene.cone_bounds.shape[1]} sub-blocks and "
+        f"{scene.cone_sbounds.shape[1]} superblocks for K9), {scene.num_triangles} triangles; host scene and "
         f"device tables built in {time.perf_counter() - t0:.1f} s")
     return host, scene
 
@@ -2910,11 +2889,10 @@ def order_counts(scene, cfg: Config, rays: dict, lanes) -> dict:
     the bounce-1 and bounce-0 shadow rays in row-major order (`row`) and in
     the card's launch order (`ordered`: the bounce-1 rays as sorted, the
     shadow rays, bounce 0's, in Z-order): K5 boxes and K6 boxes (child rows
-    x 2) a live ray, their mean per-warp maxima; K7 sub-blocks a live ray;
-    K9 the superblocks a tile of CONE_ORDER_TILE rays passes."""
+    x 2) a live ray, their mean per-warp maxima; K7 boxes and cones a live
+    ray, their mean per-warp maxima."""
     from strelka_tpu_torch.kernels import bvh as KB
     from strelka_tpu_torch.kernels import cones as KC
-    from strelka_tpu_torch.ops.intersect import CONE_ORDER_TILE, cone_sweep_order
     from strelka_tpu_torch.render.device_scene import RAY_MASK_PRIMARY, RAY_MASK_SHADOW
 
     z, b1_lanes = lanes
@@ -2935,14 +2913,12 @@ def order_counts(scene, cfg: Config, rays: dict, lanes) -> dict:
                        k6_ms=time_ms(lambda: KB.bvh_any(*a6), samples=10, inner=3))
         if scene.has_curves:
             o, d, tmin, tmax, pc = cone_args(scene, b1)
-            order = cone_sweep_order(pc, o, d, tmin, tmax)
-            st = KC.cone_closest(o, d, tmin, tmax, pc, stats=True, order=order)[3]
+            st = KC.cone_closest(o, d, tmin, tmax, pc, stats=True)[3]
             live = tmax > tmin
-            res.update(k7_subblocks_per_live_ray=float(st.per_ray[0][live].float().mean()),
-                       k7_ms=time_ms(lambda: KC.cone_closest(o, d, tmin, tmax, pc, order=order), samples=10, inner=3))
-            if order is not None:
-                res.update(k9_superblocks_per_tile=float(order.count.float().mean()), k9_tile=CONE_ORDER_TILE,
-                           k9_ms=time_ms(lambda: cone_sweep_order(pc, o, d, tmin, tmax), samples=10, inner=3))
+            res.update(k7_boxes_per_live_ray=float(st.per_ray[0][live].float().mean()),
+                       k7_cones_per_live_ray=float(st.per_ray[2][live].float().mean()),
+                       k7_warp_max_cones=warp_max_mean(st.per_ray[2], live),
+                       k7_ms=time_ms(lambda: KC.cone_closest(o, d, tmin, tmax, pc), samples=10, inner=3))
         out[label] = res
     return out
 

@@ -24,8 +24,8 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KEEP = ("ms", "bound_ms", "plain_ms", "launches", "sub_blocks_per_ray", "needed_sub_blocks_per_ray",
-        "lane_efficiency", "fixed_lane_efficiency", "list_walk_ms", "ascending_ms", "schedule", "device_ms", "warp_ms",
+KEEP = ("ms", "bound_ms", "plain_ms", "launches", "boxes_per_ray", "leaves_per_ray", "cones_per_ray",
+        "needed_cones_per_ray", "sub_block_cones_per_ray", "lane_efficiency", "schedule", "device_ms", "warp_ms",
         "thread_ms", "warp_device_ms", "thread_device_ms", "dense_bound_ms", "groups_per_ray", "needed_groups_per_ray",
         "nodes_per_ray", "ideal_nodes_per_ray", "primed_nodes_per_ray", "dfs_nodes_per_ray", "tris_per_ray",
         "stack_depth", "registers", "local_bytes", "order_ms", "library_ms", "zeros_ms", "host_us", "rows_per_ray",

@@ -15,20 +15,18 @@ walk and test, the lanes that differ from the dense sweep, split by inside
 and outside the domain, with the least and the largest normalised
 determinant among them.
 It also counts, for the round cones of `grazing.py:cone_face_case` (rays
-at the faces and corners of the cone boxes), the lanes where K7's plain
-near-to-far walk (`ops/curves.py:near_to_far_sweep`) ends at another t than
-the dense sweep and where K8's culled sweep would miss an occluder, with
+at the faces and corners of the cone tree's leaf and node boxes), the
+lanes where K7's walk of the cone tree (its plain count,
+`ops/curves.py:cone_tree_walk`) ends at another t than the dense sweep and
+where K8's walk (`any_hit=True`) differs from the dense any-hit sweep, with
 the margin and with the exact test; for the rays of
-`grazing.py:cone_grazing_case` (rays that graze a cone sub-block's or
-superblock's face at angles log-uniform down to 1e-5, over cones at the
-boxes' faces and over hair-like cones) the lanes where K7's near-to-far
-walk, over all superblocks and over kernel K9's order per ray tile
-(`kernels/open_w.py:sweep_order_plain`), ends at another t than the
-dense sweep, and where K8's culled sweep (the any-hit closed form, the
-port's box test) differs from the dense any-hit sweep; and the boxes K5's walk tests a live
-ray of box_field(grid=12)'s first launch at 96x96 (camera and bounce-1
-rays, as chip_smoke.py makes them) with either test. The counts are the
-plain walks'; the kernels equal them bit for bit.
+`grazing.py:cone_grazing_case` (rays that graze a leaf or node box's face
+at angles log-uniform down to 1e-5, over cones at the boxes' faces and
+over hair-like cones) the same lanes with the margin (ROADMAP C.4); and
+the boxes K5's walk tests a live ray of box_field(grid=12)'s first launch
+at 96x96 (camera and bounce-1 rays, as chip_smoke.py makes them) with
+either test. The counts are the plain walks'; the kernels equal them bit
+for bit.
 """
 
 from __future__ import annotations
@@ -104,68 +102,48 @@ def main() -> int:
                         low, high = f"{walk}_{test}_least_nu_{where}", f"{walk}_{test}_most_nu_{where}"
                         tally[low] = min(tally.get(low, 1.0), float(nu_won[sel].min()))
                         tally[high] = max(tally.get(high, 0.0), float(nu_won[sel].max()))
-    # the cone sweeps (ROADMAP C.2): K7's near-to-far walk and K8's culled sweep at the cone boxes' faces
+    # the cone sweeps (ROADMAP C.2): K7's and K8's walks of the cone tree at its boxes' faces
     for seed in range(6):
         for scale, shift in ((1.0, 0.0), (100.0, 0.0), (0.01, 5.0), (1.0, 300.0)):
-            geom, bounds, sbounds, o, d = (_t(a) for a in G.cone_face_case(seed, scale, shift))
+            geom, tree, o, d = (_t(a) for a in G.cone_face_case(seed, scale, shift))
             o, d = tuple(o[:, k].contiguous() for k in range(3)), tuple(d[:, k].contiguous() for k in range(3))
             n = o[0].shape[0]
             tmin, tmax = torch.zeros(n), torch.full((n,), 1e16)
-            t_p, c_p, _ = C.intersect_curves_closest_plain(geom, o, d, tmin, tmax)
-            a, b, ra, rb = C._geom_columns(geom[None])
-            _, _, hit = C.ray_round_cone([c[:, None] for c in o], [c[:, None] for c in d], a, b, ra, rb,
-                                         tmin[:, None], tmax[:, None], any_hit=True)
-            hit = hit & (ra >= 0.0)
-            tblk = geom.shape[0] // bounds.shape[1]
-            sup = bounds.shape[1] // sbounds.shape[1]
+            t_p, _, _ = C.intersect_curves_closest_plain(geom, o, d, tmin, tmax)
+            occ_p = C.intersect_curves_any_plain(geom, o, d, tmin, tmax)
             tally["cone_lanes"] = tally.get("cone_lanes", 0) + n
             for test, fn in (("margin", margin), ("exact", exact)):
                 C.slab_tnear = fn
                 try:
-                    best = C.near_to_far_sweep(geom, bounds, sbounds, o, d, tmin, tmax)[1]
+                    best = C.cone_tree_walk(geom, tree, o, d, tmin, tmax).t
+                    occ = C.cone_tree_walk(geom, tree, o, d, tmin, tmax, any_hit=True).t < C.MISS_T
                 finally:
                     C.slab_tnear = margin
-                sub = fn(o, d, tmin, tmax, bounds) < float("inf")
-                sb = fn(o, d, tmin, tmax, sbounds) < float("inf")
-                boxes = (sub & sb.repeat_interleave(sup, dim=1)).repeat_interleave(tblk, dim=1)
                 k7 = int((best.view(torch.int32) != t_p.view(torch.int32)).sum())
-                k8 = int(((hit & boxes).any(dim=1) != hit.any(dim=1)).sum())
+                k8 = int((occ != occ_p).sum())
                 for key, val in ((f"k7_{test}_off", k7), (f"k8_{test}_off", k8)):
                     tally[key] = tally.get(key, 0) + val
-    # ROADMAP C.4: rays grazing the cone boxes' faces at log-uniform angles, the margin's walks against the dense sweeps
-    from strelka_tpu_torch.kernels import open_w as KO
-
+    # ROADMAP C.4: rays grazing the cone tree's leaf and node boxes at log-uniform angles, the walks against the
+    # dense sweeps
     for hair in (False, True):
         for seed in range(4):
             for scale, shift in ((1.0, 0.0), (100.0, 0.0), (0.01, 5.0), (1.0, 300.0)):
-                geom, bounds, sbounds, o, d = (_t(a) for a in G.cone_grazing_case(seed, scale, shift, hair))
+                geom, tree, o, d = (_t(a) for a in G.cone_grazing_case(seed, scale, shift, hair))
                 o, d = tuple(o[:, k].contiguous() for k in range(3)), tuple(d[:, k].contiguous() for k in range(3))
                 n = o[0].shape[0]
                 tmin, tmax = torch.zeros(n), torch.full((n,), 1e16)
                 t_p, c_p, _ = C.intersect_curves_closest_plain(geom, o, d, tmin, tmax)
                 occ_p = C.intersect_curves_any_plain(geom, o, d, tmin, tmax)
-                a, b, ra, rb = C._geom_columns(geom[None])
-                _, _, hit = C.ray_round_cone([c[:, None] for c in o], [c[:, None] for c in d], a, b, ra, rb,
-                                             tmin[:, None], tmax[:, None], any_hit=True)
-                hit = hit & (ra >= 0.0)
-                tblk = geom.shape[0] // bounds.shape[1]
-                sup = bounds.shape[1] // sbounds.shape[1]
-                sub = margin(o, d, tmin, tmax, bounds) < float("inf")
-                sb = margin(o, d, tmin, tmax, sbounds) < float("inf")
-                boxes = (sub & sb.repeat_interleave(sup, dim=1)).repeat_interleave(tblk, dim=1)
-                order = KO.sweep_order_plain(o, d, tmin, tmax, sbounds, C.CONE_ORDER_TILE)
-                tiles = torch.arange(n) // order.tile
-                walks = {"all": C.near_to_far_sweep(geom, bounds, sbounds, o, d, tmin, tmax)[1],
-                         "k9": C.near_to_far_sweep(geom, bounds, sbounds, o, d, tmin, tmax, order.order[tiles],
-                                                   order.count[tiles])[1]}
+                best = C.cone_tree_walk(geom, tree, o, d, tmin, tmax).t
+                occ = C.cone_tree_walk(geom, tree, o, d, tmin, tmax, any_hit=True).t < C.MISS_T
                 pre = f"cone_grazing_{'hair' if hair else 'faces'}"
                 tally[f"{pre}_lanes"] = tally.get(f"{pre}_lanes", 0) + n
                 tally[f"{pre}_hits"] = tally.get(f"{pre}_hits", 0) + int((c_p >= 0).sum())
-                for name, best in walks.items():
-                    key = f"{pre}_k7_{name}_off"
-                    tally[key] = tally.get(key, 0) + int((best.view(torch.int32) != t_p.view(torch.int32)).sum())
+                tally[f"{pre}_tree_levels"] = len(C.cone_tree_levels(geom.shape[0]))
+                key = f"{pre}_k7_off"
+                tally[key] = tally.get(key, 0) + int((best.view(torch.int32) != t_p.view(torch.int32)).sum())
                 key = f"{pre}_k8_off"
-                tally[key] = tally.get(key, 0) + int(((hit & boxes).any(dim=1) != occ_p).sum())
+                tally[key] = tally.get(key, 0) + int((occ != occ_p).sum())
     # what the margin costs K5's walk: boxes tested a live ray on box_field(grid=12)'s first-launch rays
     import chip_smoke as CS
     from strelka_tpu_torch.render.device_scene import RAY_MASK_PRIMARY, build_device_scene

@@ -51,7 +51,16 @@ Mutants:
                   it;
   k13_inside_flip_dropped  K13's geometric normal left unflipped on the lanes
                   that hit a triangle from inside: K13's card test
-                  (tests/test_torch_shade_surface_card.py) must catch it.
+                  (tests/test_torch_shade_surface_card.py) must catch it;
+  k7_no_drop      K7's pop keeps a box whose tnear is beyond best t: its
+                  results stay right, so the counters held against the
+                  plain count of the walk must catch it (K7/K8's card test,
+                  tests/test_torch_cones_card.py);
+  cone_leaf_box_no_radius  the cones' boxes, and so the cone tree's, built
+                  from the cones' axes without their radii
+                  (ops/curves.py:cone_boxes, the boxes the kernels walk and
+                  the plain count's leaf test): the card test's comparison
+                  with the sweep of every cone must catch it.
 """
 
 from __future__ import annotations
@@ -127,6 +136,13 @@ constexpr float kStrelkaPad = 0x1p-13f;"""),
         ("strelka_tpu_torch/csrc/surface.cu", "fr.geom_normal = normalize(gcross) * flip;",
          "fr.geom_normal = normalize(gcross);"),
     ],
+    "k7_no_drop": [
+        ("strelka_tpu_torch/csrc/cones.cu", "if (!kAny && tn > best_t) continue;", "(void)tn;"),
+    ],
+    "cone_leaf_box_no_radius": [
+        ("strelka_tpu_torch/ops/curves.py", "torch.minimum(a[k] - ra, b[k] - rb)", "torch.minimum(a[k], b[k])"),
+        ("strelka_tpu_torch/ops/curves.py", "torch.maximum(a[k] + ra, b[k] + rb)", "torch.maximum(a[k], b[k])"),
+    ],
 }
 # a mutant's check where it is not chip_smoke.py (the interpreter's arguments)
 CHECKS = {
@@ -136,6 +152,10 @@ CHECKS = {
                         "tests/test_torch_shade_nee_card.py"],
     "k13_inside_flip_dropped": ["-m", "pytest", "--noconftest", "-m", "card", "-q", "-x", "-p", "no:cacheprovider",
                                 "tests/test_torch_shade_surface_card.py"],
+    "k7_no_drop": ["-m", "pytest", "--noconftest", "-m", "card", "-q", "-x", "-p", "no:cacheprovider",
+                   "tests/test_torch_cones_card.py"],
+    "cone_leaf_box_no_radius": ["-m", "pytest", "--noconftest", "-m", "card", "-q", "-x", "-p", "no:cacheprovider",
+                                "tests/test_torch_cones_card.py"],
 }
 LEFT_OUT = shutil.ignore_patterns("build", "_build", ".git", "__pycache__")
 

@@ -31,256 +31,140 @@
 // lowest cone index wins. A miss is t = 1e16, cone = -1, y = 0. A lane with
 // tmax <= tmin reads nothing else and misses. K8 stops at the first hit.
 //
-// Cull: the cones are Morton-sorted and packed (a.xyz, b.xyz, ra, rb; padding
-// has ra = -1) with a box per 256-cone sub-block and per superblock of 8
-// sub-blocks. A ray tests boxes with common.cuh:strelka_slab_safe (the slab
-// test of pallas_intersect.py:_tile_hits_block per ray with the port's
-// margin, which keeps a hit the closed form puts just outside its box;
-// inverted boxes rejected, the far end clipped to the ray's best t for K7)
-// and tests the cones of the sub-blocks it enters. cull = 0 sweeps every cone: the brute
-// force the culled sweep is held against.
+// Cull: the cones are Morton-sorted and stored cone-major (a.xyz, ra,
+// b.xyz, rb; padding has ra = -1), and a tree of boxes is built over them in
+// that order (ops/curves.py:cone_tree; the cones are not moved): a leaf is
+// kLeaf consecutive cones, an inner node kWide consecutive children, the top
+// level at most kWide boxes, the depth as the number of cones asks. A ray
+// tests boxes with common.cuh:strelka_slab_safe (the slab test of
+// pallas_intersect.py:_tile_hits_block per ray with the port's margin, which
+// keeps a hit the closed form puts just outside its box; inverted boxes
+// rejected, the far end clipped to the ray's best t for K7) and tests the
+// cones of the leaves it reaches. cull = 0 sweeps every cone: the brute
+// force the tree walk is held against.
 //
-// Walks (the order in which a ray meets the boxes; the result is the same,
-// since a cone replaces the best hit on t < best or on t == best with a
-// lower index):
-//  - list walk (K8, and K7 when asked): the superblocks in ascending order,
-//    or in the order of a list per tile of `order_tile` consecutive rays
-//    (order [n_tiles, nsb] and the entries that count, [n_tiles]: kernel
-//    K9's superblocks that some ray of the tile passes, nearest first for the
-//    tile), each superblock's sub-blocks in ascending order, every box
-//    slab-tested against the interval the ray has when the walk reaches it.
-//  - near to far per ray (K7's main path): the ray slab-tests its candidate
-//    superblocks (all, or its tile's list) once against its own interval and
-//    keeps the entered ones as (tnear, superblock) in shared memory, up to
-//    `list_cap` at a time; it takes them nearest first by a lazy selection
-//    (the lowest list position of equal tnear), and inside a superblock its
-//    entered sub-blocks nearest first (the lowest of equal tnear first). It
-//    stops at the first box whose tnear is greater than its best t: such a
-//    box holds no cone with t <= best t, and the slab test against the final
-//    interval would reject it too. The test is strict, since a box with
-//    tnear equal to best t can still hold a cone of equal t and a lower
-//    index. When the list is full the ray scans the rest of its candidates
-//    in another round, against its best t by then; it never drops a box.
-//    With the tile's list it stops scanning at the first entry whose least
-//    tnear over the tile's rays (order_tn, ascending) is greater than best t:
-//    no later entry is entered before best t. ops/curves.py:
-//    near_to_far_sweep counts the sub-blocks this walk sweeps in plain
-//    PyTorch.
+// The walk (the order in which a ray meets the boxes; the result is the
+// same whatever the order, since a cone replaces the best hit on t < best or
+// on t == best with a lower index): the lanes slab-test the top level's
+// boxes at once and push the entered ones as (tnear, box) on the warp's
+// stack in shared memory, K7 the nearest on top (of equal tnear the lower
+// box), K8 the lowest box on top (ranking them cost K8 7% and saved it
+// nothing: an any-hit walk ends at its first hit, wherever it lies). The
+// warp pops the top entry. K7 drops it when its tnear is greater than best
+// t: such a box holds no cone with t <= best t, and the slab test against
+// the final interval would reject it too. The test is strict, since a box
+// with tnear equal to best t can still hold a cone of equal t and a lower
+// index. An inner box has its kWide children slab-tested, a lane each,
+// against [tmin, min(best t, tmax)] (K8: [tmin, tmax]) and the entered ones
+// pushed the same way. A leaf has its kLeaf cones, a lane each, slab-tested
+// by their own boxes (lo = min(a - ra, b - rb), hi = max(a + ra, b + rb),
+// computed from the rows) against the same interval; only where one or
+// more is entered does the warp run the closed form, and it takes the hits
+// of the cones whose box is entered (most leaves a ray sweeps hold no cone
+// it comes near: on hair_long's bounce-1 rays, 2.8 cones a ray have a box
+// that the final interval enters, in 11 leaves swept). An empty stack ends the walk; K8 also
+// ends it after the leaf with its first hit (a ballot). The stack holds at
+// most the top level's boxes and kWide - 1 more a level below it:
+// kMaxLevels x kWide entries a warp. The margin of the box test keeps every
+// hit in its cone's own box as in the leaf and node boxes (ROADMAP C.4,
+// measured on scene/grazing.py's rays at those boxes' faces).
+// ops/curves.py:cone_tree_walk counts this walk in plain PyTorch.
 //
 // Bound on the H100: f32 operations, 119 a ray-cone test (3 square roots,
-// 1 division), over the cones of the sub-blocks a ray's final interval
-// enters; the cones are a few MB to 26 MB and stay in the 50 MB L2. Under
+// 1 division), over the cones whose own box a ray's final interval enters
+// (benchmark/bounds.py);
+// the cones are a few MB to 26 MB and stay in the 50 MB L2. Under
 // -fmad=false every product and sum issues on its own but the closed form's
 // 27 explicit FMAs (54 of the 119), where the 67 TFLOP/s peak counts an FMA
-// as two: about 0.65 of the bound is the most this arithmetic can reach. Design: persistent warps, one ray a warp. The grid is
-// as many blocks as fit on the card at once (the wrapper takes the count from
-// the occupancy of the built kernel). A warp takes its next ray from a global
-// counter (one atomicAdd; a dead ray costs it one load and a miss written)
-// and sweeps it with all its lanes: they test kPair cones each of the same
-// sub-block a step (64 consecutive cones: coalesced 32-byte rows, two
-// independent tests in flight a lane), keep their own best hit inside a
-// sub-block and meet (shuffles: least t, then lowest index) before the walk's
-// next choice; K8 stops after the step with the first hit (a ballot). The
-// walks run on the lanes too: 32 candidate boxes or a superblock's sub-blocks
-// are slab-tested at once and the choice is the sequential walk's. Every lane
-// of a warp works on one ray, so no lane idles for a neighbour's longer ray;
-// the counter balances the warps, and the rays in flight at a time are a few
-// thousand neighbours whose cones share the caches. One ray a lane, refilled
-// between chunks of 32 cones, left half the lane slots idle: with 1.1-1.5
-// live rays a lane, the last rays set each warp's length; 32 rays taken at
-// once by a warp spread the rays in flight over a third of the image. The
-// cones are stored cone-major, [M_pad, 8] = (a.xyz, ra, b.xyz, rb): one
-// 32-byte sector a cone, two 16-byte loads through the read-only path.
-// Outputs are written by ray index.
+// as two: about 0.65 of the bound is the most this arithmetic can reach.
+// Design: persistent warps, one ray a warp. The grid is as many blocks as
+// fit on the card at once (the wrapper takes the count from the occupancy of
+// the built kernel). A warp takes its next ray from a global counter (one
+// atomicAdd; a dead ray costs it one load and a miss written) and walks it
+// with all its lanes: a box or a cone a lane, each lane's own best hit kept
+// inside a leaf and met (shuffles: least t, then lowest index) before the
+// next pop where a lane's best changed. Every lane of a warp works on one ray, so no lane idles for a
+// neighbour's longer ray; the counter balances the warps, and the rays in
+// flight at a time are a few thousand neighbours whose boxes and cones share
+// the caches. One ray a lane, refilled between chunks of 32 cones, left half
+// the lane slots idle. The cones are stored cone-major, [M_pad, 8] = (a.xyz,
+// ra, b.xyz, rb): one 32-byte sector a cone, two 16-byte loads through the
+// read-only path; the boxes [8, total], a box's coordinate rows 'total'
+// apart, so a node's children are coalesced loads. Outputs are written by
+// ray index.
 
 #include "common.cuh"
-
-#include <climits>
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kLanes = 32;
-constexpr int kPair = 2;                  // cones a lane tests a step: independent tests in flight
-constexpr int kStep = kLanes * kPair;     // cones a warp tests a step
-constexpr int kSuper = 8;                 // sub-blocks a superblock on the near-to-far walk
+constexpr int kWarps = kThreads / kLanes;
+constexpr int kLeaf = 32;      // cones a leaf, a lane each (ops/curves.py:CONE_LEAF)
+constexpr int kWide = 32;      // children an inner node, a lane each (ops/curves.py:CONE_WIDE)
+constexpr int kMaxLevels = 6;  // box levels (ops/curves.py:CONE_MAX_LEVELS)
+constexpr int kStack = kMaxLevels * kWide;  // stack entries a warp
 constexpr float kMiss = 1e16f;
 constexpr float kNone = 1e30f;  // "no box": above any best t
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Cones {
-    const float4* aos;     // [m_pad, 2]: (a.xyz, ra), (b.xyz, rb)
-    const float* bounds;   // [8, nb] sub-block boxes
-    const float* sbounds;  // [8, nb / super_] superblock boxes
+    const float4* aos;    // [m_pad, 2]: (a.xyz, ra), (b.xyz, rb)
+    const float* boxes;   // [8, total] the tree's boxes, level by level from the top
     int m_pad;
-    int nb;
-    int super_;
-    const int* order;  // [n_tiles, nb / super_] superblocks in sweep order, or null (ascending)
-    const int* count;  // [n_tiles] entries of a tile's row that count
-    int order_tile;    // rays a tile
-    const float* order_tn;  // [n_tiles, nb / super_] the least tnear of a tile's rays at each entry, or null
-    int list_cap;      // near to far: entries of a warp's superblock list in shared memory
+    int total;
+    int levels;
+    int leaf0;  // the first leaf's box: first[levels - 1]
+    int first[kMaxLevels + 1];  // level l's boxes are [first[l], first[l + 1]); first[levels] = total
 };
 
 struct Ray {
     float o0, o1, o2, d0, d1, d2, inv0, inv1, inv2, om, tn;  // om: |o|_inf, the box test's pad scale
 };
 
-// Where the warp's ray is in its walk; the same in every lane but `sub`.
-struct Walk {
-    const int* list;       // the tile's superblock list, or null (ascending)
-    const float* list_tn;  // near to far: the least tnear of the tile's rays at each entry of list, or null
-    int limit;             // entries of the list that count
-    int pos;               // the next entry of the list
-    int k;                 // list walk: the next sub-block of the superblock at pos
-    int sb;                // near to far: the superblock being swept, -1 none
-    int fill;              // near to far: entries in the shared list this round
-    float sub;             // near to far: lane k < 8 holds sub-block k of sb's tnear, kNone once taken or not entered
-};
-
-// The lowered tnear of the ray's interval [tn, tfar] against box j of an
-// [8, count] table (common.cuh:strelka_slab_safe), or kNone where the
+// The lowered tnear of the ray's interval [tn, tfar] against box j of the
+// [8, total] table (common.cuh:strelka_slab_safe), or kNone where the
 // interval does not enter it or the box is inverted.
-__device__ __forceinline__ float slab_tnear(const float* __restrict__ tbl, int count, int j, const Ray& r,
-                                            float tfar) {
-    const float* p = tbl + j;
-    const float lx = __ldg(p), ly = __ldg(p + count), lz = __ldg(p + 2 * static_cast<long long>(count));
-    const float hx = __ldg(p + 3 * static_cast<long long>(count)), hy = __ldg(p + 4 * static_cast<long long>(count)),
-                hz = __ldg(p + 5 * static_cast<long long>(count));
+__device__ __forceinline__ float slab_tnear(const Cones& c, int j, const Ray& r, float tfar) {
+    const float* p = c.boxes + j;
+    const long long s = c.total;
+    const float lx = __ldg(p), ly = __ldg(p + s), lz = __ldg(p + 2 * s);
+    const float hx = __ldg(p + 3 * s), hy = __ldg(p + 4 * s), hz = __ldg(p + 5 * s);
     const float tnear = strelka_slab_safe(lx, ly, lz, hx, hy, hz, strelka_box_scale(lx, ly, lz, hx, hy, hz), r.o0,
                                           r.o1, r.o2, r.inv0, r.inv1, r.inv2, r.om, r.tn, tfar);
     return lx <= hx && tnear != INFINITY ? tnear : kNone;
 }
 
-// The least (v, at) over the warp, of equal v the least at; in every lane.
-__device__ __forceinline__ void warp_argmin(float& v, int& at) {
-#pragma unroll
-    for (int o = kLanes / 2; o > 0; o >>= 1) {
-        const float ov = __shfl_xor_sync(kFull, v, o);
-        const int oa = __shfl_xor_sync(kFull, at, o);
-        if (ov < v || (ov == v && oa < at)) {
-            v = ov;
-            at = oa;
-        }
-    }
-}
-
-// List walk: the next sub-block the ray's interval [tn, tfar] enters (every
-// sub-block with cull = 0), or -1 when none is left. The lanes slab-test 32
-// superblocks, or a superblock's sub-blocks, at once, and the walk takes the
-// first that is entered: each box is tested against the interval the ray
-// has when the walk reaches it.
-__device__ __forceinline__ int next_listed(const Cones& c, const Ray& r, float tfar, int cull, Walk& w, int lane) {
-    const int nsb = c.nb / c.super_;
-    while (w.pos < w.limit) {
-        if (w.k == 0 && cull) {
-            const int p = w.pos + lane;
-            bool in = false;
-            if (p < w.limit) in = slab_tnear(c.sbounds, nsb, w.list ? __ldg(w.list + p) : p, r, tfar) != kNone;
-            const unsigned m = __ballot_sync(kFull, in);
-            if (!m) {
-                w.pos = min(w.pos + kLanes, w.limit);
-                continue;
-            }
-            w.pos += __ffs(m) - 1;
-        }
-        const int sb = w.list ? __ldg(w.list + w.pos) : w.pos;
-        const bool in = lane >= w.k && lane < c.super_ &&
-                        (!cull || slab_tnear(c.bounds, c.nb, sb * c.super_ + lane, r, tfar) != kNone);
-        const unsigned m = __ballot_sync(kFull, in);
-        if (m) {
+// Lane k slab-tests box first + k (k < count) against [tn, tfar]; the
+// entered boxes go on the warp's stack above sp: for K7 the nearest on top
+// (of equal tnear the lower box), for K8 the lowest box on top (the order
+// does not change what an any-hit walk tests before its first hit much,
+// and the ranking costs K8 more than it saves). Returns the new stack size
+// and adds the boxes tested to `boxes`.
+template <bool kAny>
+__device__ __forceinline__ int push_boxes(const Cones& c, int first, int count, const Ray& r, float tfar,
+                                          float* s_t, int* s_n, int sp, int lane, int& boxes) {
+    const float v = lane < count ? slab_tnear(c, first + lane, r, tfar) : kNone;
+    boxes += count;
+    const unsigned in = __ballot_sync(kFull, v != kNone);
+    if (!in) return sp;
+    // the rank of the lane's box among the entered ones, the first popped first
+    int rank = __popc(in & ((1u << lane) - 1u));
+    if (!kAny) {
+        rank = 0;
+        for (unsigned m = in; m; m &= m - 1) {
             const int k = __ffs(m) - 1;
-            w.k = k + 1;
-            if (w.k == c.super_) {
-                w.k = 0;
-                ++w.pos;
-            }
-            return sb * c.super_ + k;
+            const float vk = __shfl_sync(kFull, v, k);
+            rank += vk < v || (vk == v && k < lane);
         }
-        w.k = 0;
-        ++w.pos;
     }
-    return -1;
-}
-
-// Near to far per ray: the nearest entered sub-block whose tnear is not
-// above best_t, or -1 when none is left. s_tn and s_sb are the warp's list
-// ([list_cap] each); lanes keep a sub-block's tnear each, scan the list and
-// slab-test 32 candidates at once, and every choice is the sequential walk's.
-__device__ __forceinline__ int next_near_far(const Cones& c, const Ray& r, float best_t, float tx, Walk& w,
-                                             float* s_tn, int* s_sb, int lane) {
-    const int nsb = c.nb / kSuper;
-    const float bound = fminf(best_t, tx);
-    while (true) {
-        if (w.sb >= 0) {
-            float tb = w.sub;
-            int kb = lane;
-            warp_argmin(tb, kb);
-            if (tb <= best_t) {
-                if (lane == kb) w.sub = kNone;
-                return w.sb * kSuper + kb;
-            }
-            w.sb = -1;
-        }
-        float tb = kNone;
-        int at = INT_MAX;
-        for (int e = lane; e < w.fill; e += kLanes) {
-            const float v = s_tn[e];
-            if (v < tb) {
-                tb = v;
-                at = e;
-            }
-        }
-        warp_argmin(tb, at);
-        if (tb <= best_t) {
-            w.sb = s_sb[at];
-            __syncwarp();
-            if (lane == 0) s_tn[at] = kNone;
-            __syncwarp();
-            w.sub = lane < kSuper ? slab_tnear(c.bounds, c.nb, w.sb * kSuper + lane, r, bound) : kNone;
-            continue;
-        }
-        // this round's list holds nothing nearer than best t: scan on
-        w.fill = 0;
-        if (w.pos >= w.limit) return -1;
-        while (w.pos < w.limit && w.fill < c.list_cap) {
-            const int p = w.pos + lane;
-            bool valid = p < w.limit;
-            if (w.list_tn) {
-                // the list goes by the least tnear of the tile's rays: none from the first
-                // entry beyond best t on is entered before best t
-                const unsigned beyond = __ballot_sync(kFull, valid && __ldg(w.list_tn + p) > best_t);
-                if (beyond) {
-                    const int cut = __ffs(beyond) - 1;
-                    w.limit = w.pos + cut;
-                    valid = lane < cut;
-                }
-            }
-            int sb = 0;
-            float tn = kNone;
-            if (valid) {
-                sb = w.list ? __ldg(w.list + p) : p;
-                tn = slab_tnear(c.sbounds, nsb, sb, r, bound);
-            }
-            const unsigned e = __ballot_sync(kFull, tn != kNone);
-            const int need = c.list_cap - w.fill;
-            const int rank = __popc(e & ((1u << lane) - 1u));
-            if (tn != kNone && rank < need) {
-                s_tn[w.fill + rank] = tn;
-                s_sb[w.fill + rank] = sb;
-            }
-            if (__popc(e) >= need) {  // full at the need-th entered candidate: the next round starts after it
-                unsigned m = e;
-                for (int q = 1; q < need; ++q) m &= m - 1;
-                w.pos += __ffs(m);
-                w.fill = c.list_cap;
-            } else {
-                w.pos = min(w.pos + kLanes, w.limit);
-                w.fill += __popc(e);
-            }
-        }
-        __syncwarp();
+    const int n_in = __popc(in);
+    if (v != kNone) {
+        s_t[sp + n_in - 1 - rank] = v;
+        s_n[sp + n_in - 1 - rank] = first + lane;
     }
+    __syncwarp();
+    return sp + n_in;
 }
 
 // x0*y0 + x1*y1 + x2*y2 as XLA's CPU backend contracts it (see the contract above).
@@ -332,27 +216,81 @@ __device__ __forceinline__ float ray_cone(float ax, float ay, float az, float bx
     return fminf(t_body_m, fminf(t_ca_m, t_cb_m));
 }
 
-// stats: [2, n] per ray (sub-blocks swept, cone positions stepped through,
-// kStep a step of the warp, padding included) or null; slots: [2]
-// launch-wide (lane slots the cone loop issued, lane slots that tested a
-// cone) or null.
-template <bool kAny, bool kNearFar>
+// Whether the ray's interval [tn, tfar] enters the cone's own box (ops/
+// curves.py:cone_boxes: lo = min(a - ra, b - rb), hi = max(a + ra, b + rb);
+// padding, with ra = -1, is inverted and never entered).
+__device__ __forceinline__ bool enters_cone_box(const float4& ca, const float4& cb, const Ray& r, float tfar) {
+    const float lx = fminf(ca.x - ca.w, cb.x - cb.w), ly = fminf(ca.y - ca.w, cb.y - cb.w),
+                lz = fminf(ca.z - ca.w, cb.z - cb.w);
+    const float hx = fmaxf(ca.x + ca.w, cb.x + cb.w), hy = fmaxf(ca.y + ca.w, cb.y + cb.w),
+                hz = fmaxf(ca.z + ca.w, cb.z + cb.w);
+    const float tnear = strelka_slab_safe(lx, ly, lz, hx, hy, hz, strelka_box_scale(lx, ly, lz, hx, hy, hz), r.o0,
+                                          r.o1, r.o2, r.inv0, r.inv1, r.inv2, r.om, r.tn, tfar);
+    return lx <= hx && tnear != INFINITY;
+}
+
+// The lane's cone `cone` (rows ca, cb) against the ray where `enter`; a hit
+// in (tn, tx) replaces the lane's best on t < best or on t == best with a
+// lower index. Returns whether the best changed.
+template <bool kAny>
+__device__ __forceinline__ bool test_cone(const float4& ca, const float4& cb, int cone, bool enter, const Ray& r,
+                                          float tx, float& best_t, int& best_c, float& best_y) {
+    float y, dd, t_ca_m, t_cb_m;
+    const float t = ray_cone<kAny>(ca.x, ca.y, ca.z, cb.x, cb.y, cb.z, ca.w, cb.w, r, y, dd, t_ca_m, t_cb_m);
+    if (enter && t < kMiss && t > r.tn && t < tx && (t < best_t || (t == best_t && cone < best_c))) {
+        best_t = t;
+        best_c = cone;
+        if (!kAny) {
+            const float y_norm = fminf(fmaxf(y / fmaxf(dd, 1e-12f), 0.0f), 1.0f);
+            best_y = t == t_ca_m ? 0.0f : (t == t_cb_m ? 1.0f : y_norm);
+        }
+        return true;
+    }
+    return false;
+}
+
+// The lane's cone rows (a.xyz, ra), (b.xyz, rb).
+__device__ __forceinline__ void load_cone(const Cones& c, int cone, float4& ca, float4& cb) {
+    const float4* __restrict__ q = c.aos + 2 * static_cast<long long>(cone);
+    ca = __ldg(q);
+    cb = __ldg(q + 1);
+}
+
+// The warp's best: the least t, of equal t the lowest cone, in every lane.
+__device__ __forceinline__ void warp_best(float& best_t, int& best_c, float& best_y) {
+#pragma unroll
+    for (int o = kLanes / 2; o > 0; o >>= 1) {
+        const float ot = __shfl_xor_sync(kFull, best_t, o);
+        const int oc = __shfl_xor_sync(kFull, best_c, o);
+        const float oy = __shfl_xor_sync(kFull, best_y, o);
+        if (ot < best_t || (ot == best_t && oc < best_c)) {
+            best_t = ot;
+            best_c = oc;
+            best_y = oy;
+        }
+    }
+}
+
+// stats: [3, n] per ray (inner boxes slab-tested, leaves swept, cones whose
+// own box the interval entered, which the closed form then tested; with
+// cull = 0 a leaf is a step of kLeaf cones and every live cone is tested)
+// or null; slots: [2] launch-wide (lane slots of the closed form's steps,
+// kLeaf a step, and those that tested a cone) or null.
+template <bool kAny>
 __global__ void __launch_bounds__(kThreads) cone_kernel(StrelkaRays rays, Cones cones, int cull, long long n,
                                                         int* __restrict__ next_ray, float* __restrict__ t_out,
                                                         int* __restrict__ cone_out, float* __restrict__ y_out,
                                                         unsigned char* __restrict__ occ_out, int* __restrict__ stats,
                                                         unsigned long long* __restrict__ slots) {
-    extern __shared__ float s_list[];  // near to far: per warp [list_cap] tnear, then [list_cap] superblock
+    __shared__ float s_tn[kWarps][kStack];
+    __shared__ int s_box[kWarps][kStack];
     const int lane = threadIdx.x & (kLanes - 1);
-    float* s_tn = s_list + (threadIdx.x / kLanes) * 2 * cones.list_cap;
-    int* s_sb = reinterpret_cast<int*>(s_tn + cones.list_cap);
-    const int tblk = cones.m_pad / cones.nb;
-    const int nsb = cones.nb / cones.super_;
-    const bool near_far = kNearFar && cull;
+    float* s_t = s_tn[threadIdx.x / kLanes];
+    int* s_n = s_box[threadIdx.x / kLanes];
     unsigned issued = 0, tested = 0;
     while (true) {
         // the next ray, one atomicAdd a warp: the rays in flight on the card
-        // at a time are a few thousand neighbours, whose cones share the caches
+        // at a time are a few thousand neighbours, whose boxes and cones share the caches
         int next = 0;
         if (lane == 0) next = atomicAdd(next_ray, 1);
         next = __shfl_sync(kFull, next, 0);
@@ -370,6 +308,7 @@ __global__ void __launch_bounds__(kThreads) cone_kernel(StrelkaRays rays, Cones 
                 if (stats) {
                     stats[i] = 0;
                     stats[n + i] = 0;
+                    stats[2 * n + i] = 0;
                 }
             }
             continue;
@@ -383,74 +322,60 @@ __global__ void __launch_bounds__(kThreads) cone_kernel(StrelkaRays rays, Cones 
         r.inv1 = 1.0f / (fabsf(r.d1) > 1e-20f ? r.d1 : 1e-20f);
         r.inv2 = 1.0f / (fabsf(r.d2) > 1e-20f ? r.d2 : 1e-20f);
         r.om = fmaxf(fmaxf(fabsf(r.o0), fabsf(r.o1)), fabsf(r.o2));
-        const long long tile = cones.order ? i / cones.order_tile : 0;
-        Walk w;
-        w.list = cones.order ? cones.order + tile * nsb : nullptr;
-        w.list_tn = cones.order_tn ? cones.order_tn + tile * nsb : nullptr;
-        w.limit = cones.order ? __ldg(cones.count + tile) : nsb;
-        w.pos = w.k = w.fill = 0;
-        w.sb = -1;
-        w.sub = kNone;
-        // best hit: the same in every lane between sub-blocks; each lane's own within one
+        // best hit: the same in every lane between leaves; each lane's own within one
         float best_t = kMiss, best_y = 0.0f;
-        int best_c = -1, swept = 0, steps = 0;
-        bool occluded = false;
-        while (!occluded) {
-            const int blk = near_far ? next_near_far(cones, r, best_t, tx, w, s_tn, s_sb, lane)
-                                     : next_listed(cones, r, kAny ? tx : fminf(best_t, tx), cull, w, lane);
-            if (blk < 0) break;
-            ++swept;
-            for (int j = 0; j < tblk; j += kStep) {
-                const int base = blk * tblk + j + lane;
-                const float4* __restrict__ q = cones.aos + 2 * static_cast<long long>(base);
-                float4 ca[kPair], cb[kPair];
+        int best_c = -1, boxes = 0, leaves = 0, live = 0;
+        if (!cull) {
+            for (int base = 0; base < cones.m_pad; base += kLeaf) {
+                float4 ca, cb;
+                load_cone(cones, base + lane, ca, cb);
+                const bool in = ca.w >= 0.0f;  // padding has ra = -1
+                test_cone<kAny>(ca, cb, base + lane, in, r, tx, best_t, best_c, best_y);
+                live += __popc(__ballot_sync(kFull, in));
+                tested += in;
+                issued += 1;
+                ++leaves;
+                if (kAny && __ballot_sync(kFull, best_c >= 0)) break;
+            }
+            if (!kAny) warp_best(best_t, best_c, best_y);
+        } else {
+            int sp = push_boxes<kAny>(cones, 0, cones.first[1] - cones.first[0], r, tx, s_t, s_n, 0, lane, boxes);
+            while (sp > 0) {
+                --sp;
+                const float tn = s_t[sp];
+                const int box = s_n[sp];
+                __syncwarp();  // every lane has read the entry before a push writes over it
+                if (!kAny && tn > best_t) continue;  // no cone in it has t <= best t
+                if (box >= cones.leaf0) {  // a leaf: its cones' own boxes, then the closed form, a lane each
+                    const int cone = (box - cones.leaf0) * kLeaf + lane;
+                    float4 ca, cb;
+                    load_cone(cones, cone, ca, cb);
+                    const bool in = enters_cone_box(ca, cb, r, kAny ? tx : fminf(best_t, tx));
+                    const unsigned entered = __ballot_sync(kFull, in);
+                    ++leaves;
+                    if (!entered) continue;  // no cone of the leaf can hit in the interval
+                    const bool better = test_cone<kAny>(ca, cb, cone, in, r, tx, best_t, best_c, best_y);
+                    const unsigned hits = __ballot_sync(kFull, better);
+                    live += __popc(entered);
+                    tested += in;
+                    issued += 1;
+                    if (kAny && hits) break;
+                    if (!kAny && hits) warp_best(best_t, best_c, best_y);  // a lane's best changed: meet
+                } else {  // an inner box: its children, a box a lane
+                    int lo = cones.first[0], below = cones.first[1];
 #pragma unroll
-                for (int u = 0; u < kPair; ++u) {
-                    ca[u] = __ldg(q + 2 * kLanes * u);
-                    cb[u] = __ldg(q + 2 * kLanes * u + 1);
-                }
-                float t[kPair], y[kPair], dd[kPair], t_ca_m[kPair], t_cb_m[kPair];
-#pragma unroll
-                for (int u = 0; u < kPair; ++u) {
-                    t[u] = ray_cone<kAny>(ca[u].x, ca[u].y, ca[u].z, cb[u].x, cb[u].y, cb[u].z, ca[u].w, cb[u].w, r,
-                                    y[u], dd[u], t_ca_m[u], t_cb_m[u]);
-                }
-#pragma unroll
-                for (int u = 0; u < kPair; ++u) {
-                    const int cone = base + kLanes * u;
-                    if (!(ca[u].w >= 0.0f)) continue;  // padding
-                    ++tested;
-                    if (t[u] < kMiss && t[u] > r.tn && t[u] < tx &&
-                        (t[u] < best_t || (t[u] == best_t && cone < best_c))) {
-                        best_t = t[u];
-                        best_c = cone;
-                        if (!kAny) {
-                            const float y_norm = fminf(fmaxf(y[u] / fmaxf(dd[u], 1e-12f), 0.0f), 1.0f);
-                            best_y = t[u] == t_ca_m[u] ? 0.0f : (t[u] == t_cb_m[u] ? 1.0f : y_norm);
+                    for (int l = 1; l < kMaxLevels; ++l) {
+                        if (l < cones.levels - 1 && box >= cones.first[l]) {
+                            lo = cones.first[l];
+                            below = cones.first[l + 1];
                         }
                     }
-                }
-                issued += kPair;
-                steps += kStep;
-                if (kAny && __ballot_sync(kFull, best_c >= 0)) {
-                    occluded = true;
-                    break;
-                }
-            }
-            if (!kAny) {  // the warp's best: the least t, of equal t the lowest cone
-#pragma unroll
-                for (int o = kLanes / 2; o > 0; o >>= 1) {
-                    const float ot = __shfl_xor_sync(kFull, best_t, o);
-                    const int oc = __shfl_xor_sync(kFull, best_c, o);
-                    const float oy = __shfl_xor_sync(kFull, best_y, o);
-                    if (ot < best_t || (ot == best_t && oc < best_c)) {
-                        best_t = ot;
-                        best_c = oc;
-                        best_y = oy;
-                    }
+                    sp = push_boxes<kAny>(cones, below + kWide * (box - lo), kWide, r, kAny ? tx : fminf(best_t, tx),
+                                          s_t, s_n, sp, lane, boxes);
                 }
             }
         }
+        const bool occluded = kAny && __ballot_sync(kFull, best_c >= 0);
         if (lane == 0) {
             if (kAny) {
                 occ_out[i] = occluded ? 1 : 0;
@@ -460,8 +385,9 @@ __global__ void __launch_bounds__(kThreads) cone_kernel(StrelkaRays rays, Cones 
                 y_out[i] = best_y;
             }
             if (stats) {
-                stats[i] = swept;
-                stats[n + i] = steps;
+                stats[i] = boxes;
+                stats[n + i] = leaves;
+                stats[2 * n + i] = live;
             }
         }
     }
@@ -474,103 +400,68 @@ __global__ void __launch_bounds__(kThreads) cone_kernel(StrelkaRays rays, Cones 
     }
 }
 
-Cones make_cones(const void* aos, const void* bounds, const void* sbounds, int m_pad, int nb, int super_,
-                 const void* order, const void* count, int order_tile, const void* order_tn, int list_cap) {
-    Cones c;
+// The cones and their tree; levels: the first box of each level, [nlevels + 1] on the host.
+int make_cones(const void* aos, const void* boxes, const void* levels, int nlevels, int m_pad, Cones& c) {
+    if (nlevels < 1 || nlevels > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
     c.aos = static_cast<const float4*>(aos);
-    c.bounds = static_cast<const float*>(bounds);
-    c.sbounds = static_cast<const float*>(sbounds);
+    c.boxes = static_cast<const float*>(boxes);
     c.m_pad = m_pad;
-    c.nb = nb;
-    c.super_ = super_;
-    c.order = static_cast<const int*>(order);
-    c.count = static_cast<const int*>(count);
-    c.order_tile = order_tile;
-    c.order_tn = static_cast<const float*>(order_tn);
-    c.list_cap = list_cap;
-    return c;
-}
-
-using ConeKernel = void (*)(StrelkaRays, Cones, int, long long, int*, float*, int*, float*, unsigned char*, int*,
-                           unsigned long long*);
-
-// The kernel a launch takes, and its dynamic shared memory.
-template <bool kAny>
-ConeKernel pick(int cull, int near_far, int list_cap, int& smem) {
-    if (!kAny && cull && near_far) {
-        smem = list_cap * (kThreads / kLanes) * 8;
-        return cone_kernel<false, true>;
-    }
-    smem = 0;
-    return cone_kernel<kAny, false>;
+    c.levels = nlevels;
+    const int* lv = static_cast<const int*>(levels);
+    for (int l = 0; l <= kMaxLevels; ++l) c.first[l] = l <= nlevels ? lv[l] : lv[nlevels];
+    c.total = lv[nlevels];
+    c.leaf0 = lv[nlevels - 1];
+    if (c.first[1] - c.first[0] > kWide) return static_cast<int>(cudaErrorInvalidValue);
+    return 0;
 }
 
 template <bool kAny>
 int launch(const void* ox, const void* oy, const void* oz, const void* dx, const void* dy, const void* dz,
-           const void* tmin, const void* tmax, const void* aos, const void* bounds, const void* sbounds, int m_pad,
-           int nb, int super_, int cull, int near_far, const void* order, const void* count, int order_tile,
-           const void* order_tn, int list_cap, long long n, int blocks, void* next_ray, void* t_out, void* cone_out,
-           void* y_out, void* occ_out, void* stats, void* slots, void* stream) {
-    int smem = 0;
-    const ConeKernel kernel = pick<kAny>(cull, near_far, list_cap, smem);
-    if (smem > 48 * 1024) cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        strelka_make_rays(ox, oy, oz, dx, dy, dz, tmin, tmax, nullptr),
-        make_cones(aos, bounds, sbounds, m_pad, nb, super_, order, count, order_tile, order_tn, list_cap), cull, n,
-        static_cast<int*>(next_ray), static_cast<float*>(t_out), static_cast<int*>(cone_out),
-        static_cast<float*>(y_out), static_cast<unsigned char*>(occ_out), static_cast<int*>(stats),
-        static_cast<unsigned long long*>(slots));
+           const void* tmin, const void* tmax, const void* aos, const void* boxes, const void* levels, int nlevels,
+           int m_pad, int cull, long long n, int blocks, void* next_ray, void* t_out, void* cone_out, void* y_out,
+           void* occ_out, void* stats, void* slots, void* stream) {
+    Cones c;
+    const int bad = make_cones(aos, boxes, levels, nlevels, m_pad, c);
+    if (bad) return bad;
+    cone_kernel<kAny><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        strelka_make_rays(ox, oy, oz, dx, dy, dz, tmin, tmax, nullptr), c, cull, n, static_cast<int*>(next_ray),
+        static_cast<float*>(t_out), static_cast<int*>(cone_out), static_cast<float*>(y_out),
+        static_cast<unsigned char*>(occ_out), static_cast<int*>(stats), static_cast<unsigned long long*>(slots));
     STRELKA_RETURN_LAUNCH_STATUS();
 }
 
 }  // namespace
 
-// Blocks of kThreads threads that fit on one SM at once for the kernel that
-// a launch with these arguments takes -> *blocks_per_sm, *threads.
-extern "C" int strelka_cone_occupancy(int any, int cull, int near_far, int list_cap, void* blocks_per_sm,
-                                      void* threads) {
-    int smem = 0;
-    const ConeKernel kernel =
-        any ? pick<true>(cull, near_far, list_cap, smem) : pick<false>(cull, near_far, list_cap, smem);
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return static_cast<int>(e);
-    }
+// Blocks of kThreads threads that fit on one SM at once for K8 (any = 1) or
+// K7 -> *blocks_per_sm, *threads.
+extern "C" int strelka_cone_occupancy(int any, void* blocks_per_sm, void* threads) {
     *static_cast<int*>(threads) = kThreads;
-    return static_cast<int>(
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(static_cast<int*>(blocks_per_sm), kernel, kThreads, smem));
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        static_cast<int*>(blocks_per_sm), any ? cone_kernel<true> : cone_kernel<false>, kThreads, 0));
 }
 
 // Rays: 8 f32 [n] component arrays. Cones: the cone-major rows f32
-// [m_pad, 8] = (a.xyz, ra, b.xyz, rb), 16-byte aligned, sub-block boxes f32
-// [8, nb], superblock boxes f32 [8, nb / super_]; order int32
-// [ceil(n / order_tile), nb / super_] and count int32 [ceil(n / order_tile)],
-// or both null (ascending, or every superblock a candidate; always with
-// cull = 0); order_tn f32 like order, the least tnear of a tile's rays at
-// each entry (ascending along a row), or null. near_far = 1 takes the near-to-far walk per ray (super_ = 8,
-// list_cap entries a thread of shared memory). blocks: the grid; next_ray:
-// an int32 zeroed before the launch. Outputs: t f32, cone int32, y f32, each
-// [n]; stats int32 [2, n] or null; slots uint64 [2] zeroed, or null.
+// [m_pad, 8] = (a.xyz, ra, b.xyz, rb), 16-byte aligned; the tree's boxes f32
+// [8, total] (ops/curves.py:cone_tree) and levels, a host int32 array of
+// nlevels + 1 entries: the first box of each level, top first, then total
+// (ops/curves.py:cone_tree_levels). cull = 0 sweeps every cone. blocks: the
+// grid; next_ray: an int32 zeroed before the launch. Outputs: t f32, cone
+// int32, y f32, each [n]; stats int32 [3, n] or null; slots uint64 [2]
+// zeroed, or null.
 extern "C" int strelka_cone_closest(const void* ox, const void* oy, const void* oz, const void* dx, const void* dy,
                                     const void* dz, const void* tmin, const void* tmax, const void* aos,
-                                    const void* bounds, const void* sbounds, int m_pad, int nb, int super_,
-                                    int cull, int near_far, const void* order, const void* count, int order_tile,
-                                    const void* order_tn, int list_cap, long long n, int blocks, void* next_ray,
-                                    void* t_out,
-                                    void* cone_out, void* y_out, void* stats, void* slots, void* stream) {
-    return launch<false>(ox, oy, oz, dx, dy, dz, tmin, tmax, aos, bounds, sbounds, m_pad, nb, super_, cull, near_far,
-                         order, count, order_tile, order_tn, list_cap, n, blocks, next_ray, t_out, cone_out, y_out,
-                         nullptr,
-                         stats, slots, stream);
+                                    const void* boxes, const void* levels, int nlevels, int m_pad, int cull,
+                                    long long n, int blocks, void* next_ray, void* t_out, void* cone_out, void* y_out,
+                                    void* stats, void* slots, void* stream) {
+    return launch<false>(ox, oy, oz, dx, dy, dz, tmin, tmax, aos, boxes, levels, nlevels, m_pad, cull, n, blocks,
+                         next_ray, t_out, cone_out, y_out, nullptr, stats, slots, stream);
 }
 
-// Same rays and cones, the list walk; output occlusion as uint8 (torch.bool) [n].
+// Same rays and cones; output occlusion as uint8 (torch.bool) [n].
 extern "C" int strelka_cone_any(const void* ox, const void* oy, const void* oz, const void* dx, const void* dy,
                                 const void* dz, const void* tmin, const void* tmax, const void* aos,
-                                const void* bounds, const void* sbounds, int m_pad, int nb, int super_, int cull,
-                                const void* order, const void* count, int order_tile, long long n, int blocks,
-                                void* next_ray, void* occ_out, void* stats, void* slots, void* stream) {
-    return launch<true>(ox, oy, oz, dx, dy, dz, tmin, tmax, aos, bounds, sbounds, m_pad, nb, super_, cull, 0, order,
-                        count, order_tile, nullptr, 0, n, blocks, next_ray, nullptr, nullptr, nullptr, occ_out, stats,
-                        slots, stream);
+                                const void* boxes, const void* levels, int nlevels, int m_pad, int cull, long long n,
+                                int blocks, void* next_ray, void* occ_out, void* stats, void* slots, void* stream) {
+    return launch<true>(ox, oy, oz, dx, dy, dz, tmin, tmax, aos, boxes, levels, nlevels, m_pad, cull, n, blocks,
+                        next_ray, nullptr, nullptr, nullptr, occ_out, stats, slots, stream);
 }

@@ -65,12 +65,12 @@ SIGNATURES = {
     # 8 ray components, exclude, child rows; rows, depth; triangle rows; ray mask, n, ntri; occ, nodes, tris, stream
     "strelka_bvh_any": [_VP] * 10 + [_I32, _I32, _VP, _I32, _I64, _I32] + [_VP] * 4,
     "strelka_gather_rows_t": [_VP, _VP, _VP, _I64, _I32, _I32, _VP],
-    # 8 ray components, cone geometry, boxes, superblock boxes; m_pad, nb, super, cull, (K7) near to far; order,
-    # count, its tile, (K7) the order's tnears, list cap; n, blocks; ray counter, outputs, stats, slots, stream
-    "strelka_cone_closest": [_VP] * 11 + [_I32] * 5 + [_VP, _VP, _I32, _VP, _I32, _I64, _I32] + [_VP] * 7,
-    "strelka_cone_any": [_VP] * 11 + [_I32] * 4 + [_VP, _VP, _I32, _I64, _I32] + [_VP] * 5,
-    # any hit, cull, near to far, list cap; blocks per SM, threads a block
-    "strelka_cone_occupancy": [_I32] * 4 + [_VP, _VP],
+    # 8 ray components, cone geometry, tree boxes, the levels' first boxes (a host array); levels, m_pad, cull;
+    # n, blocks; ray counter, outputs, stats, slots, stream
+    "strelka_cone_closest": [_VP] * 11 + [_I32] * 3 + [_I64, _I32] + [_VP] * 7,
+    "strelka_cone_any": [_VP] * 11 + [_I32] * 3 + [_I64, _I32] + [_VP] * 5,
+    # any hit; blocks per SM, threads a block
+    "strelka_cone_occupancy": [_I32, _VP, _VP],
     # 8 ray components, superblock boxes, nsb, d2, r2t, tile, n; open, W, min_tn, order, tnear, count, stream
     "strelka_open_w": [_VP] * 9 + [_I32, _VP, _VP, _I32, _I64] + [_VP] * 7,
     # the inputs' and the outputs' pointers (host arrays, kernels/shade.py's orders), n, depth, variant, stream

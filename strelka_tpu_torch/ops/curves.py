@@ -21,11 +21,15 @@ What is here:
     operation. They are the plain versions of kernels K7 and K8
     (kernels/cones.py) and sweep every cone;
   * `cone_hit`, `cone_hit_to_seg_u`, `curve_shading_frame_vec`;
+  * `cone_tree_levels`, `cone_tree`: the tree over the Morton-sorted cones
+    that kernels K7 and K8 walk (leaves of CONE_LEAF consecutive cones,
+    inner nodes of CONE_WIDE consecutive children, boxes only: the cones
+    stay in place), and `cone_tree_walk`, the plain count of that walk;
   * `tile_box_d2`, `tile_sweep_order_k`: the per-tile box distances and
     K-nearest selection that feed kernel K9's open flag (kernels/open_w.py);
-  * `sub_blocks_entered`, `any_hit_need`: the sub-blocks and cones a culled
-    sweep needs for given rays, counted in plain PyTorch for the kernels'
-    bounds.
+  * `cones_entered`, `sub_blocks_entered`, `any_hit_need`: the cones and
+    sub-blocks a culled sweep needs for given rays, counted in plain PyTorch
+    for the kernels' bounds.
 """
 
 from __future__ import annotations
@@ -42,16 +46,14 @@ from strelka_tpu_torch.ops.vec import Vec3
 
 MISS_T = 1e16
 CURVE_SUBDIV = 8  # round cones per cubic segment (the reference's default)
-CONE_TBLK = 256  # cones per culled sub-block
+CONE_TBLK = 256  # cones per sub-block of the packed rows (the JAX package's TPU blocking; K9's boxes)
 CONE_SUPER = 8  # sub-blocks per superblock
-# kernel K9 gives the cone sweeps a near-to-far superblock order per tile of
-# CONE_ORDER_TILE rays from this many superblocks on (the reference's
-# _CONE_WL_MIN_NSB: below it the ascending sweep's few boxes cost nothing)
-CONE_ORDER_MIN_NSB = 32
-CONE_ORDER_TILE = 64  # of 32, 64, 128, 256 the least K7 + order time on hair_long (scripts/torch_cone_tile_probe.py)
-# (tnear, superblock) entries a ray of K7's near-to-far walk keeps in shared
-# memory at a time (scripts/torch_cone_list_probe.py)
-CONE_LIST = 16
+# the cone tree (cone_tree): cones a leaf and children an inner node, a lane
+# each in kernels K7/K8 (csrc/cones.cu:kLeaf, kWide), and the most box levels
+# the kernels' per-warp stack holds (csrc/cones.cu:kMaxLevels; 32^6 leaves)
+CONE_LEAF = 32
+CONE_WIDE = 32
+CONE_MAX_LEVELS = 6
 # packed row numbers ([12, M_pad], pack_cones)
 ROW_A, ROW_B, ROW_RA, ROW_RB, ROW_U0, ROW_U1, ROW_SEG = 0, 3, 6, 7, 8, 9, 10
 # columns of the cone-major geometry [M_pad, 8] and rows of the attributes [3, M_pad]
@@ -260,6 +262,63 @@ def cone_attr_rows(rows: np.ndarray) -> np.ndarray:
     """[12, M_pad] packed rows -> [3, M_pad] = (u0, u1, segment as an f32
     value): what a hit needs of its cone beside the geometry."""
     return np.ascontiguousarray(np.asarray(rows, np.float32)[[ROW_U0, ROW_U1, ROW_SEG]])
+
+
+def cone_tree_levels(m_pad: int) -> tuple:
+    """The box levels of the cone tree over m_pad cones (a multiple of
+    CONE_LEAF), top first: ((first box, boxes), ...) in one [8, total] table.
+    The last level holds the leaves, leaf j the cones [CONE_LEAF j,
+    CONE_LEAF (j + 1)); the top level holds at most CONE_WIDE boxes; below it,
+    level l + 1 holds CONE_WIDE times as many boxes as level l, and box
+    CONE_WIDE j + k of level l + 1 is child k of box j of level l (boxes past
+    the cones are padding). The depth follows the number of cones."""
+    if m_pad < 1 or m_pad % CONE_LEAF:
+        raise ValueError(f"{m_pad} cones: the cone tree takes whole leaves of {CONE_LEAF}")
+    held = [m_pad // CONE_LEAF]  # the boxes a level needs, from the leaves up
+    while held[0] > CONE_WIDE:
+        held.insert(0, -(-held[0] // CONE_WIDE))
+    counts = [held[0] * CONE_WIDE ** k for k in range(len(held))]
+    first = np.cumsum([0] + counts[:-1])
+    return tuple((int(f), int(c)) for f, c in zip(first, counts))
+
+
+def cone_boxes(geom) -> torch.Tensor:
+    """Cone rows [..., 8] (a tensor or an array) -> each cone's own box as
+    rows [8, ...] f32 (lo.xyz, hi.xyz, two zero rows): lo = min(a - ra,
+    b - rb), hi = max(a + ra, b + rb), the arithmetic of pack_cones' boxes and
+    of kernels K7/K8's leaf test; padding (ra < 0) inverted (lo = 1e30,
+    hi = -1e30), as the kernels' arithmetic leaves it too."""
+    g = torch.as_tensor(geom, dtype=torch.float32)
+    a, b, ra, rb = _geom_columns(g)
+    pad = ~(ra >= 0.0)
+    lo = [torch.where(pad, 1e30, torch.minimum(a[k] - ra, b[k] - rb)) for k in range(3)]
+    hi = [torch.where(pad, -1e30, torch.maximum(a[k] + ra, b[k] + rb)) for k in range(3)]
+    return torch.stack(lo + hi + [torch.zeros_like(ra)] * 2)
+
+
+def cone_tree(geom) -> torch.Tensor:
+    """[M_pad, 8] cone rows in their (Morton) order (a tensor, on any device,
+    or an array) -> the cone tree's boxes [8, total] f32 on the same device
+    (lo.xyz, hi.xyz, two zero rows; levels by cone_tree_levels): a leaf's
+    box holds its cones' boxes (cone_boxes), an inner box its
+    children's; a box without a live cone is inverted. The cones are not
+    moved, so cone indices, the tie rule and the cone table are unchanged.
+    Built with tensor reductions on the cones' device."""
+    g = torch.as_tensor(geom, dtype=torch.float32)
+    levels = cone_tree_levels(int(g.shape[0]))
+    own = cone_boxes(g)
+    total = levels[-1][0] + levels[-1][1]
+    out = torch.zeros((8, total), dtype=torch.float32, device=g.device)
+    out[0:3] = 1e30
+    out[3:6] = -1e30
+    first, _ = levels[-1]
+    leaves = g.shape[0] // CONE_LEAF
+    out[0:3, first:first + leaves] = own[0:3].view(3, leaves, CONE_LEAF).amin(dim=2)
+    out[3:6, first:first + leaves] = own[3:6].view(3, leaves, CONE_LEAF).amax(dim=2)
+    for (f, c), (fc, cc) in zip(levels[-2::-1], levels[:0:-1]):
+        out[0:3, f:f + c] = out[0:3, fc:fc + cc].reshape(3, c, CONE_WIDE).amin(dim=2)
+        out[3:6, f:f + c] = out[3:6, fc:fc + cc].reshape(3, c, CONE_WIDE).amax(dim=2)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -579,95 +638,114 @@ def any_hit_need(geom, bounds, o, d, tmin, tmax, chunk: int = 32768):
     return blocks, cones, touched
 
 
-def near_to_far_sweep(geom, bounds, sbounds, o, d, tmin, tmax, cand=None, cand_count=None, cap: int = CONE_LIST,
-                      chunk: int = 16384):
-    """What kernel K7's near-to-far walk sweeps, counted without the kernel
-    (csrc/cones.cu:next_near_far): each live ray slab-tests its candidate
-    superblocks in their order (cand [N, C] i32 with cand_count [N] entries
-    that count, a tile's list of kernel K9 per ray; None: all, ascending)
-    against [tmin, min(best t, tmax)] and keeps the entered ones, up to `cap`
-    a round, as (tnear, superblock); it takes them nearest first (of equal
-    tnear the first kept), then inside a superblock its entered sub-blocks
-    nearest first (of equal tnear the lowest), sweeps each sub-block's cones
-    and stops at the first box whose tnear is greater than its best t; when
-    a round's list holds nothing nearer it scans on in another round.
-    Returns (sub-blocks swept [N] i32, final best t [N] f32, 1e16 = miss)."""
-    n, nb, nsb = tmin.shape[0], bounds.shape[1], sbounds.shape[1]
-    sup, tblk = nb // nsb, geom.shape[0] // nb
-    dev = tmin.device
+class ConeWalk(NamedTuple):
+    """What a walk of the cone tree did for each ray ([N] each)."""
+
+    boxes: torch.Tensor  # i32: inner boxes slab-tested (the top level's, then CONE_WIDE an inner node opened)
+    leaves: torch.Tensor  # i32: leaves swept (each of their cones' own boxes slab-tested)
+    cones: torch.Tensor  # i32: cones whose own box the interval entered, which the closed form then tested
+    forms: torch.Tensor  # i32: leaves whose cones went through the closed form (one entered box or more)
+    t: torch.Tensor  # f32: the closest walk's final t; the any-hit walk's least t in its last leaf (1e16: none)
+
+
+def cone_tree_walk(geom, tree, o, d, tmin, tmax, any_hit: bool = False, chunk: int = 8192) -> ConeWalk:
+    """What kernel K7 (or K8, any_hit=True) does on its walk of the cone
+    tree, counted in plain PyTorch (csrc/cones.cu:cone_kernel). A live ray
+    slab-tests the top level's boxes and keeps the entered ones on a stack:
+    K7 the nearest on top (of equal tnear the lower box), K8 the lowest box
+    on top. It pops the top entry; K7 drops it when its tnear is greater than
+    its best t (strict, since a box at tnear = best t can still hold a cone
+    of equal t and a lower index). An inner box has its CONE_WIDE children
+    slab-tested against [tmin, min(best t, tmax)] ([tmin, tmax] for K8) and
+    pushed the same way; a leaf has its CONE_LEAF cones' own boxes
+    (cone_boxes) slab-tested against the same interval, and where one or
+    more is entered, the cones whose box is entered go through the closed
+    form. An empty stack ends the walk, and K8 also ends it after the leaf
+    with its first hit. geom [M_pad, 8], tree [8, total] (cone_tree)."""
+    levels = cone_tree_levels(geom.shape[0])
+    n, dev = tmin.shape[0], tmin.device
     inf = float("inf")
-    blocked = geom.reshape(nb, tblk, 8)
-    swept_out = torch.zeros(n, dtype=torch.int32, device=dev)
-    best_out = torch.full((n,), MISS_T, dtype=torch.float32, device=dev)
+    starts = torch.tensor([f for f, _ in levels] + [levels[-1][0] + levels[-1][1]], device=dev)
+    leaf0 = levels[-1][0]
+    cap = len(levels) * CONE_WIDE
+    lane = torch.arange(CONE_WIDE, device=dev)  # a box a lane
+    in_leaf = torch.arange(CONE_LEAF, device=dev)  # a cone a lane
+    out = ConeWalk(*(torch.zeros(n, dtype=torch.int32, device=dev) for _ in range(4)),
+                   torch.full((n,), MISS_T, dtype=torch.float32, device=dev))
     for r0 in range(0, n, chunk):
         rs = slice(r0, min(n, r0 + chunk))
         oc, dc, tn, tx = [c[rs] for c in o], [c[rs] for c in d], tmin[rs], tmax[rs]
         r = tn.shape[0]
-        if cand is None:
-            rows = torch.arange(nsb, device=dev).expand(r, nsb)
-            limit = torch.full((r,), nsb, dtype=torch.int64, device=dev)
-        else:
-            rows, limit = cand[rs].long(), cand_count[rs].long()
-        ncand = rows.shape[1]
-        col = torch.arange(ncand, device=dev)
+        st_t = torch.full((r, cap), inf, dtype=torch.float32, device=dev)
+        st_n = torch.zeros((r, cap), dtype=torch.int64, device=dev)
+        sp = torch.zeros(r, dtype=torch.int64, device=dev)
         best = torch.full((r,), MISS_T, dtype=torch.float32, device=dev)
-        swept = torch.zeros(r, dtype=torch.int32, device=dev)
-        pos = torch.zeros(r, dtype=torch.int64, device=dev)
-        lst_tn = torch.full((r, cap), inf, dtype=torch.float32, device=dev)
-        lst_sb = torch.zeros((r, cap), dtype=torch.int64, device=dev)
-        cur = torch.full((r,), -1, dtype=torch.int64, device=dev)
-        sub = torch.full((r, sup), inf, dtype=torch.float32, device=dev)
-        active = tx > tn
-        ray = lambda ids: ([c[ids] for c in oc], [c[ids] for c in dc], tn[ids])  # noqa: E731
-        while bool(active.any()):
-            blk = torch.full((r,), -1, dtype=torch.int64, device=dev)
-            need = active.clone()
-            while bool(need.any()):
-                bound = torch.minimum(best, tx)
-                # a superblock is open: its nearest sub-block not yet taken, or close it
-                ia = torch.nonzero(need & (cur >= 0))[:, 0]
-                tb, kb = sub[ia].min(dim=1)  # the first (lowest) of equal minima
-                take = tb <= best[ia]
-                it = ia[take]
-                blk[it] = cur[it] * sup + kb[take]
-                sub[it, kb[take]] = inf
-                need[it] = False
-                cur[ia[~take]] = -1
-                # none open: the nearest entry of the list, else the round is over
-                ib = torch.nonzero(need & (cur < 0))[:, 0]
-                tb, at = lst_tn[ib].min(dim=1)
-                take = tb <= best[ib]
-                it = ib[take]
-                cur[it] = lst_sb[it, at[take]]
-                lst_tn[it, at[take]] = inf
-                o_it, d_it, tn_it = ray(it)
-                boxes = bounds[:, cur[it, None] * sup + torch.arange(sup, device=dev)]  # [8, R', sup]
-                sub[it] = slab_tnear(o_it, d_it, tn_it, bound[it], boxes)
-                ic = ib[~take]
-                lst_tn[ic] = inf
-                out = pos[ic] >= limit[ic]
-                active[ic[out]] = False
-                need[ic[out]] = False
-                fill = ic[~out]
-                if fill.numel():  # a new round: scan on until the list holds cap entries
-                    o_f, d_f, tn_f = ray(fill)
-                    tnear = slab_tnear(o_f, d_f, tn_f, bound[fill], sbounds[:, rows[fill]])  # [F, C]
-                    ok = (tnear < inf) & (col >= pos[fill, None]) & (col < limit[fill, None])
-                    kk = min(cap, ncand)
-                    first = torch.sort(torch.where(ok, col, ncand), dim=1).values[:, :kk]
-                    got = first < ncand
-                    at = first.clamp(max=ncand - 1)
-                    lst_tn[fill, :kk] = torch.where(got, tnear.gather(1, at), inf)
-                    lst_sb[fill, :kk] = rows[fill].gather(1, at)
-                    full = ok.sum(dim=1) >= cap
-                    pos[fill] = torch.where(full, first[:, -1] + 1, limit[fill])
-            s = torch.nonzero(blk >= 0)[:, 0]
-            if s.numel():
-                a, b, ra, rb = _geom_columns(blocked[blk[s]])
-                t, _, hit = ray_round_cone(_columns([c[s] for c in oc]), _columns([c[s] for c in dc]), a, b, ra, rb,
-                                           tn[s, None], tx[s, None])
-                t = torch.where(hit & (ra >= 0.0), t, MISS_T)
-                best[s] = torch.minimum(best[s], t.min(dim=1).values)
-                swept[s] += 1
-        swept_out[rs], best_out[rs] = swept, best
-    return swept_out, best_out
+        boxes, leaves, cones, forms = (torch.zeros(r, dtype=torch.int32, device=dev) for _ in range(4))
+        live = torch.ones(r, dtype=torch.bool, device=dev)  # K8: cleared by the first hit
+        ray = lambda rows: ([c[rows] for c in oc], [c[rows] for c in dc], tn[rows])  # noqa: E731
+        bound = lambda rows: tx[rows] if any_hit else torch.minimum(best[rows], tx[rows])  # noqa: E731
+
+        def push(rows, first, count):
+            ids = first[:, None] + lane[None, :count]  # [R', count]
+            v = slab_tnear(*ray(rows), bound(rows), tree[:, ids])
+            key = torch.where(v < inf, 0.0, inf) if any_hit else v  # K8: the entered boxes in index order
+            sv, si = torch.sort(key, dim=1, stable=True)  # K7: nearest first, of equal tnear the lower box
+            n_in = (v < inf).sum(dim=1)
+            k = lane[None, :count]
+            ok = k < n_in[:, None]
+            pos = sp[rows, None] + n_in[:, None] - 1 - k  # the first to pop on top
+            at = rows[:, None].expand_as(pos)[ok]
+            st_t[at, pos[ok]] = v.gather(1, si)[ok]
+            st_n[at, pos[ok]] = ids.gather(1, si)[ok]
+            sp[rows] += n_in
+            boxes[rows] += count
+
+        push(torch.nonzero(tx > tn)[:, 0], torch.zeros(int((tx > tn).sum()), dtype=torch.int64, device=dev),
+             levels[0][1])
+        while True:
+            act = torch.nonzero((sp > 0) & live)[:, 0]
+            if not act.numel():
+                break
+            sp[act] -= 1
+            tnv, node = st_t[act, sp[act]], st_n[act, sp[act]]
+            if not any_hit:
+                keep = tnv <= best[act]
+                act, node = act[keep], node[keep]
+            leaf = node >= leaf0
+            la = act[leaf]
+            if la.numel():
+                g = geom[(node[leaf] - leaf0)[:, None] * CONE_LEAF + in_leaf[None, :]]  # [R', L, 8]
+                o_l, d_l, tn_l = ray(la)
+                entered = slab_tnear(o_l, d_l, tn_l, bound(la), cone_boxes(g)) < inf  # [R', L]
+                a, b, ra, rb = _geom_columns(g)
+                t, _, hit = ray_round_cone(_columns(o_l), _columns(d_l), a, b, ra, rb, tn_l[:, None],
+                                           tx[la, None], any_hit)
+                t = torch.where(hit & entered, t, MISS_T).min(dim=1).values
+                leaves[la] += 1
+                cones[la] += entered.sum(dim=1, dtype=torch.int32)
+                forms[la] += entered.any(dim=1).to(torch.int32)
+                best[la] = torch.minimum(best[la], t)
+                if any_hit:
+                    live[la[t < MISS_T]] = False
+            ia, inode = act[~leaf], node[~leaf]
+            if ia.numel():
+                lvl = torch.searchsorted(starts, inode, right=True) - 1
+                push(ia, starts[lvl + 1] + CONE_WIDE * (inode - starts[lvl]), CONE_WIDE)
+        out.boxes[rs], out.leaves[rs], out.cones[rs], out.forms[rs], out.t[rs] = boxes, leaves, cones, forms, best
+    return out
+
+
+def cones_entered(geom, o, d, tmin, tfar, chunk: int = 64):
+    """Per ray, the live cones whose own box (cone_boxes) its interval
+    [tmin, tfar] enters by the port's box test -> [N] i64. With tfar the
+    final t of a closest sweep this is the least work of any walk over these
+    boxes: the count of the kernels' roofline (benchmark/bounds.py counts
+    the same cones on its own boxes)."""
+    boxes = cone_boxes(geom)
+    live = tfar > tmin
+    out = torch.zeros(tmin.shape[0], dtype=torch.int64, device=tmin.device)
+    for r0 in range(0, tmin.shape[0], chunk):
+        rs = slice(r0, min(tmin.shape[0], r0 + chunk))
+        enters = slab_enters([c[rs] for c in o], [c[rs] for c in d], tmin[rs], tfar[rs], boxes)
+        out[rs] = torch.where(live[rs], enters.sum(dim=1), 0)
+    return out

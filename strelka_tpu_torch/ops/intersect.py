@@ -11,10 +11,8 @@ component-major Vec3 (ops/vec.py); prim ids are in the scene's triangle
 order, which is the BVH's leaf order where there is one. A scene's curves
 are swept apart from its triangles: `intersect_curves_closest` and
 `intersect_curves_any` run the round-cone kernels K7 and K8 (their plain
-dense sweep on CPU tensors) over the scene's packed cones; K7 walks each
-ray's boxes nearest first. From `CONE_ORDER_MIN_NSB` superblocks on, kernel
-K9 first gives each ray tile the superblocks its rays pass, nearest first
-(`cone_sweep_order`): K7's candidates and K8's order.
+dense sweep on CPU tensors) over the scene's packed cones; both walk the
+tree of boxes over the cones, each ray nearest first.
 
 Also hosts offset_ray, the exact port of the Ray Tracing Gems self-
 intersection offset (OptixRender_radiance_closest_hit.cu:218-233).
@@ -29,8 +27,7 @@ import torch
 from strelka_tpu_torch.kernels import bvh as KB
 from strelka_tpu_torch.kernels import cones as KC
 from strelka_tpu_torch.kernels import intersect as KI
-from strelka_tpu_torch.kernels import open_w as KO
-from strelka_tpu_torch.ops.curves import CONE_ORDER_MIN_NSB, CONE_ORDER_TILE, CurveHit, cone_hit
+from strelka_tpu_torch.ops.curves import CurveHit, cone_hit
 from strelka_tpu_torch.ops.vec import Vec3
 
 
@@ -93,23 +90,13 @@ def intersect_any(scene, origins: Vec3, directions: Vec3, tmin, tmax, ray_mask: 
     return KI.intersect_any(o, d, tmin.contiguous(), tmax, ex, *tris, ray_mask, bounds=_tri_bounds(scene))
 
 
-def cone_sweep_order(cones: KC.PackedCones, o, d, tmin, tmax):
-    """The cone sweeps' schedule, as the reference's _cones_dispatch picks
-    one by the number of superblocks: few are all candidates, in ascending
-    order (None); from CONE_ORDER_MIN_NSB on, kernel K9 gives each tile of
-    CONE_ORDER_TILE rays the superblocks its rays pass, nearest first."""
-    if tmin.device.type == "cpu" or cones.sbounds.shape[1] < CONE_ORDER_MIN_NSB:
-        return None  # the plain dense sweep has no order
-    return KO.sweep_order(o, d, tmin, tmax, cones.sbounds, CONE_ORDER_TILE)
-
-
 def intersect_curves_closest(scene, origins: Vec3, directions: Vec3, tmin, tmax, active=None) -> CurveHit:
     """Closest hit against the scene's round cones (kernel K7 on the card)
     -> (t, segment, spline u); u = u0 + (u1 - u0) * y from the winning
     cone's axial position, as the reference's CPU sweep."""
     o, d, tmax = _rays(origins, directions, tmax, active)
     tmin, cones = tmin.contiguous(), scene.packed_cones
-    t, cone, y = KC.cone_closest(o, d, tmin, tmax, cones, order=cone_sweep_order(cones, o, d, tmin, tmax))
+    t, cone, y = KC.cone_closest(o, d, tmin, tmax, cones)
     return cone_hit(scene.cone_attr, t, cone, y)
 
 
@@ -117,4 +104,4 @@ def intersect_curves_any(scene, origins: Vec3, directions: Vec3, tmin, tmax, act
     """Occlusion by the scene's round cones -> [N] bool (kernel K8 on the card)."""
     o, d, tmax = _rays(origins, directions, tmax, active)
     tmin, cones = tmin.contiguous(), scene.packed_cones
-    return KC.cone_any(o, d, tmin, tmax, cones, order=cone_sweep_order(cones, o, d, tmin, tmax))
+    return KC.cone_any(o, d, tmin, tmax, cones)

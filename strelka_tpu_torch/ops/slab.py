@@ -1,9 +1,9 @@
 """The port's one ray-box test: the reference's slab test with a margin.
 
 Every walk that culls by boxes takes it: kernels K2/K3 over the 32-triangle
-group boxes, K5 over the child boxes of its BVH, K7/K8 over the cone
-sub-block and superblock boxes, and K9 over the superblock boxes of a
-tile's rays. The device twin is
+group boxes, K5 over the child boxes of its BVH, K7/K8 over the boxes of
+the cone tree and each swept leaf's cones' own boxes, and K9 over the
+superblock boxes of a tile's rays. The device twin is
 csrc/common.cuh:strelka_slab_safe, with the same operations in the same
 order (built with -fmad=false), so the plain walks and the kernels agree
 bit for bit.

@@ -23,7 +23,12 @@ epilogue read:
                               the one cone table, read by kernels K7/K8 and
                               by their plain version
   cone_attr      [3, M_pad] f32  u0, u1 and the segment of each cone
-  cone_bounds    [8, nb], cone_sbounds [8, nsb]  sub-block / superblock boxes
+  cone_tree      [8, total] f32  the boxes of the tree over the cones in
+                              their order (ops/curves.py:cone_tree), which
+                              K7/K8 walk
+  cone_bounds    [8, nb], cone_sbounds [8, nsb]  the JAX package's TPU
+                              sub-block / superblock boxes (kernel K9's
+                              input; no sweep walks them)
 
 Triangle order is the JAX CPU build's: BVH leaf order above 1024 triangles
 (`use_bvh=None`), the scene's own order below or with `use_bvh=False` (no
@@ -31,7 +36,8 @@ Morton sort, which is a TPU layout). Curves are the exception: the JAX CPU
 build keeps the cones unsorted and sweeps them all, but the port's cone
 kernels cull by box, so it stores the cones Morton-sorted with the packed
 rows and sub-block boxes of the JAX package's TPU build (`pack_cones`; the
-device holds the rows cone-major, each value once).
+device holds the rows cone-major, each value once) and a tree of boxes over
+them in that order (`cone_tree`).
 
   textures       TextureAtlas the u8 sheet, rect rows and meta of the
                               scene's textures (textures.py), or None: a
@@ -122,6 +128,7 @@ class DeviceScene:
     cone_attr: Optional[torch.Tensor] = None  # [3, M_pad] f32 (u0, u1, segment)
     cone_bounds: Optional[torch.Tensor] = None  # [8, nb] f32 sub-block boxes
     cone_sbounds: Optional[torch.Tensor] = None  # [8, nb / CONE_SUPER] f32 superblock boxes
+    cone_tree: Optional[torch.Tensor] = None  # [8, total] f32 the cone tree's boxes (ops/curves.py:cone_tree)
     curve_refine: bool = True  # cone radii are inflated; hits are refined to the exact envelope
     has_hair: bool = False  # any material row is a hair material
     textures: Optional[TextureAtlas] = None  # tensors on the scene's device
@@ -140,7 +147,7 @@ class DeviceScene:
 
     @property
     def packed_cones(self) -> PackedCones:
-        return PackedCones(self.cone_geom, self.cone_bounds, self.cone_sbounds)
+        return PackedCones(self.cone_geom, self.cone_tree)
 
     @property
     def has_curves(self) -> bool:
@@ -333,7 +340,8 @@ def build_device_scene(
     The recorder's set-up span device_scene.build (utils/profiling.py) times
     it, with the children bvh.build, cones.build (the cones from the
     segments) and tables.upload (device_scene_from_arrays: the tables packed,
-    the cones sorted and packed, all copied to the device)."""
+    the cones sorted and packed, their tree's boxes built, all copied to the
+    device)."""
     with P.setup_span("device_scene.build"):
         return _build_device_scene(scene, material_manager, resolve_device(device), use_bvh, curve_subdiv,
                                    curve_refine)
@@ -452,7 +460,8 @@ def device_scene_from_arrays(arrays: dict, device) -> DeviceScene:
     and `cone_bounds` (the JAX package's TPU build) the cones are taken as
     sorted and packed already; without them (its CPU build, and this
     module's) they are Morton-sorted and packed here. Either way the device
-    gets the packed rows cone-major (`cone_geom`, `cone_attr`). `curve_refine`
+    gets the packed rows cone-major (`cone_geom`, `cone_attr`) and the boxes
+    of the tree over them (`cone_tree`). `curve_refine`
     (default True, the reference's) says that the cones' radii are inflated
     and the hits are to be refined. `textures`, if present, is the texture
     atlas: a TextureAtlas, or a dict with its `data`, `rects`, `size` and
@@ -535,13 +544,15 @@ def _curve_fields(arrays: dict, device) -> dict:
     def to(a, dtype):
         return torch.tensor(np.ascontiguousarray(a, dtype), device=device)
 
+    geom = to(C.cone_major_rows(rows), np.float32)
     return dict(
         curves=DeviceCurves(*[to(a, np.float32) for a in curves[:8]], to(curves[8], np.int32)),
         num_cones=int(cones.a.shape[0]),
-        cone_geom=to(C.cone_major_rows(rows), np.float32),
+        cone_geom=geom,
         cone_attr=to(C.cone_attr_rows(rows), np.float32),
         cone_bounds=to(bounds, np.float32),
         cone_sbounds=to(C.cone_super_bounds(bounds), np.float32),
+        cone_tree=C.cone_tree(geom),
         curve_refine=bool(arrays.get("curve_refine", True)),
     )
 

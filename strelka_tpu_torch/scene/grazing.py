@@ -19,11 +19,12 @@ cases from a seed, in numpy (float32 arrays):
   angles to the plane, down to the edge of the margin's domain and past it;
 - `twin_tree(...)`: a BVH over a scene's triangles twice over, one copy a
   half (every hit a tie);
-- `cone_face_case(...)`: round cones whose end spheres touch their boxes'
-  faces, and rays at those faces and at the boxes' corners;
+- `cone_face_case(...)`: round cones whose end spheres touch the faces of
+  their own boxes and their cone tree's leaf and node boxes, and rays at
+  those faces and at the boxes' corners;
 - `cone_grazing_case(...)`: the same cones, or hair-like ones turned at
-  random, and rays that graze a sub-block's or superblock's face at angles
-  whose sine is log-uniform down to 1e-5.
+  random, and rays that graze a cone's own box or a leaf or node box's face
+  at angles whose sine is log-uniform down to 1e-5.
 """
 
 from __future__ import annotations
@@ -178,13 +179,14 @@ def twin_tree(threaded, ntri: int):
             np.concatenate([[0], count, count]).astype(np.int32))
 
 
-def cone_face_case(seed: int, scale: float, shift: float, m: int = 512, n: int = 2000, tblk: int = 16, super_: int = 8):
-    """Cones along the axes (tight sub-block boxes of `tblk` cones, `super_`
-    a superblock, whose faces the end spheres touch) and rays aimed at the
-    boxes' corners and at the spheres' extreme points, which lie on those
-    faces; a third of the rays start in a face's plane and run along it ->
-    (geometry [M_pad, 8], sub-block boxes [8, nb], superblock boxes
-    [8, nsb], o [n, 3], d [n, 3]), f32."""
+def cone_face_case(seed: int, scale: float, shift: float, m: int = 2048, n: int = 2000):
+    """Cones along the axes (their own boxes and the tight leaf and node
+    boxes of the cone tree over them, ops/curves.py:cone_tree, whose faces
+    the end spheres touch) and rays aimed at the boxes' corners and at the
+    spheres' extreme points,
+    which lie on those faces; a third of the rays start in a face's plane and
+    run along it -> (geometry [M_pad, 8], tree boxes [8, total], o [n, 3],
+    d [n, 3]), f32."""
     from strelka_tpu_torch.ops import curves as C
 
     rng = np.random.default_rng(seed)
@@ -192,11 +194,9 @@ def cone_face_case(seed: int, scale: float, shift: float, m: int = 512, n: int =
     b = a.copy()
     b[np.arange(m), rng.integers(0, 3, m)] += (rng.uniform(0.2, 1.0, m) * scale).astype(np.float32)
     ra = (rng.uniform(0.05, 0.4, m) * scale).astype(np.float32)
-    cones = C.FlatCones(a, b, ra, ra.copy(), np.arange(m, dtype=np.int32), np.zeros(m, np.float32),
-                        np.ones(m, np.float32))
-    rows, bounds = C.pack_cones(cones, tblk=tblk, super_=super_)
-    sbounds = C.cone_super_bounds(bounds, super_)
-    faces = [bounds[0:3].T, bounds[3:6].T, sbounds[0:3].T, sbounds[3:6].T]
+    geom, tree = _cone_tree_case(C, a, b, ra, ra.copy())
+    boxes = np.concatenate([_live_boxes(tree)[0:6], _cone_boxes(C, geom)], axis=1)
+    faces = [boxes[0:3].T, boxes[3:6].T]
     for k in range(3):
         e = np.eye(3, dtype=np.float32)[k] * ra[:, None]
         faces += [a - e, a + e, b - e, b + e]
@@ -208,18 +208,36 @@ def cone_face_case(seed: int, scale: float, shift: float, m: int = 512, n: int =
     o[in_plane, k[in_plane]] = t[in_plane, k[in_plane]]
     d = t - o
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
-    return C.cone_major_rows(rows), bounds, sbounds, o, d
+    return geom, tree, o, d
 
 
-def cone_grazing_case(seed: int, scale: float, shift: float, hair: bool, m: int = 512, n: int = 2000,
-                      tblk: int = 16, super_: int = 8, sin_min: float = 1e-5):
-    """Round cones packed in sub-blocks of `tblk` and superblocks of `super_`
-    (hair: thin cones of radius 0.002-0.006 turned at random, else those of
-    cone_face_case), and rays that cross a box face at a random point, an
-    edge or a corner of it, at an angle to the face whose sine is
-    log-uniform in [sin_min, 1], from 2-10 box sizes away -> (geometry
-    [M_pad, 8], sub-block boxes [8, nb], superblock boxes [8, nsb], o [n, 3],
-    d [n, 3]), f32."""
+def _cone_tree_case(C, a, b, ra, rb):
+    """Cones in their given order, packed -> (geometry [M_pad, 8], tree boxes [8, total])."""
+    m = a.shape[0]
+    cones = C.FlatCones(a, b, ra, rb, np.arange(m, dtype=np.int32), np.zeros(m, np.float32), np.ones(m, np.float32))
+    geom = C.cone_major_rows(C.pack_cones(cones, tblk=C.CONE_LEAF, super_=1)[0])
+    return geom, C.cone_tree(geom).numpy()
+
+
+def _live_boxes(tree):
+    """The tree's boxes that hold a live cone (padding boxes are inverted)."""
+    return tree[:, (tree[3:6] >= tree[0:3]).all(axis=0)]
+
+
+def _cone_boxes(C, geom):
+    """Each live cone's own box (ops/curves.py:cone_boxes), [6, live]."""
+    return C.cone_boxes(geom).numpy()[0:6, geom[:, C.GEOM_RA] >= 0.0]
+
+
+def cone_grazing_case(seed: int, scale: float, shift: float, hair: bool, m: int = 2048, n: int = 2000,
+                      sin_min: float = 1e-5):
+    """Round cones under the cone tree (ops/curves.py:cone_tree; hair: thin
+    cones of radius 0.002-0.006 turned at random, else those of
+    cone_face_case), and rays that cross a leaf or node box's face or a
+    cone's own box's face (half each) at a random point, an edge or a
+    corner of it, at an angle to the face whose
+    sine is log-uniform in [sin_min, 1], from 2-10 box sizes away ->
+    (geometry [M_pad, 8], tree boxes [8, total], o [n, 3], d [n, 3]), f32."""
     from strelka_tpu_torch.ops import curves as C
 
     rng = np.random.default_rng(seed)
@@ -237,13 +255,13 @@ def cone_grazing_case(seed: int, scale: float, shift: float, hair: bool, m: int 
         b[np.arange(m), rng.integers(0, 3, m)] += (rng.uniform(0.2, 1.0, m) * scale).astype(np.float32)
         ra = (rng.uniform(0.05, 0.4, m) * scale).astype(np.float32)
         rb = ra.copy()
-    cones = C.FlatCones(a, b, ra, rb, np.arange(m, dtype=np.int32), np.zeros(m, np.float32), np.ones(m, np.float32))
-    rows, bounds = C.pack_cones(cones, tblk=tblk, super_=super_)
-    sbounds = C.cone_super_bounds(bounds, super_)
-    boxes = np.concatenate([bounds, sbounds], axis=1)
-    boxes = boxes[:, (boxes[3:6] >= boxes[0:3]).all(axis=0)]  # padding boxes are inverted
-    pick = rng.integers(0, boxes.shape[1], n)
-    lo, hi = boxes[0:3, pick].T.astype(np.float64), boxes[3:6, pick].T.astype(np.float64)
+    geom, tree = _cone_tree_case(C, a, b, ra, rb)
+    nodes, own = _live_boxes(tree), _cone_boxes(C, geom)
+    # half the rays at a leaf or node box, half at a cone's own box (which a leaf's walk tests)
+    at_node = rng.random(n) < 0.5
+    pick = np.where(at_node, rng.integers(0, nodes.shape[1], n), rng.integers(0, own.shape[1], n))
+    lo = np.where(at_node[:, None], nodes[0:3, pick % nodes.shape[1]].T, own[0:3, pick].T).astype(np.float64)
+    hi = np.where(at_node[:, None], nodes[3:6, pick % nodes.shape[1]].T, own[3:6, pick].T).astype(np.float64)
     k = rng.integers(0, 3, n)  # the face's axis
     side = rng.random(n) < 0.5
     u = rng.random((n, 3))
@@ -261,4 +279,4 @@ def cone_grazing_case(seed: int, scale: float, shift: float, hair: bool, m: int 
     size = np.linalg.norm(hi - lo, axis=1) + 1e-3 * scale
     o = p - d * (size * rng.uniform(2.0, 10.0, n))[:, None]
     d = d / np.linalg.norm(d, axis=1, keepdims=True)
-    return C.cone_major_rows(rows), bounds, sbounds, o.astype(np.float32), d.astype(np.float32)
+    return geom, tree, o.astype(np.float32), d.astype(np.float32)

@@ -171,6 +171,12 @@ def test_scene_cone_tables_bit_equal(hair_scenes):
     np.testing.assert_array_equal(tds.cone_geom.numpy()[:tds.num_cones, 4:7], sorted_cones.b)
     np.testing.assert_array_equal(tds.cone_bounds.numpy(), bounds)
     np.testing.assert_array_equal(tds.cone_sbounds.numpy(), TC.cone_super_bounds(bounds))
+    assert torch.equal(tds.cone_tree, TC.cone_tree(tds.cone_geom.numpy()))
+    leaf0, live = TC.cone_tree_levels(tds.cone_geom.shape[0])[-1][0], tds.num_cones // TC.CONE_LEAF
+    lo = np.minimum(rows[0:3] - rows[6], rows[3:6] - rows[7])[:, :live * TC.CONE_LEAF]  # pack_cones' box arithmetic
+    np.testing.assert_array_equal(tds.cone_tree.numpy()[0:3, leaf0:leaf0 + live],
+                                  lo.reshape(3, live, TC.CONE_LEAF).min(axis=2))
+    assert tds.packed_cones.tree is tds.cone_tree and tds.packed_cones.geom is tds.cone_geom
     assert tds.cone_geom.is_contiguous() and tds.cone_geom.shape == (rows.shape[1], 8)
     assert tds.num_cones == sorted_cones.a.shape[0] and tds.has_curves
     assert tds.curves.material_id.dtype == torch.int32
@@ -201,6 +207,7 @@ def test_device_scene_from_arrays_carries_curves(hair_scenes, packed):
     assert torch.equal(carried.cone_geom, tds.cone_geom) and torch.equal(carried.cone_attr, tds.cone_attr)
     assert torch.equal(carried.cone_bounds, tds.cone_bounds) and carried.num_cones == tds.num_cones
     assert torch.equal(carried.cone_sbounds, tds.cone_sbounds) and carried.has_hair
+    assert torch.equal(carried.cone_tree, tds.cone_tree)
     for field in TDS.CURVE_FIELDS:
         assert torch.equal(getattr(carried.curves, field), getattr(tds.curves, field)), field
 
@@ -208,6 +215,7 @@ def test_device_scene_from_arrays_carries_curves(hair_scenes, packed):
 def test_scene_without_curves_has_no_cone_tables():
     tds = TDS.build_device_scene(TTS.cornell_box(), device="cpu")
     assert tds.curves is None and tds.cone_geom is None and tds.cone_attr is None and tds.num_cones == 0
+    assert tds.cone_tree is None
     assert not tds.has_curves and not tds.has_hair
 
 
@@ -250,8 +258,8 @@ def _attr(rows):
     return torch.tensor(TC.cone_attr_rows(rows))
 
 
-def _packed(rows, bounds, super_=2):
-    return KC.PackedCones(_geom(rows), torch.tensor(bounds), torch.tensor(TC.cone_super_bounds(bounds, super_)))
+def _packed(rows):
+    return KC.PackedCones(_geom(rows), TC.cone_tree(TC.cone_major_rows(rows)))
 
 
 def _torch_rays(o, d):
@@ -374,7 +382,7 @@ def test_dead_lanes_and_padding_never_hit():
 
 def test_wrappers_take_the_plain_sweep_on_cpu_tensors():
     cones, rows, bounds, o, d = _cones_and_rays(seed=15)
-    pc = _packed(rows, bounds)
+    pc = _packed(rows)
     to, td = _torch_rays(o, d)
     n = o.shape[0]
     tmin, tmax = torch.zeros(n), torch.full((n,), 6.0)
@@ -386,13 +394,14 @@ def test_wrappers_take_the_plain_sweep_on_cpu_tensors():
     assert not any(K.launch_counts.values()) and not any(K.plain_cuda_calls.values())
     with pytest.raises(ValueError, match="stats"):
         KC.cone_closest(to, td, tmin, tmax, pc, stats=True)
-    assert pc.shape == (512, 4, 2)
+    assert pc.shape == (512, 16) and pc.levels == ((0, 16),)
 
 
 def test_cull_boxes_hold_every_hit():
     """The slab test of K7/K8 (ops/curves.py:slab_enters) on these rays: the
-    sub-block of every ray's winning cone is among the boxes its final
-    interval enters, and so is its superblock."""
+    leaf of the cone tree that holds every ray's winning cone is among the
+    boxes its final interval enters, and so are the winner's sub-block and
+    superblock (kernel K9's boxes)."""
     cones, rows, bounds, o, d = _cones_and_rays(seed=16)
     to, td = _torch_rays(o, d)
     n = o.shape[0]
@@ -400,6 +409,8 @@ def test_cull_boxes_hold_every_hit():
     geom = _geom(rows)
     t, c, _ = TC.intersect_curves_closest_plain(geom, to, td, tmin, tmax)
     hits = c >= 0
+    leaves = TC.slab_enters(to, td, tmin, torch.minimum(t, tmax), TC.cone_tree(geom))
+    assert leaves[hits, (c[hits] // TC.CONE_LEAF).long()].all() and int(hits.sum()) > 10
     tb = torch.tensor(bounds)
     enters = TC.slab_enters(to, td, tmin, torch.minimum(t, tmax), tb)
     assert enters[hits, (c[hits] // 128).long()].all()
@@ -532,15 +543,25 @@ def test_sweep_order_lists_the_passed_superblocks_nearest_first():
         KO._check(to, td, args[2], args[3], args[4], None, None, tile)
 
 
-def test_scene_dispatch_asks_for_no_order_on_cpu_tensors():
-    """ops/intersect.py:cone_sweep_order: the dense plain sweep has no order,
-    so K9's plain version is not run for it."""
+def test_scene_dispatch_asks_for_no_order_on_cpu_tensors(monkeypatch):
+    """ops/intersect.py: the scene's cone sweeps take no sweep order
+    anywhere (K7/K8 walk the cone tree, so kernel K9 is off their path): on
+    CPU tensors they are the dense plain sweeps, and neither K9 nor its
+    plain version runs."""
     rows, bounds, sbounds, o, d, tmin, bound, _, _ = _open_w_inputs(seed=15)
-    pc = _packed(rows, bounds)
+    pc = _packed(rows)
+    scene = dataclasses.make_dataclass("Scene", ["packed_cones", "cone_attr"])(pc, _attr(rows))
     to, td = _torch_rays(o, d)
+    for name in ("open_w", "open_w_plain", "sweep_order", "sweep_order_plain"):
+        monkeypatch.setattr(KO, name, lambda *a, **k: pytest.fail("kernel K9 is off the cone sweeps' path"))
     K.reset_counts()
-    assert TX.cone_sweep_order(pc, to, td, torch.tensor(tmin), torch.tensor(bound)) is None
-    assert TC.CONE_ORDER_MIN_NSB == 32 and TC.CONE_ORDER_TILE % 32 == 0 and not any(K.launch_counts.values())
+    tmin, bound = torch.tensor(tmin), torch.tensor(bound)
+    hit = TX.intersect_curves_closest(scene, TVec3(*to), TVec3(*td), tmin, bound)
+    occ = TX.intersect_curves_any(scene, TVec3(*to), TVec3(*td), tmin, bound)
+    want = TC.cone_hit(_attr(rows), *TC.intersect_curves_closest_plain(pc.geom, to, td, tmin, bound))
+    assert all(torch.equal(a, b) for a, b in zip(hit, want)) and int((hit.seg >= 0).sum()) > 5
+    assert torch.equal(occ, TC.intersect_curves_any_plain(pc.geom, to, td, tmin, bound))
+    assert not any(K.launch_counts.values()) and not any(K.plain_cuda_calls.values())
 
 
 # ---------------------------------------------------------------------------
