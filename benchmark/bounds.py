@@ -11,7 +11,12 @@ the program's tree and sub-blocks onto the primitives:
   once, and each needed triangle's 40 bytes (v0, e1, e2, mask) once however
   many rays need it, at the card's HBM bandwidth;
 * round cones (K7, the cone closest hit): CONE_FLOPS f32 operations per
-  (ray, needed cone) at the card's f32 rate, or the rays' bytes where more.
+  (ray, needed cone) at the card's f32 rate, or the rays' bytes where more;
+* flat triangles (K2, the closest hit over a flat list): per ray,
+  GROUP_BOX_FLOPS for each box of GROUP consecutive triangles (the kernel's
+  cull unit, csrc/intersect.cu:kGroup) that its final interval meets, and
+  MT_FLOPS for each triangle of those groups whose mask matches, at the
+  card's f32 rate, or the rays' bytes (inputs and hit) where more.
 
 The needed primitives are counted over a seeded sample of the live rays:
 the cone tests scale to all live rays; the union of needed triangles is the
@@ -22,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from refport.kernels.intersect import tri_group_bounds
+
 # NVIDIA H100 SXM data sheet, dense: HBM3 bandwidth and f32 outside the tensor cores (at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
@@ -31,6 +38,9 @@ TRI_BYTES = 40  # v0, e1, e2 (f32 x 3 each), mask (i32)
 CONE_RAY_IN_BYTES = 32  # origin, direction, tmin, tmax
 CONE_HIT_BYTES = 12  # t, cone, y
 CONE_FLOPS = 119  # f32 operations of one round-cone test (chip_smoke.py: csrc/cones.cu:ray_cone's closed form)
+GROUP = 32  # consecutive triangles a group box holds (csrc/intersect.cu:kGroup)
+GROUP_BOX_FLOPS = 24  # f32 operations of one slab test (ops/bvh.py:SLAB_FLOPS)
+MT_FLOPS = 46  # f32 operations of one Möller-Trumbore test (csrc/common.cuh:strelka_ray_tri)
 SAMPLE_RAYS = 2048
 CHUNK = 128  # sampled rays a box pass
 TINY = 1e-30
@@ -113,4 +123,35 @@ def cone_bound_s(calls, seed: int) -> float:
         ops_s = scaled * CONE_FLOPS / PEAK_F32_PER_S
         bytes_s = n * (CONE_RAY_IN_BYTES + CONE_HIT_BYTES) / PEAK_BYTES_PER_S
         total += max(ops_s, bytes_s)
+    return total
+
+
+def group_boxes(v0, e1, e2, keep):
+    """The boxes of each GROUP consecutive triangles over the kept ones
+    ([G, 3] lo, hi; inverted where a group keeps none: the reference's
+    tri_group_bounds) and the triangles each keeps ([G] i64)."""
+    b = torch.from_numpy(tri_group_bounds(*(x.cpu().numpy() for x in (v0, e1, e2, keep)))).to(v0.device)
+    g = b.shape[1]
+    kept = torch.cat([keep, keep.new_zeros(g * GROUP - keep.shape[0])]).reshape(g, GROUP).sum(dim=1)
+    return b[0:3].T, b[3:6].T, kept
+
+
+def flat_bound_s(calls, seed: int) -> float:
+    """Seconds the card needs for the K2 calls of one launch: calls are as
+    triangle_bound_s's. The group boxes a sampled live ray's final interval
+    meets and their mask-matching triangles, scaled to all live rays, at
+    the card's f32 rate; or the rays' bytes where more."""
+    total = 0.0
+    for i, (o, d, tmin, tmax, t_hit, v0, e1, e2, mask, ray_mask) in enumerate(calls):
+        n = tmin.shape[0]
+        lo, hi, kept = group_boxes(v0, e1, e2, (mask & ray_mask) != 0)
+        live = tmax > tmin
+        pick = sample_rays(live, seed + i)
+        tfar = torch.minimum(t_hit, tmax)
+        ops = 0
+        for need in _needed(o[pick], d[pick], tmin[pick], tfar[pick], lo, hi, kept > 0):
+            ops += int(need.sum()) * GROUP_BOX_FLOPS + int((need.to(torch.int64) * kept).sum()) * MT_FLOPS
+        scaled = ops * int(live.sum()) / max(int(pick.numel()), 1)
+        bytes_s = n * (RAY_IN_BYTES + HIT_BYTES) / PEAK_BYTES_PER_S
+        total += max(scaled / PEAK_F32_PER_S, bytes_s)
     return total

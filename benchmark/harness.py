@@ -224,6 +224,7 @@ class ProgramRun:
         settings = make_default_settings(cell.traffic["width"], cell.traffic["height"])
         for key, value in self.settings_dict.items():
             settings.set(key, tuple(value) if isinstance(value, list) else value)
+        t = time.perf_counter()
         self.render = RenderFactory.create_render(device=self.device)
         self.render.set_scene(self.host)
         self.ctx = SharedContext(settings)
@@ -231,6 +232,7 @@ class ProgramRun:
         self.render.init()
         self.buf = self.render.create_buffer(BufferDesc(cell.traffic["width"], cell.traffic["height"],
                                                         BufferFormat.FLOAT4))
+        self.spans["init_s"] = time.perf_counter() - t  # the renderer's creation to its output buffer
         self.spp = int(self.settings_dict["render/pt/spp"])
         self.spp_total = int(self.settings_dict["render/pt/sppTotal"])
         self.schedule = Schedule(cell.traffic, self.spp_total, self.spp)
@@ -344,6 +346,7 @@ class ProgramRun:
 
         from strelka_tpu_torch.kernels import bvh as KB
         from strelka_tpu_torch.kernels import cones as KC
+        from strelka_tpu_torch.kernels import intersect as KI
         from strelka_tpu_torch.ops import integrator as I
 
         import bounds
@@ -381,8 +384,9 @@ class ProgramRun:
         replayed = tracing.reduce_events(prof.events(), n)
 
         # one eager launch: the graph dropped, the key's next launch runs eagerly
-        k5_calls, k7_calls = [], []
+        k2_calls, k5_calls, k7_calls = [], [], []
         shade, bvh_closest, cone_closest = I.shade_textures, KB.bvh_closest, KC.cone_closest
+        flat_closest = KI.intersect_closest
 
         def traced_shade(*a, **k):
             with record_function(TEXTURE_RANGE):
@@ -400,7 +404,14 @@ class ProgramRun:
                              out[0].clone(), cones.geom))
             return out
 
+        def rec_flat(o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask, *a, **k):
+            out = flat_closest(o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask, *a, **k)
+            k2_calls.append((torch.stack(o, 1).clone(), torch.stack(d, 1).clone(), tmin.clone(), tmax.clone(),
+                             out[0].clone(), v0, e1, e2, mask, int(ray_mask)))
+            return out
+
         I.shade_textures, KB.bvh_closest, KC.cone_closest = traced_shade, rec_bvh, rec_cone
+        KI.intersect_closest = rec_flat
         try:
             self.render._drop_graphs()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -408,6 +419,7 @@ class ProgramRun:
                 self.sync()
         finally:
             I.shade_textures, KB.bvh_closest, KC.cone_closest = shade, bvh_closest, cone_closest
+            KI.intersect_closest = flat_closest
         eager = tracing.reduce_events(prof.events(), 1, (TEXTURE_RANGE,))
         return {
             "frame_device_ms": float(np.mean(frame_ms)),
@@ -418,6 +430,7 @@ class ProgramRun:
             "has_textures": self.render._device_scene.textures is not None,
             "k5_bound_s": bounds.triangle_bound_s(k5_calls, self.seed) if k5_calls else None,
             "k7_bound_s": bounds.cone_bound_s(k7_calls, self.seed) if k7_calls else None,
+            "k2_bound_s": bounds.flat_bound_s(k2_calls, self.seed) if k2_calls else None,
         }
 
     def output(self) -> dict:
@@ -576,7 +589,7 @@ def main(argv, t_start: float) -> int:
     result = run["result"]
     print(f"benchmark: {cell.name} seed {args.seed}: {result['attempted']} frames, "
           f"{run['samples_per_pixel']} samples a pixel, {run['record']['window']['msamples_per_s']!r} Msamples/s, "
-          f"reference {run['reference_s']:.2f} s", file=sys.stderr)
+          f"set-up {run['record']['setup_s']!r} s, reference {run['reference_s']:.2f} s", file=sys.stderr)
     traced = run["record"]["trace"]
     if traced is not None:
         print(f"benchmark: traced frames: {traced['frame_device_ms']!r} device ms a frame, busy "

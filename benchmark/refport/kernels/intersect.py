@@ -17,7 +17,11 @@ boxes of `tri_group_bounds` ([8, G], `DeviceScene.tri_bounds` of a flat
 scene). The kernels test the triangles of the groups a ray's interval
 enters by the port's box test with its margin (`ops/slab.py:slab_tnear`),
 so that no hit the dense sweep finds is culled (`cull=False`: every group,
-the sweep the culled one is held against).
+the sweep the culled one is held against). The reference sweeps with
+`culled_plain`: the dense sweep's Möller–Trumbore on the triangles of the
+groups whose box, padded eight times more than the port pads it, the ray's
+whole interval enters, merged to the dense sweep's answer (of equal t the
+lowest prim). Its domain is at CULL_PAD.
 """
 
 from __future__ import annotations
@@ -154,11 +158,87 @@ def any_plain(o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask: int):
     return occ
 
 
+# The reference's cull: the port's box test (ops/slab.py) with 8x its pad and
+# slack, against each ray's whole interval [tmin, tmax]. The port's margin is
+# derived for hits at a normalised determinant of NU_MIN (0.077) or more. The
+# hit point's rounding error grows about as 1 / the determinant, so to first
+# order 8x covers about 0.0096 or more. That is an estimate; below it the
+# cull is held by measurement alone:
+# test_bench_reference.py's grazing rays (aimed at triangle edges and vertices
+# nearly in their plane, hits below 1e-6) find no hit of the dense sweep
+# lost, where the port's own pad loses some
+CULL_PAD = 2.0 ** -10
+CULL_SLACK = 2.0 ** -17
+RAY_CHUNK = 1024  # rays whose group boxes are tested together
+PAIR_CHUNK = 65536  # (ray, group) pairs whose triangles are tested together
+
+
+def culled_plain(o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask: int, bounds, any_hit: bool = False):
+    """The dense sweep's answer, testing only the triangles of the groups
+    whose padded box (bounds: tri_group_bounds) the ray's interval enters
+    -> (t, prim, u, v), each [N], or with any_hit occluded [N] bool. The
+    same Möller–Trumbore on each (ray, triangle) as closest_plain; of equal
+    t the lowest prim wins, as in the dense sweep."""
+    n, ntri, dev = tmin.shape[0], v0.shape[0], tmin.device
+    ng = bounds.shape[1]
+    pad = ng * GROUP - ntri
+    tris = [torch.cat([a, a.new_zeros((pad, 3))]).view(ng, GROUP, 3) for a in (v0, e1, e2)]
+    gmask = torch.cat([mask, mask.new_zeros(pad)]).view(ng, GROUP)
+    lane = torch.arange(GROUP, device=dev)
+    best_t = torch.full((n,), MISS_T, dtype=torch.float32, device=dev)
+    best_p = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    best_u = torch.zeros(n, dtype=torch.float32, device=dev)
+    best_v = torch.zeros(n, dtype=torch.float32, device=dev)
+    occluded = torch.zeros(n, dtype=torch.int32, device=dev)
+    big = torch.iinfo(torch.int64).max
+    for r0 in range(0, n, RAY_CHUNK):
+        r1 = min(n, r0 + RAY_CHUNK)
+        oc, dc = [c[r0:r1] for c in o], [c[r0:r1] for c in d]
+        tn, tx = tmin[r0:r1], tmax[r0:r1]
+        enters = slab_tnear(oc, dc, tn, tx, bounds, CULL_PAD, CULL_SLACK) < float("inf")
+        rays, groups = torch.nonzero(enters & (tx > tn)[:, None], as_tuple=True)
+        for p0 in range(0, rays.numel(), PAIR_CHUNK):
+            r, g = rays[p0:p0 + PAIR_CHUNK], groups[p0:p0 + PAIR_CHUNK]
+            t, u, v, hit = mt_block([c[r] for c in oc], [c[r] for c in dc], *(a[g] for a in tris), tn[r], tx[r])
+            ids = g[:, None] * GROUP + lane
+            hit = hit & ((gmask[g] & ray_mask) != 0)
+            if exclude is not None:
+                hit = hit & (ids != exclude[r0 + r][:, None])
+            ray = r + r0
+            if any_hit:
+                occluded.index_add_(0, ray, hit.any(dim=1).to(torch.int32))
+                continue
+            t = torch.where(hit, t, MISS_T)
+            arg = torch.argmin(t, dim=1)  # first (lowest id) of equal minima
+            rows = torch.arange(r.numel(), device=dev)
+            t_p, u_p, v_p, p_p = t[rows, arg], u[rows, arg], v[rows, arg], ids[rows, arg]
+            # the least (t, prim) of each ray's pairs, merged with what earlier chunks found
+            t_min = best_t.clone().scatter_reduce_(0, ray, t_p, "amin")
+            at_min = (t_p == t_min[ray]) & (t_p < MISS_T)
+            p_min = torch.full((n,), big, dtype=torch.int64, device=dev).scatter_reduce_(
+                0, ray[at_min], p_p[at_min], "amin")
+            keep_old = (best_t == t_min) & (best_p >= 0) & (best_p < p_min)
+            won = at_min & (p_p == p_min[ray]) & ~keep_old[ray]
+            best_u = best_u.scatter(0, ray[won], u_p[won])
+            best_v = best_v.scatter(0, ray[won], v_p[won])
+            best_p = torch.where(keep_old | (p_min == big), best_p, p_min)
+            best_t = t_min
+    if any_hit:
+        return occluded > 0
+    return best_t, best_p.to(torch.int32), best_u, best_v
+
+
 def intersect_closest(o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask: int, bounds=None):
-    """K2's function: the plain dense sweep on any device -> (t, prim, u, v)."""
-    return closest_plain(o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask)
+    """K2's function on any device -> (t, prim, u, v): the culled sweep with
+    the group boxes, else the plain dense sweep."""
+    if bounds is None:
+        return closest_plain(o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask)
+    return culled_plain(o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask, bounds)
 
 
 def intersect_any(o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask: int, bounds=None):
-    """K3's function: the plain dense sweep on any device -> [N] bool."""
-    return any_plain(o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask)
+    """K3's function on any device -> [N] bool: the culled sweep with the
+    group boxes, else the plain dense sweep."""
+    if bounds is None:
+        return any_plain(o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask)
+    return culled_plain(o, d, tmin, tmax, exclude, v0, e1, e2, mask, ray_mask, bounds, any_hit=True)

@@ -1,10 +1,13 @@
 """Ray-scene intersection + the exact ray-origin offset, for the reference.
 
 Frozen from the port's ops/intersect.py with its dispatch replaced: every
-sweep is the plain dense one over all of the scene's triangles or cones
-(kernels/intersect.py:closest_plain, any_plain; kernels/cones.py), on any
-device. The reference's scenes are flat (render/device_scene.py builds
-no BVH), so its prim ids are in the scene's own triangle order. Also hosts offset_ray, the exact
+sweep gives the plain dense one's answer over all of the scene's triangles
+or cones, on any device: the triangles of the 32-triangle groups whose box
+(padded) a ray's interval enters (kernels/intersect.py:culled_plain, held
+equal to closest_plain and any_plain ray for ray), the cones of the
+sub-blocks it enters (kernels/cones.py). The reference's scenes are flat
+(render/device_scene.py builds no BVH), so its prim ids are in the scene's
+own triangle order. Also hosts offset_ray, the exact
 port of the Ray Tracing Gems self-intersection offset
 (OptixRender_radiance_closest_hit.cu:218-233).
 """
@@ -50,23 +53,23 @@ def _rays(origins: Vec3, directions: Vec3, tmax, active):
 
 def intersect_closest(scene, origins: Vec3, directions: Vec3, tmin, tmax, ray_mask: int,
                       active=None, exclude=None) -> Hit:
-    """Closest hit against every triangle of the scene (the plain dense sweep).
+    """Closest hit against every triangle of the scene (the dense sweep's answer).
 
     exclude: [N] int32 primitive each ray originated from (-1 = none); it is
     rejected by id (self-intersection guard on top of offset_ray)."""
     o, d, tmax = _rays(origins, directions, tmax, active)
     ex = exclude.contiguous() if exclude is not None else None
     return Hit(*KI.intersect_closest(o, d, tmin.contiguous(), tmax, ex, scene.v0, scene.e1, scene.e2,
-                                     scene.geom_mask, ray_mask))
+                                     scene.geom_mask, ray_mask, bounds=scene.tri_bounds))
 
 
 def intersect_any(scene, origins: Vec3, directions: Vec3, tmin, tmax, ray_mask: int,
                   active=None, exclude=None) -> torch.Tensor:
-    """Occlusion by any triangle of the scene -> [N] bool (the plain dense sweep)."""
+    """Occlusion by any triangle of the scene -> [N] bool (the dense sweep's answer)."""
     o, d, tmax = _rays(origins, directions, tmax, active)
     ex = exclude.contiguous() if exclude is not None else None
     return KI.intersect_any(o, d, tmin.contiguous(), tmax, ex, scene.v0, scene.e1, scene.e2, scene.geom_mask,
-                            ray_mask)
+                            ray_mask, bounds=scene.tri_bounds)
 
 
 def intersect_curves_closest(scene, origins: Vec3, directions: Vec3, tmin, tmax, active=None) -> CurveHit:

@@ -11,19 +11,9 @@ arrays: it takes the side's modules, so the same lines build both.
 import numpy as np
 
 import inputs
+import shapes
 
 SEED_SALT_STRANDS = 0x5EED0001
-
-
-def _quad(p0, p1, p2, p3):
-    """Two triangles for corners given CCW (normal = right-hand rule)."""
-    pos = np.array([p0, p1, p2, p3], np.float32)
-    idx = np.array([0, 1, 2, 0, 2, 3], np.uint32)
-    n = np.cross(pos[1] - pos[0], pos[2] - pos[0])
-    n = n / np.linalg.norm(n)
-    normals = np.tile(n[None, :], (4, 1)).astype(np.float32)
-    uvs = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
-    return pos, idx, normals, uvs
 
 
 def hair_patch_arrays(n_curves: int, ctrl_per_curve: int, rng: np.random.Generator) -> dict:
@@ -60,14 +50,12 @@ def populate(side, arrays: dict):
     """A Scene of `side` holding hair_patch's ground, strands, light and camera around `arrays`."""
     sm = side.scene
     scene = sm.Scene()
-    ground = scene.add_material(sm.MaterialDescription(
-        type="mdl", file="default.mdl", name="ground", has_color=True,
-        color=np.asarray([0.4, 0.38, 0.35], np.float32)))
+    ground = scene.add_material(shapes.diffuse(side, "ground", [0.4, 0.38, 0.35]))
     hair = sm.MaterialDescription(type="mdl", file="OmniHair.mdl", name="OmniHair")
     hair.params = {"reflection_roughness_constant": 0.3}
     hair_id = scene.add_material(hair)
     e = 2.0
-    pos, idx, nrm, uv = _quad([-e, 0, e], [e, 0, e], [e, 0, -e], [-e, 0, -e])
+    pos, idx, nrm, uv = shapes.quad([-e, 0, e], [e, 0, e], [e, 0, -e], [-e, 0, -e])
     mesh = scene.create_mesh(pos, idx, normals=nrm, uvs=uv)
     scene.create_instance(sm.InstanceType.eMesh, mesh, ground, side.math3d.identity4())
     cid = scene.create_curve(sm.CurveType.eCubic, arrays["counts"], arrays["points"], arrays["widths"])

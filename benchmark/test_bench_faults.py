@@ -20,7 +20,9 @@ import torch
 import harness
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SIZE = {"kitchen-converge": (16, 12), "kitchen-viewport": (32, 24)}
+SIZE = {"kitchen-converge": (16, 12), "kitchen-viewport": (32, 24), "cornell-converge": (16, 12),
+        "box_field-converge": (16, 12)}
+ADDED = ["cornell-converge", "box_field-converge"]  # cells whose faults are checked cell by cell
 
 
 @pytest.fixture(params=["cpu", pytest.param("cuda", marks=pytest.mark.card)], ids=["cpu", "card"])
@@ -38,6 +40,8 @@ def _cell(name, device):
         w, h = SIZE[name]
         cell.traffic = dict(cell.traffic, width=w, height=h)
         cell.limits = dict(cell.limits, pixels=24)
+        if cell.traffic["map_each_frame"]:  # a drag of 2 frames: the CPU's few frames reach the still ones
+            cell.traffic["cycle"] = [dict(cell.traffic["cycle"][0], frames=2)] + cell.traffic["cycle"][1:]
     return cell
 
 
@@ -126,3 +130,31 @@ def test_viewport_answer_altered_is_caught(device, monkeypatch):
 def test_control_is_not_correct(device):
     result = _run(_cell("kitchen-converge", device), device, control=True)
     assert not result["correct"], result["compared"]
+
+
+SETUP_PARTS = ("start_s", "scene_load_s", "init_s", "first_launch_s", "capture_s")  # setup_s less one replay
+
+
+@pytest.mark.parametrize("name", ADDED)
+def test_sound_run_of_an_added_cell_is_correct(name, device):
+    cell = _cell(name, device)
+    if device == "cpu":
+        torch.set_num_threads(2)
+    run = harness.run_cell(cell, 2 ** 31 + 77, 3.0 if device == "cpu" else 2.0, False, device)
+    result = run["result"]
+    assert result["correct"], result["compared"]
+    assert result["compared"]["samples_off"]["value"] == 0.0
+    # the set-up readers tile setup_s up to its one replay
+    parts = [harness.load_reader(cell.metrics_dir, part)(run["record"]) for part in SETUP_PARTS]
+    assert all(p > 0 for p in parts) and sum(parts) < run["record"]["setup_s"], parts
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS) + ["control"])
+@pytest.mark.parametrize("name", ADDED)
+def test_each_fault_and_the_control_fail_an_added_cell(name, fault, device, monkeypatch):
+    from strelka_tpu_torch.ops import integrator as I
+
+    if fault != "control":
+        FAULTS[fault](I, monkeypatch)
+    result = _run(_cell(name, device), device, control=fault == "control")
+    assert not result["correct"], (name, fault, result["compared"])

@@ -102,6 +102,16 @@ def test_viewport_schedule_never_fills_a_frame():
     assert max(runs) == 49
 
 
+def test_converge_on_a_64_spp_scene_steps_on_at_each_complete_image():
+    """cornell-converge traces 1024x768 at 1 spp a launch and, its scene's 64
+    samples a pixel reached, moves the camera one route step and starts again."""
+    cell = harness.Cell(_bench(), "cornell-converge")
+    assert cell.traced_size() == (1024, 768) and cell.spp_total() == 64
+    assert cell.render_settings()["render/pt/enableUpscale"] is False and not cell.traffic["map_each_frame"]
+    steps = [harness.Schedule(cell.traffic, cell.spp_total(), 1).step(f) for f in range(200)]
+    assert steps == [f // 64 for f in range(200)]
+
+
 @pytest.mark.parametrize("cycle", [[], [{"frames": 4, "advance": "none"}], [{"frames": 0, "advance": "every"}],
                                    [{"frames": 4, "advance": "sometimes"}]])
 def test_schedule_refuses_a_cycle_that_cannot_run(cycle):
@@ -191,6 +201,28 @@ def test_cone_bound_hand_worked():
     ops = (1 + 2) * bounds.CONE_FLOPS / bounds.PEAK_F32_PER_S
     assert got == pytest.approx(max(ops, 2 * (bounds.CONE_RAY_IN_BYTES + bounds.CONE_HIT_BYTES)
                                     / bounds.PEAK_BYTES_PER_S))
+
+
+def test_flat_bound_hand_worked():
+    # 33 triangles in the plane x = 1 (ids 0-31, group 0) and one at x = 3 (id 32, group 1,
+    # padded with 31 empty rows); triangle 1's mask does not match the rays'
+    v0 = torch.tensor([[1.0, -1.0, -1.0]] * 32 + [[3.0, -1.0, -1.0]])
+    e1 = torch.tensor([[0.0, 2.0, 0.0]] * 33)
+    e2 = torch.tensor([[0.0, 0.0, 2.0]] * 33)
+    mask = torch.ones(33, dtype=torch.int32)
+    mask[1] = 2
+    o = torch.tensor([[0.0, -0.5, -0.5], [0.0, -0.5, -0.5], [0.0, 5.0, 0.0], [2.0, 0.0, 0.0]])
+    d = torch.tensor([[1.0, 0.0, 0.0], [1.0, 0.0, 0.0], [1.0, 0.0, 0.0], [1.0, 0.0, 0.0]])
+    tmin = torch.zeros(4)
+    tmax = torch.tensor([1e16, 0.0, 1e16, 1e16])  # the second ray is dead
+    t_hit = torch.tensor([1.0, 1e16, 1e16, 1.0])  # ray 3 starts between the planes and hits x = 3
+    lo, hi, kept = bounds.group_boxes(v0, e1, e2, (mask & 1) != 0)
+    assert kept.tolist() == [31, 1] and lo[1].tolist() == [3.0, -1.0, -1.0] and hi[1].tolist() == [3.0, 1.0, 1.0]
+    got = bounds.flat_bound_s([(o, d, tmin, tmax, t_hit, v0, e1, e2, mask, 1)], seed=0)
+    # live rays 0, 2, 3: ray 0 meets group 0 (31 matching), ray 3 group 1 (1), ray 2 none
+    ops = (2 * bounds.GROUP_BOX_FLOPS + 32 * bounds.MT_FLOPS) / bounds.PEAK_F32_PER_S
+    rays = 4 * (bounds.RAY_IN_BYTES + bounds.HIT_BYTES) / bounds.PEAK_BYTES_PER_S
+    assert got == pytest.approx(max(ops, rays))
 
 
 def test_busy_and_gaps():

@@ -7,6 +7,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 import harness
 
 BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -15,7 +17,7 @@ ROOT = os.path.dirname(BENCH_DIR)
 LOAD_ALL = f"""
 import glob, importlib.util, os, pkgutil, sys
 sys.path[:0] = [{BENCH_DIR!r}, {ROOT!r}]
-import harness, reference, inputs, bounds, tracing, refport
+import harness, reference, inputs, bounds, tracing, shapes, refport
 for m in pkgutil.walk_packages(refport.__path__, "refport."):
     importlib.import_module(m.name)
 for path in glob.glob(os.path.join({BENCH_DIR!r}, "metrics", "*.py")) + glob.glob(os.path.join({BENCH_DIR!r}, "scenes", "*.py")):
@@ -64,3 +66,13 @@ def test_reference_sources_import_no_program():
     for path in sources:
         with open(path) as fh:
             assert not pattern.search(fh.read()), path
+
+
+@pytest.mark.parametrize("kind,spec", [("cornell", {}), ("box_field", {"grid": 6, "field_seed": 7})])
+def test_an_added_builder_gives_the_reference_no_program(kind, spec):
+    """The reference side of a frozen builder loads neither the program nor jax; the program side no jax."""
+    scene = {"scene": dict(spec, kind=kind)}
+    names = _top_level_names(f"inputs.load_scene('reference', {ROOT!r}, {scene!r}, 3)")
+    assert not names & {"jax", "jaxlib", "flax", "strelka_tpu", "strelka_tpu_torch"}, names
+    names = _top_level_names(f"inputs.load_scene('program', {ROOT!r}, {scene!r}, 3)")
+    assert "strelka_tpu_torch" in names and not names & {"jax", "jaxlib", "flax", "strelka_tpu"}, names

@@ -1,6 +1,7 @@
 """The reference's frozen inputs agree with what the program is handed, on the
-CPU at a small size: its Sobol draws, the hair strands, and its reading of
-the kitchen stage, down to the device tables each side builds from it."""
+CPU at a small size: its Sobol draws, the hair strands, its reading of the
+kitchen stage, and the frozen builders of the Cornell box and the box field,
+down to the device tables each side builds from them."""
 
 import os
 
@@ -87,3 +88,48 @@ def test_hair_scene_built_alike(seed):
     _, b = _tables("reference", config, seed)
     _assert_same_tables(a, b)
     assert a.num_cones == b.num_cones > 0
+
+
+def _config(name: str) -> dict:
+    import json
+
+    with open(os.path.join(ROOT, "benchmark", "configs", name + ".json")) as f:
+        return json.load(f)
+
+
+def _generated(name: str):
+    """The program's own generator of a configuration's scene, with the configuration's arguments."""
+    from strelka_tpu_torch.scene import testscenes as TS
+
+    if name == "cornell":
+        return TS.cornell_box(light_intensity=5000.0, metal_box=True, glass_sphere=True)
+    spec = _config(name)["scene"]
+    return TS.box_field(grid=spec["grid"], seed=spec["field_seed"])
+
+
+@pytest.mark.parametrize("name", ["cornell", "box_field"])
+def test_frozen_builder_is_the_generator(name):
+    """The frozen builder gives the program the triangles, materials, lights and
+    camera of the generator (cornell_box(5000, metal box, glass sphere),
+    box_field(48, 7)), bit for bit, whatever the run's seed."""
+    from strelka_tpu_torch.materials import MaterialManager
+    from strelka_tpu_torch.render.device_scene import build_device_scene
+
+    config = _config(name)
+    want_host = _generated(name)
+    want = build_device_scene(want_host, MaterialManager(), device=torch.device("cpu"), use_bvh=False)
+    for seed in (0, 2 ** 31 + 13):
+        host, got = _tables("program", config, seed)
+        _assert_same_tables(got, want)
+        assert [m.name for m in host.materials] == [m.name for m in want_host.materials]
+        np.testing.assert_array_equal(host.get_camera(0).matrices.view, want_host.get_camera(0).matrices.view)
+        assert host.get_camera(0).fov == want_host.get_camera(0).fov
+    assert got.num_triangles == config["sizes"]["triangles"] and got.num_lights == config["sizes"]["lights"]
+
+
+@pytest.mark.parametrize("name", ["cornell", "box_field"])
+def test_added_scene_built_alike(name):
+    """Both sides build the same device tables from the frozen builder."""
+    _, a = _tables("program", _config(name), 4)
+    _, b = _tables("reference", _config(name), 4)
+    _assert_same_tables(a, b)
