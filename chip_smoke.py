@@ -1745,8 +1745,8 @@ def check_cones(scene, rays, name, subset=None):
     cap_tests_differ = int(((c_p >= 0) != occ_p).sum())  # the any-hit sweep's cap test against the closest's
     # the walks, counted in plain PyTorch on the same lanes
     off_count = 0
-    for st, walk, done in ((st7, C.cone_tree_walk(pc.geom, pc.tree, *sub_args[:4]), t),
-                           (st8, C.cone_tree_walk(pc.geom, pc.tree, *sub_args[:4], any_hit=True), occ)):
+    for st, walk, done in ((st7, C.cone_tree_walk(pc.geom, pc.tree, *sub_args[:4], reach=pc.reach), t),
+                           (st8, C.cone_tree_walk(pc.geom, pc.tree, *sub_args[:4], any_hit=True, reach=pc.reach), occ)):
         counts = torch.stack([walk.boxes, walk.leaves, walk.cones])
         off_count += int((st.per_ray[:, lanes] != counts).any(dim=0).sum())
         off_count += int(((done[lanes] != (walk.t < C.MISS_T)) if done.dtype == torch.bool
@@ -1820,7 +1820,7 @@ def cone_rows(scene, b1, sh, where: str):
             need = C.any_hit_need(pc.geom, scene.cone_bounds, o, d, tmin, tmax)
             own_per_ray, cones_needed = None, int(need[1].sum())
         blocks_needed, block_cones, touched = int(need[0].sum()), int(need[1].sum()), int(need[2].sum())
-        blocks_per_sm, threads = KC.occupancy(kernel == "cone_any", tmin.device)
+        blocks_per_sm, threads = KC.occupancy(kernel == "cone_any", pc.reach > 0.0, tmin.device)
         log(f"{kernel} on the {which} rays ({live} live of {n}): tests {boxes / live:.1f} boxes, sweeps "
             f"{leaves / live:.2f} leaves and tests {tested / live:.1f} cones a live ray (the kernel's counters); "
             + (f"the cones whose own box the final interval enters {own_per_ray:.2f} a live ray (the roofline's "

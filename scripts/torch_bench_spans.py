@@ -30,9 +30,15 @@ span metrics the benchmark's program-side readers would take from it
 (sweep_span_ms: bounce.closest + bounce.shadow; shade_span_ms:
 bounce.surface + bounce.bsdf + bounce.nee - bounce.shadow + bounce.next;
 order_span_ms: bounce.order + launch.unorder; texture_span_ms:
-bounce.texture; sweep_lane_use; device_scene_s; prepare_host_ms), the
-top-level spans' sum beside the same frames' event time, the harness's
-outside metrics, and the card's name and power limit.
+bounce.texture; sweep_lane_use; device_scene_s; prepare_host_ms; on a
+scene with curves the two sweeps of bounce.closest and bounce.shadow,
+closest_triangles_ms, closest_curves_ms, shadow_triangles_ms and
+shadow_curves_ms; curve_hit_share, each bounce's closest hits on a curve
+in % of its hits; curves_load_s, the sum of the usd.curves set-up spans;
+scene_counts, the one-shot counters scene.triangles, scene.curve_segments,
+scene.cones and cones.tree_levels), the top-level spans' sum beside the
+same frames' event time, the harness's outside metrics, and the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -58,6 +64,10 @@ def card() -> str:
         return "unknown"
 
 
+CHILD_SWEEPS = ("closest.triangles", "closest.curves", "shadow.triangles", "shadow.curves")  # scenes with curves
+SCENE_COUNTS = ("scene.triangles", "scene.curve_segments", "scene.cones", "cones.tree_levels")
+
+
 def span_metrics(export: dict) -> dict:
     """The per-frame span metrics of an export (None where a span is absent)."""
     dev, host = export["device_ms"], export["host_ms"]
@@ -68,7 +78,12 @@ def span_metrics(export: dict) -> dict:
 
     shade = total("bounce.surface", "bounce.bsdf", "bounce.nee", "bounce.next")
     setup = [s for s in export["setup"] if s["name"] == "device_scene.build"]
+    curves = [s for s in export["setup"] if s["name"] == "usd.curves"]
+    lanes = export["lanes"]
+    hits = [c + t for c, t in zip(lanes.get("curve_hits", []), lanes.get("triangle_hits", []))]
     return {
+        **{name.replace(".", "_") + "_ms": dev.get(name) for name in CHILD_SWEEPS},
+        "curve_hit_share": [100.0 * c / h if h else None for c, h in zip(lanes.get("curve_hits", []), hits)],
         "sweep_span_ms": total("bounce.closest", "bounce.shadow"),
         "shade_span_ms": None if shade is None else shade - dev.get("bounce.shadow", 0.0),
         "order_span_ms": total("bounce.order", "launch.unorder"),
@@ -76,6 +91,8 @@ def span_metrics(export: dict) -> dict:
         "sweep_lane_use": export["sweep_lane_use"],
         "device_scene_s": (setup[-1]["end_ns"] - setup[-1]["start_ns"]) / 1e9 if setup else None,
         "prepare_host_ms": host.get("render.prepare"),
+        "curves_load_s": sum(s["end_ns"] - s["start_ns"] for s in curves) / 1e9 if curves else None,
+        "scene_counts": {name: export["counters"].get(name, {}).get("") for name in SCENE_COUNTS},
     }
 
 

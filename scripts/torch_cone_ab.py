@@ -67,7 +67,7 @@ for cfg in (S.HAIR, S.HAIR_LONG):
             st = fn(*args, stats=True)[-1]
             live = tmax > tmin
             row.update({k: float(v[live].float().mean()) for k, v in zip(("boxes", "leaves", "cones"), st.per_ray)})
-            row["blocks_per_sm"] = KC.occupancy(kernel == "cone_any", dev)[0]
+            row["blocks_per_sm"] = KC.occupancy(kernel == "cone_any", pc.reach > 0.0, dev)[0]
             if kernel == "cone_closest":
                 pick = torch.nonzero(live)[:, 0]
                 pick = pick[torch.randperm(pick.numel(), generator=torch.Generator().manual_seed(7))[:2048].to(dev)]

@@ -101,10 +101,10 @@ __device__ __forceinline__ float strelka_box_scale(float lx, float ly, float lz,
     return fmaxf(fmaxf(fmaxf(fabsf(lx), fabsf(ly)), fmaxf(fabsf(lz), fabsf(hx))), fmaxf(fabsf(hy), fabsf(hz)));
 }
 
-__device__ __forceinline__ float strelka_slab_safe(float lx, float ly, float lz, float hx, float hy, float hz,
-                                                   float bm, float o0, float o1, float o2, float inv0, float inv1,
-                                                   float inv2, float om, float tn, float tfar) {
-    const float p = (om + bm) * kStrelkaPad;
+// The same test with the pad p given (kernels/cones: the closed form's reach).
+__device__ __forceinline__ float strelka_slab_padded(float lx, float ly, float lz, float hx, float hy, float hz,
+                                                     float p, float o0, float o1, float o2, float inv0, float inv1,
+                                                     float inv2, float tn, float tfar) {
     const float x0 = ((lx - p) - o0) * inv0, x1 = ((hx + p) - o0) * inv0;
     const float y0 = ((ly - p) - o1) * inv1, y1 = ((hy + p) - o1) * inv1;
     const float z0 = ((lz - p) - o2) * inv2, z1 = ((hz + p) - o2) * inv2;
@@ -112,5 +112,12 @@ __device__ __forceinline__ float strelka_slab_safe(float lx, float ly, float lz,
     tfar = fminf(fminf(fminf(tfar, fmaxf(x0, x1)), fmaxf(y0, y1)), fmaxf(z0, z1));
     tnear = tnear - fabsf(tnear) * kStrelkaSlack;
     return tnear <= tfar ? tnear : INFINITY;
+}
+
+__device__ __forceinline__ float strelka_slab_safe(float lx, float ly, float lz, float hx, float hy, float hz,
+                                                   float bm, float o0, float o1, float o2, float inv0, float inv1,
+                                                   float inv2, float om, float tn, float tfar) {
+    return strelka_slab_padded(lx, ly, lz, hx, hy, hz, (om + bm) * kStrelkaPad, o0, o1, o2, inv0, inv1, inv2, tn,
+                               tfar);
 }
 #endif

@@ -67,7 +67,14 @@
 // most the top level's boxes and kWide - 1 more a level below it:
 // kMaxLevels x kWide entries a warp. The margin of the box test keeps every
 // hit in its cone's own box as in the leaf and node boxes (ROADMAP C.4,
-// measured on scene/grazing.py's rays at those boxes' faces).
+// measured on scene/grazing.py's rays at those boxes' faces). kReach (a
+// scene whose thinnest cone is thinner than the closed form's reach at the
+// scene's scale, ops/curves.py:cone_reach): the closed form, solved from
+// the ray's origin, reports hits up to sqrt(r^2 + (k D)^2) from a cone's
+// axis (ROADMAP C.6), far outside a thin strand's box, so every box of the
+// tree is padded by the larger of the margin and that reach (cone_pad; the
+// tree's row 6 holds the least radius of a box's cones), and the walk tests
+// every cone whose closed form hits, as the dense sweep does.
 // ops/curves.py:cone_tree_walk counts this walk in plain PyTorch.
 //
 // Bound on the H100: f32 operations, 119 a ray-cone test (3 square roots,
@@ -106,6 +113,7 @@ constexpr int kMaxLevels = 6;  // box levels (ops/curves.py:CONE_MAX_LEVELS)
 constexpr int kStack = kMaxLevels * kWide;  // stack entries a warp
 constexpr float kMiss = 1e16f;
 constexpr float kNone = 1e30f;  // "no box": above any best t
+constexpr float kReach = 0x1p-10f;  // the closed form's reach a unit of |o|_inf + |box|_inf (ops/curves.py:CONE_REACH)
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Cones {
@@ -122,16 +130,38 @@ struct Ray {
     float o0, o1, o2, d0, d1, d2, inv0, inv1, inv2, om, tn;  // om: |o|_inf, the box test's pad scale
 };
 
+// The pad of a box of bm = strelka_box_scale whose cones are no thinner
+// than r, with the closed form's reach (ops/slab.py:slab_tnear's reach, the
+// same operations in the same order).
+__device__ __forceinline__ float cone_pad(float om, float bm, float r) {
+    const float s = om + bm;
+    const float g = s * kReach;
+    return fmaxf(s * kStrelkaPad, sqrtf(r * r + g * g) - r);
+}
+
+// The lowered tnear of the box lo, hi (least cone radius r) against the
+// ray's interval [tn, tfar]: the port's margin, or with kReach cone_pad.
+template <bool kReach>
+__device__ __forceinline__ float cone_slab(float lx, float ly, float lz, float hx, float hy, float hz, float r,
+                                           const Ray& ray, float tfar) {
+    const float bm = strelka_box_scale(lx, ly, lz, hx, hy, hz);
+    if (kReach)
+        return strelka_slab_padded(lx, ly, lz, hx, hy, hz, cone_pad(ray.om, bm, r), ray.o0, ray.o1, ray.o2, ray.inv0,
+                                   ray.inv1, ray.inv2, ray.tn, tfar);
+    return strelka_slab_safe(lx, ly, lz, hx, hy, hz, bm, ray.o0, ray.o1, ray.o2, ray.inv0, ray.inv1, ray.inv2, ray.om,
+                             ray.tn, tfar);
+}
+
 // The lowered tnear of the ray's interval [tn, tfar] against box j of the
-// [8, total] table (common.cuh:strelka_slab_safe), or kNone where the
-// interval does not enter it or the box is inverted.
+// [8, total] table (cone_slab), or kNone where the interval does not enter
+// it or the box is inverted.
+template <bool kReach>
 __device__ __forceinline__ float slab_tnear(const Cones& c, int j, const Ray& r, float tfar) {
     const float* p = c.boxes + j;
     const long long s = c.total;
     const float lx = __ldg(p), ly = __ldg(p + s), lz = __ldg(p + 2 * s);
     const float hx = __ldg(p + 3 * s), hy = __ldg(p + 4 * s), hz = __ldg(p + 5 * s);
-    const float tnear = strelka_slab_safe(lx, ly, lz, hx, hy, hz, strelka_box_scale(lx, ly, lz, hx, hy, hz), r.o0,
-                                          r.o1, r.o2, r.inv0, r.inv1, r.inv2, r.om, r.tn, tfar);
+    const float tnear = cone_slab<kReach>(lx, ly, lz, hx, hy, hz, kReach ? __ldg(p + 6 * s) : 0.0f, r, tfar);
     return lx <= hx && tnear != INFINITY ? tnear : kNone;
 }
 
@@ -141,10 +171,10 @@ __device__ __forceinline__ float slab_tnear(const Cones& c, int j, const Ray& r,
 // does not change what an any-hit walk tests before its first hit much,
 // and the ranking costs K8 more than it saves). Returns the new stack size
 // and adds the boxes tested to `boxes`.
-template <bool kAny>
+template <bool kAny, bool kReach>
 __device__ __forceinline__ int push_boxes(const Cones& c, int first, int count, const Ray& r, float tfar,
                                           float* s_t, int* s_n, int sp, int lane, int& boxes) {
-    const float v = lane < count ? slab_tnear(c, first + lane, r, tfar) : kNone;
+    const float v = lane < count ? slab_tnear<kReach>(c, first + lane, r, tfar) : kNone;
     boxes += count;
     const unsigned in = __ballot_sync(kFull, v != kNone);
     if (!in) return sp;
@@ -217,15 +247,15 @@ __device__ __forceinline__ float ray_cone(float ax, float ay, float az, float bx
 }
 
 // Whether the ray's interval [tn, tfar] enters the cone's own box (ops/
-// curves.py:cone_boxes: lo = min(a - ra, b - rb), hi = max(a + ra, b + rb);
-// padding, with ra = -1, is inverted and never entered).
+// curves.py:cone_boxes: lo = min(a - ra, b - rb), hi = max(a + ra, b + rb),
+// radius min(ra, rb); padding, with ra = -1, is inverted and never entered).
+template <bool kReach>
 __device__ __forceinline__ bool enters_cone_box(const float4& ca, const float4& cb, const Ray& r, float tfar) {
     const float lx = fminf(ca.x - ca.w, cb.x - cb.w), ly = fminf(ca.y - ca.w, cb.y - cb.w),
                 lz = fminf(ca.z - ca.w, cb.z - cb.w);
     const float hx = fmaxf(ca.x + ca.w, cb.x + cb.w), hy = fmaxf(ca.y + ca.w, cb.y + cb.w),
                 hz = fmaxf(ca.z + ca.w, cb.z + cb.w);
-    const float tnear = strelka_slab_safe(lx, ly, lz, hx, hy, hz, strelka_box_scale(lx, ly, lz, hx, hy, hz), r.o0,
-                                          r.o1, r.o2, r.inv0, r.inv1, r.inv2, r.om, r.tn, tfar);
+    const float tnear = cone_slab<kReach>(lx, ly, lz, hx, hy, hz, fminf(ca.w, cb.w), r, tfar);
     return lx <= hx && tnear != INFINITY;
 }
 
@@ -276,7 +306,7 @@ __device__ __forceinline__ void warp_best(float& best_t, int& best_c, float& bes
 // cull = 0 a leaf is a step of kLeaf cones and every live cone is tested)
 // or null; slots: [2] launch-wide (lane slots of the closed form's steps,
 // kLeaf a step, and those that tested a cone) or null.
-template <bool kAny>
+template <bool kAny, bool kReach>
 __global__ void __launch_bounds__(kThreads) cone_kernel(StrelkaRays rays, Cones cones, int cull, long long n,
                                                         int* __restrict__ next_ray, float* __restrict__ t_out,
                                                         int* __restrict__ cone_out, float* __restrict__ y_out,
@@ -339,7 +369,7 @@ __global__ void __launch_bounds__(kThreads) cone_kernel(StrelkaRays rays, Cones 
             }
             if (!kAny) warp_best(best_t, best_c, best_y);
         } else {
-            int sp = push_boxes<kAny>(cones, 0, cones.first[1] - cones.first[0], r, tx, s_t, s_n, 0, lane, boxes);
+            int sp = push_boxes<kAny, kReach>(cones, 0, cones.first[1] - cones.first[0], r, tx, s_t, s_n, 0, lane, boxes);
             while (sp > 0) {
                 --sp;
                 const float tn = s_t[sp];
@@ -350,7 +380,7 @@ __global__ void __launch_bounds__(kThreads) cone_kernel(StrelkaRays rays, Cones 
                     const int cone = (box - cones.leaf0) * kLeaf + lane;
                     float4 ca, cb;
                     load_cone(cones, cone, ca, cb);
-                    const bool in = enters_cone_box(ca, cb, r, kAny ? tx : fminf(best_t, tx));
+                    const bool in = enters_cone_box<kReach>(ca, cb, r, kAny ? tx : fminf(best_t, tx));
                     const unsigned entered = __ballot_sync(kFull, in);
                     ++leaves;
                     if (!entered) continue;  // no cone of the leaf can hit in the interval
@@ -370,7 +400,7 @@ __global__ void __launch_bounds__(kThreads) cone_kernel(StrelkaRays rays, Cones 
                             below = cones.first[l + 1];
                         }
                     }
-                    sp = push_boxes<kAny>(cones, below + kWide * (box - lo), kWide, r, kAny ? tx : fminf(best_t, tx),
+                    sp = push_boxes<kAny, kReach>(cones, below + kWide * (box - lo), kWide, r, kAny ? tx : fminf(best_t, tx),
                                           s_t, s_n, sp, lane, boxes);
                 }
             }
@@ -418,12 +448,13 @@ int make_cones(const void* aos, const void* boxes, const void* levels, int nleve
 template <bool kAny>
 int launch(const void* ox, const void* oy, const void* oz, const void* dx, const void* dy, const void* dz,
            const void* tmin, const void* tmax, const void* aos, const void* boxes, const void* levels, int nlevels,
-           int m_pad, int cull, long long n, int blocks, void* next_ray, void* t_out, void* cone_out, void* y_out,
-           void* occ_out, void* stats, void* slots, void* stream) {
+           int m_pad, int cull, int reach, long long n, int blocks, void* next_ray, void* t_out, void* cone_out,
+           void* y_out, void* occ_out, void* stats, void* slots, void* stream) {
     Cones c;
     const int bad = make_cones(aos, boxes, levels, nlevels, m_pad, c);
     if (bad) return bad;
-    cone_kernel<kAny><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    (reach ? cone_kernel<kAny, true> : cone_kernel<kAny, false>)<<<blocks, kThreads, 0,
+                                                                   static_cast<cudaStream_t>(stream)>>>(
         strelka_make_rays(ox, oy, oz, dx, dy, dz, tmin, tmax, nullptr), c, cull, n, static_cast<int*>(next_ray),
         static_cast<float*>(t_out), static_cast<int*>(cone_out), static_cast<float*>(y_out),
         static_cast<unsigned char*>(occ_out), static_cast<int*>(stats), static_cast<unsigned long long*>(slots));
@@ -433,35 +464,41 @@ int launch(const void* ox, const void* oy, const void* oz, const void* dx, const
 }  // namespace
 
 // Blocks of kThreads threads that fit on one SM at once for K8 (any = 1) or
-// K7 -> *blocks_per_sm, *threads.
-extern "C" int strelka_cone_occupancy(int any, void* blocks_per_sm, void* threads) {
+// K7, with the reach or without -> *blocks_per_sm, *threads.
+extern "C" int strelka_cone_occupancy(int any, int reach, void* blocks_per_sm, void* threads) {
     *static_cast<int*>(threads) = kThreads;
-    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        static_cast<int*>(blocks_per_sm), any ? cone_kernel<true> : cone_kernel<false>, kThreads, 0));
+    const void* kernel = any ? (reach ? reinterpret_cast<const void*>(cone_kernel<true, true>)
+                                      : reinterpret_cast<const void*>(cone_kernel<true, false>))
+                             : (reach ? reinterpret_cast<const void*>(cone_kernel<false, true>)
+                                      : reinterpret_cast<const void*>(cone_kernel<false, false>));
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(static_cast<int*>(blocks_per_sm), kernel, kThreads, 0));
 }
 
 // Rays: 8 f32 [n] component arrays. Cones: the cone-major rows f32
 // [m_pad, 8] = (a.xyz, ra, b.xyz, rb), 16-byte aligned; the tree's boxes f32
 // [8, total] (ops/curves.py:cone_tree) and levels, a host int32 array of
 // nlevels + 1 entries: the first box of each level, top first, then total
-// (ops/curves.py:cone_tree_levels). cull = 0 sweeps every cone. blocks: the
+// (ops/curves.py:cone_tree_levels). cull = 0 sweeps every cone; reach = 1
+// pads the boxes by the closed form's reach (the tree's row 6). blocks: the
 // grid; next_ray: an int32 zeroed before the launch. Outputs: t f32, cone
 // int32, y f32, each [n]; stats int32 [3, n] or null; slots uint64 [2]
 // zeroed, or null.
 extern "C" int strelka_cone_closest(const void* ox, const void* oy, const void* oz, const void* dx, const void* dy,
                                     const void* dz, const void* tmin, const void* tmax, const void* aos,
                                     const void* boxes, const void* levels, int nlevels, int m_pad, int cull,
-                                    long long n, int blocks, void* next_ray, void* t_out, void* cone_out, void* y_out,
-                                    void* stats, void* slots, void* stream) {
-    return launch<false>(ox, oy, oz, dx, dy, dz, tmin, tmax, aos, boxes, levels, nlevels, m_pad, cull, n, blocks,
-                         next_ray, t_out, cone_out, y_out, nullptr, stats, slots, stream);
+                                    int reach, long long n, int blocks, void* next_ray, void* t_out, void* cone_out,
+                                    void* y_out, void* stats, void* slots, void* stream) {
+    return launch<false>(ox, oy, oz, dx, dy, dz, tmin, tmax, aos, boxes, levels, nlevels, m_pad, cull, reach, n,
+                         blocks, next_ray, t_out, cone_out, y_out, nullptr, stats, slots, stream);
 }
 
 // Same rays and cones; output occlusion as uint8 (torch.bool) [n].
 extern "C" int strelka_cone_any(const void* ox, const void* oy, const void* oz, const void* dx, const void* dy,
                                 const void* dz, const void* tmin, const void* tmax, const void* aos,
-                                const void* boxes, const void* levels, int nlevels, int m_pad, int cull, long long n,
-                                int blocks, void* next_ray, void* occ_out, void* stats, void* slots, void* stream) {
-    return launch<true>(ox, oy, oz, dx, dy, dz, tmin, tmax, aos, boxes, levels, nlevels, m_pad, cull, n, blocks,
+                                const void* boxes, const void* levels, int nlevels, int m_pad, int cull, int reach,
+                                long long n, int blocks, void* next_ray, void* occ_out, void* stats, void* slots,
+                                void* stream) {
+    return launch<true>(ox, oy, oz, dx, dy, dz, tmin, tmax, aos, boxes, levels, nlevels, m_pad, cull, reach, n, blocks,
                         next_ray, nullptr, nullptr, nullptr, occ_out, stats, slots, stream);
 }

@@ -14,7 +14,9 @@ Rays: o and d are (x, y, z) triples of [N] f32 tensors, tmin/tmax [N] f32
 (tmax <= tmin: a dead lane). Cones: a `PackedCones`, the device's one cone
 table [M_pad, 8] = (a.xyz, ra, b.xyz, rb) (ops/curves.py:cone_major_rows of
 the rows of pack_cones), which the kernels and the plain version both read,
-with the boxes of the tree over it [8, total] (ops/curves.py:cone_tree).
+with the boxes of the tree over it [8, total] (ops/curves.py:cone_tree) and
+the reach its box tests take (ops/curves.py:cone_reach: 0, or CONE_REACH on
+a scene of strands thinner than the closed form's reach at its scale).
 `cull=False` sweeps every cone (the brute force the tree walk is compared
 with). `stats=True` also returns a `ConeStats`: per ray the inner boxes
 slab-tested, the leaves swept and the cones whose own box the ray's
@@ -42,6 +44,7 @@ COUNTER_MAX = 2 ** 31 - 1  # the kernels' ray counter is an int32
 class PackedCones(NamedTuple):
     geom: torch.Tensor  # [M_pad, 8] f32: (a.xyz, ra, b.xyz, rb)
     tree: torch.Tensor  # [8, total] f32: the cone tree's boxes (ops/curves.py:cone_tree)
+    reach: float = 0.0  # the box tests' reach: 0 or ops/curves.py:CONE_REACH (cone_reach)
 
     @property
     def shape(self) -> tuple:
@@ -89,7 +92,9 @@ def _check(o, d, tmin, tmax, cones: PackedCones, name: str) -> None:
     for a in (*o, *d, tmin, tmax):
         if a.dtype != torch.float32 or a.shape != (n,) or not a.is_contiguous() or a.device != dev:
             raise ValueError(f"{name}: ray components must be contiguous [N] f32 on {dev}")
-    geom, tree = cones
+    geom, tree = cones.geom, cones.tree
+    if cones.reach not in (0.0, C.CONE_REACH):
+        raise ValueError(f"{name}: the reach is 0 or {C.CONE_REACH}, not {cones.reach}")
     for a, dim in ((geom, 1), (tree, 0)):
         if (a.dtype != torch.float32 or a.dim() != 2 or a.shape[dim] != 8 or not a.is_contiguous()
                 or a.device != dev):
@@ -105,17 +110,19 @@ def _check(o, d, tmin, tmax, cones: PackedCones, name: str) -> None:
                          f"cones (at most {C.CONE_MAX_LEVELS} levels)")
 
 
-_occupancy: dict = {}  # (any hit, device) -> (blocks per SM, threads a block)
+_occupancy: dict = {}  # (any hit, reach, device) -> (blocks per SM, threads a block)
 
 
-def occupancy(any_hit: bool, device) -> tuple:
-    """(blocks per SM, threads a block) of K8 (any_hit) or K7, from the CUDA
-    occupancy calculator on the built kernel (asked once per kernel)."""
-    key = (bool(any_hit), torch.device(device))
+def occupancy(any_hit: bool, reach: bool, device) -> tuple:
+    """(blocks per SM, threads a block) of K8 (any_hit) or K7, with the reach
+    or without, from the CUDA occupancy calculator on the built kernel
+    (asked once per kernel)."""
+    key = (bool(any_hit), bool(reach), torch.device(device))
     if key not in _occupancy:
         blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
         with torch.cuda.device(key[-1]):
-            rc = build.load().strelka_cone_occupancy(int(key[0]), ctypes.byref(blocks), ctypes.byref(threads))
+            rc = build.load().strelka_cone_occupancy(int(key[0]), int(key[1]), ctypes.byref(blocks),
+                                                     ctypes.byref(threads))
         build.check(rc, "strelka_cone_occupancy")
         _occupancy[key] = (blocks.value, threads.value)
     return _occupancy[key]
@@ -124,14 +131,15 @@ def occupancy(any_hit: bool, device) -> tuple:
 def _launch(entry: str, o, d, tmin, tmax, cones: PackedCones, cull: bool, outs, stats) -> None:
     n = tmin.shape[0]
     dev = tmin.device
-    blocks_per_sm, threads = occupancy(entry == "strelka_cone_any", dev)
+    reach = cones.reach > 0.0
+    blocks_per_sm, threads = occupancy(entry == "strelka_cone_any", reach, dev)
     blocks = grid(n, blocks_per_sm, threads, torch.cuda.get_device_properties(dev).multi_processor_count)
     next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
     levels = cones.levels
     first = (ctypes.c_int * (len(levels) + 1))(*[f for f, _ in levels], cones.tree.shape[1])
     rc = getattr(build.load(), entry)(
         *(a.data_ptr() for a in (*o, *d, tmin, tmax)), cones.geom.data_ptr(), cones.tree.data_ptr(), first,
-        len(levels), cones.geom.shape[0], int(bool(cull)), n, blocks, next_ray.data_ptr(),
+        len(levels), cones.geom.shape[0], int(bool(cull)), int(reach), n, blocks, next_ray.data_ptr(),
         *(a.data_ptr() for a in outs),
         *((stats.per_ray.data_ptr(), stats.slots.data_ptr()) if stats is not None else (None, None)),
         build.stream_ptr(dev),

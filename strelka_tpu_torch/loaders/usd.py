@@ -603,16 +603,21 @@ class UsdLoader:
 
     # ------------------------------------------------------------------
     def _bake_curves(self, prim: Prim, xf: np.ndarray, scene: Scene) -> None:
-        points = _attr_val(prim, "points")
-        counts = _attr_val(prim, "curveVertexCounts")
-        if points is None or counts is None:
-            return
-        pts = np.asarray([[float(c) for c in p] for p in points], np.float32)
-        counts = np.asarray([int(c) for c in counts], np.uint32)
-        widths = _attr_val(prim, "widths")
-        if widths is not None:
-            widths = np.asarray([float(w) for w in widths], np.float32) * 0.5  # width -> radius
-        curve_id = scene.create_curve(CurveType.eCubic, counts, pts, widths)
+        """One BasisCurves prim. Its bake, up to the curve's creation and
+        before its material is resolved, is the set-up span usd.curves.
+        points and widths convert in one array conversion each (the same
+        f32 roundings as converting element by element)."""
+        with P.setup_span("usd.curves"):
+            points = _attr_val(prim, "points")
+            counts = _attr_val(prim, "curveVertexCounts")
+            if points is None or counts is None:
+                return
+            pts = np.asarray(points, np.float32).reshape(-1, 3)
+            counts = np.asarray([int(c) for c in counts], np.uint32)
+            widths = _attr_val(prim, "widths")
+            if widths is not None:
+                widths = np.asarray(widths, np.float32).reshape(-1) * 0.5  # width -> radius
+            curve_id = scene.create_curve(CurveType.eCubic, counts, pts, widths)
         mat_id = self._resolve_material(prim, scene)
         scene.create_instance(InstanceType.eCurve, curve_id, mat_id, xf)
 

@@ -21,7 +21,7 @@ What is here:
     operation. They are the plain versions of kernels K7 and K8
     (kernels/cones.py) and sweep every cone;
   * `cone_hit`, `cone_hit_to_seg_u`, `curve_shading_frame_vec`;
-  * `cone_tree_levels`, `cone_tree`: the tree over the Morton-sorted cones
+  * `cone_tree_levels`, `cone_tree`, `cone_reach`: the tree over the Morton-sorted cones
     that kernels K7 and K8 walk (leaves of CONE_LEAF consecutive cones,
     inner nodes of CONE_WIDE consecutive children, boxes only: the cones
     stay in place), and `cone_tree_walk`, the plain count of that walk;
@@ -54,6 +54,13 @@ CONE_SUPER = 8  # sub-blocks per superblock
 CONE_LEAF = 32
 CONE_WIDE = 32
 CONE_MAX_LEVELS = 6
+# the round cone's closed form, solved from the ray's origin, can report a hit
+# up to sqrt(r^2 + (k D)^2) from a cone's axis (radius r, D the distance from
+# the origin; k reads up to 7e-4 on the character's and hair_long's rays):
+# K7/K8 pad every box of the cone tree by that reach, with reach * (|o|_inf +
+# |box|_inf) for k D, so that they test every cone whose closed form hits
+# (ops/slab.py:slab_tnear, csrc/cones.cu:cone_pad; ROADMAP C.6)
+CONE_REACH = 2.0 ** -10
 # packed row numbers ([12, M_pad], pack_cones)
 ROW_A, ROW_B, ROW_RA, ROW_RB, ROW_U0, ROW_U1, ROW_SEG = 0, 3, 6, 7, 8, 9, 10
 # columns of the cone-major geometry [M_pad, 8] and rows of the attributes [3, M_pad]
@@ -284,40 +291,67 @@ def cone_tree_levels(m_pad: int) -> tuple:
 
 def cone_boxes(geom) -> torch.Tensor:
     """Cone rows [..., 8] (a tensor or an array) -> each cone's own box as
-    rows [8, ...] f32 (lo.xyz, hi.xyz, two zero rows): lo = min(a - ra,
-    b - rb), hi = max(a + ra, b + rb), the arithmetic of pack_cones' boxes and
-    of kernels K7/K8's leaf test; padding (ra < 0) inverted (lo = 1e30,
-    hi = -1e30), as the kernels' arithmetic leaves it too."""
+    rows [8, ...] f32 (lo.xyz, hi.xyz, min(ra, rb), a zero row): lo = min(a -
+    ra, b - rb), hi = max(a + ra, b + rb), the arithmetic of pack_cones' boxes
+    and of kernels K7/K8's leaf test, and the least radius the box test's
+    reach takes (CONE_REACH); padding (ra < 0) inverted (lo = 1e30,
+    hi = -1e30), as the kernels' arithmetic leaves it too, with radius 0."""
     g = torch.as_tensor(geom, dtype=torch.float32)
     a, b, ra, rb = _geom_columns(g)
     pad = ~(ra >= 0.0)
     lo = [torch.where(pad, 1e30, torch.minimum(a[k] - ra, b[k] - rb)) for k in range(3)]
     hi = [torch.where(pad, -1e30, torch.maximum(a[k] + ra, b[k] + rb)) for k in range(3)]
-    return torch.stack(lo + hi + [torch.zeros_like(ra)] * 2)
+    r = torch.where(pad, 0.0, torch.minimum(ra, rb))
+    return torch.stack(lo + hi + [r, torch.zeros_like(ra)])
+
+
+def cone_reach(geom) -> float:
+    """The reach the box tests of K7/K8 take on these cone rows [M_pad, 8]:
+    CONE_REACH where the thinnest live cone is thinner than the closed
+    form's reach at the scale of the cones' coordinates (min(ra, rb) <
+    CONE_REACH * their largest magnitude: a strand that rays from across the
+    scene see ghosts around wider than itself, as the character's, 2.6e-5 m
+    against 3.4e-4), else 0, where the port's margin holds the closed form's
+    hits in their boxes (hair_long: 5.1e-3 m against 1.2e-3; at most 8.3e-5
+    (|o|_inf + |box|_inf) outside them on its camera rays, the margin's
+    1.2e-4). One read on the host, at the scene's build."""
+    g = torch.as_tensor(geom, dtype=torch.float32)
+    live = g[:, GEOM_RA] >= 0.0
+    if not bool(live.any()):
+        return 0.0
+    box = cone_boxes(g[live])
+    thin = float(box[6].min()) < CONE_REACH * float(box[0:6].abs().max())
+    return CONE_REACH if thin else 0.0
 
 
 def cone_tree(geom) -> torch.Tensor:
     """[M_pad, 8] cone rows in their (Morton) order (a tensor, on any device,
     or an array) -> the cone tree's boxes [8, total] f32 on the same device
-    (lo.xyz, hi.xyz, two zero rows; levels by cone_tree_levels): a leaf's
-    box holds its cones' boxes (cone_boxes), an inner box its
-    children's; a box without a live cone is inverted. The cones are not
-    moved, so cone indices, the tie rule and the cone table are unchanged.
-    Built with tensor reductions on the cones' device."""
+    (lo.xyz, hi.xyz, the least radius of the box's live cones, a zero row;
+    levels by cone_tree_levels): a leaf's box holds its cones' boxes
+    (cone_boxes), an inner box its children's; a box without a live cone is
+    inverted, with radius 0. The cones are not moved, so cone indices, the
+    tie rule and the cone table are unchanged. Built with tensor reductions
+    on the cones' device."""
     g = torch.as_tensor(geom, dtype=torch.float32)
     levels = cone_tree_levels(int(g.shape[0]))
     own = cone_boxes(g)
+    own[6] = torch.where(g[:, GEOM_RA] >= 0.0, own[6], float("inf"))
     total = levels[-1][0] + levels[-1][1]
     out = torch.zeros((8, total), dtype=torch.float32, device=g.device)
     out[0:3] = 1e30
     out[3:6] = -1e30
+    out[6] = float("inf")
     first, _ = levels[-1]
     leaves = g.shape[0] // CONE_LEAF
     out[0:3, first:first + leaves] = own[0:3].view(3, leaves, CONE_LEAF).amin(dim=2)
     out[3:6, first:first + leaves] = own[3:6].view(3, leaves, CONE_LEAF).amax(dim=2)
+    out[6, first:first + leaves] = own[6].view(leaves, CONE_LEAF).amin(dim=1)
     for (f, c), (fc, cc) in zip(levels[-2::-1], levels[:0:-1]):
         out[0:3, f:f + c] = out[0:3, fc:fc + cc].reshape(3, c, CONE_WIDE).amin(dim=2)
         out[3:6, f:f + c] = out[3:6, fc:fc + cc].reshape(3, c, CONE_WIDE).amax(dim=2)
+        out[6, f:f + c] = out[6, fc:fc + cc].reshape(c, CONE_WIDE).amin(dim=1)
+    out[6] = torch.where(out[6] < float("inf"), out[6], 0.0)
     return out
 
 
@@ -648,7 +682,8 @@ class ConeWalk(NamedTuple):
     t: torch.Tensor  # f32: the closest walk's final t; the any-hit walk's least t in its last leaf (1e16: none)
 
 
-def cone_tree_walk(geom, tree, o, d, tmin, tmax, any_hit: bool = False, chunk: int = 8192) -> ConeWalk:
+def cone_tree_walk(geom, tree, o, d, tmin, tmax, any_hit: bool = False, chunk: int = 8192,
+                   reach: float = 0.0) -> ConeWalk:
     """What kernel K7 (or K8, any_hit=True) does on its walk of the cone
     tree, counted in plain PyTorch (csrc/cones.cu:cone_kernel). A live ray
     slab-tests the top level's boxes and keeps the entered ones on a stack:
@@ -661,7 +696,8 @@ def cone_tree_walk(geom, tree, o, d, tmin, tmax, any_hit: bool = False, chunk: i
     (cone_boxes) slab-tested against the same interval, and where one or
     more is entered, the cones whose box is entered go through the closed
     form. An empty stack ends the walk, and K8 also ends it after the leaf
-    with its first hit. geom [M_pad, 8], tree [8, total] (cone_tree)."""
+    with its first hit. geom [M_pad, 8], tree [8, total] (cone_tree); every
+    box test takes `reach` (cone_reach)."""
     levels = cone_tree_levels(geom.shape[0])
     n, dev = tmin.shape[0], tmin.device
     inf = float("inf")
@@ -687,7 +723,7 @@ def cone_tree_walk(geom, tree, o, d, tmin, tmax, any_hit: bool = False, chunk: i
 
         def push(rows, first, count):
             ids = first[:, None] + lane[None, :count]  # [R', count]
-            v = slab_tnear(*ray(rows), bound(rows), tree[:, ids])
+            v = slab_tnear(*ray(rows), bound(rows), tree[:, ids], reach=reach)
             key = torch.where(v < inf, 0.0, inf) if any_hit else v  # K8: the entered boxes in index order
             sv, si = torch.sort(key, dim=1, stable=True)  # K7: nearest first, of equal tnear the lower box
             n_in = (v < inf).sum(dim=1)
@@ -716,7 +752,7 @@ def cone_tree_walk(geom, tree, o, d, tmin, tmax, any_hit: bool = False, chunk: i
             if la.numel():
                 g = geom[(node[leaf] - leaf0)[:, None] * CONE_LEAF + in_leaf[None, :]]  # [R', L, 8]
                 o_l, d_l, tn_l = ray(la)
-                entered = slab_tnear(o_l, d_l, tn_l, bound(la), cone_boxes(g)) < inf  # [R', L]
+                entered = slab_tnear(o_l, d_l, tn_l, bound(la), cone_boxes(g), reach=reach) < inf  # [R', L]
                 a, b, ra, rb = _geom_columns(g)
                 t, _, hit = ray_round_cone(_columns(o_l), _columns(d_l), a, b, ra, rb, tn_l[:, None],
                                            tx[la, None], any_hit)

@@ -418,13 +418,16 @@ def trace_paths(
     and 1).
 
     lanes: while the span recorder is on (utils/profiling.py), the
-    [max_depth, 3] int64 counts of each bounce on the device: the lanes
-    alive at the closest sweep, the shadow rays cast and the lanes swept (a
-    scene with curves sweeps its cones with the same lanes); else None. The
-    bounce's phases are the recorder's device spans (bounce.order,
+    [max_depth, 5] int64 counts of each bounce on the device: the lanes
+    alive at the closest sweep, the shadow rays cast, the lanes swept (a
+    scene with curves sweeps its cones with the same lanes), the lanes whose
+    closest hit is a curve and those whose closest hit is a triangle; else
+    None. The bounce's phases are the recorder's device spans (bounce.order,
     bounce.sample, bounce.closest, bounce.surface with bounce.texture,
     bounce.bsdf, bounce.nee with bounce.shadow, bounce.next, then
-    launch.unorder) inside a launch record its caller opened."""
+    launch.unorder) inside a launch record its caller opened; on a scene
+    with curves bounce.closest holds closest.triangles and closest.curves,
+    and bounce.shadow holds shadow.triangles and shadow.curves."""
     if scene.attr_table.shape[1] < ATTR_JOINED:
         raise ValueError("the integrator reads the joined attr table")
     n = sample_idx.shape[0]
@@ -479,15 +482,17 @@ def trace_paths(
         if lanes is not None:
             lanes[depth, 0].add_(alive.sum())
             lanes[depth, 2].add_(n)
-        hit = intersect_closest(
-            scene, origin, direction, tmin_mat, tmax_big, RAY_MASK_PRIMARY,
-            active=alive, exclude=prev_prim,
-        )
-        # curve (hair) primitives: the round-cone sweep, the closest of
-        # triangle and curve wins
+        # curve (hair) primitives: the round-cone sweep beside the triangles'
+        # (each its own child span), the closest of triangle and curve wins
         chit = None
+        with P.device_span("closest.triangles") if has_curves else P.NULL:
+            hit = intersect_closest(
+                scene, origin, direction, tmin_mat, tmax_big, RAY_MASK_PRIMARY,
+                active=alive, exclude=prev_prim,
+            )
         if has_curves:
-            chit = intersect_curves_closest(scene, origin, direction, tmin_mat, tmax_big, active=alive)
+            with P.device_span("closest.curves"):
+                chit = intersect_curves_closest(scene, origin, direction, tmin_mat, tmax_big, active=alive)
         # ---- the curve refinement, the miss, the triangle's attributes, the
         # light hit, the material and the curve's frame (kernel K13 on the
         # card), then the texture lookups
@@ -496,6 +501,9 @@ def trace_paths(
                                last_bsdf_pdf, radiance, throughput, t_total, bg, depth=depth)
         radiance, throughput, position, frame, mat = sf.radiance, sf.throughput, sf.position, sf.frame, sf.mat
         is_curve, hit_surface = sf.is_curve, sf.hit_surface
+        if lanes is not None:
+            lanes[depth, 3].add_(is_curve.sum())
+            lanes[depth, 4].add_((alive & (hit.prim >= 0) & ~is_curve).sum())
         if scene.textures is not None:
             with P.device_span("bounce.texture"):
                 mat, frame = shade_textures(scene, mat, frame, sf.tex_rows, sf.uv, sf.t_hit, cone_spread, sample_idx,
@@ -527,13 +535,15 @@ def trace_paths(
             with P.device_span("bounce.shadow"):
                 if lanes is not None:
                     lanes[depth, 1].add_(nl.active.sum())
-                occluded = intersect_any(
-                    scene, nl.shadow_org, nl.to_light, shadow_tmin,
-                    nl.dist_to_light, RAY_MASK_SHADOW, active=nl.active, exclude=nl.exclude,
-                )
+                with P.device_span("shadow.triangles") if has_curves else P.NULL:
+                    occluded = intersect_any(
+                        scene, nl.shadow_org, nl.to_light, shadow_tmin,
+                        nl.dist_to_light, RAY_MASK_SHADOW, active=nl.active, exclude=nl.exclude,
+                    )
                 if has_curves:
-                    occluded = occluded | intersect_curves_any(
-                        scene, nl.shadow_org, nl.to_light, shadow_tmin, nl.dist_to_light, active=nl.active)
+                    with P.device_span("shadow.curves"):
+                        occluded = occluded | intersect_curves_any(
+                            scene, nl.shadow_org, nl.to_light, shadow_tmin, nl.dist_to_light, active=nl.active)
             radiance, throughput, shade = KN.nee_shade(nl, occluded, inside, mat, frame, direction, radiance,
                                                        throughput, shade, scene.light_table, enable_hair=enable_hair)
 

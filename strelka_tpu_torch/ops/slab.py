@@ -57,14 +57,24 @@ def inv_dir(d):
     return [1.0 / torch.where(torch.abs(c) > 1e-20, c, 1e-20) for c in d]
 
 
-def slab_tnear(o, d, tmin, tmax, bounds, pad: float = PAD, slack: float = SLACK):
+def slab_tnear(o, d, tmin, tmax, bounds, pad: float = PAD, slack: float = SLACK, reach: float = 0.0):
     """[R] rays x [8, B] boxes (or [8, R, B], each ray its own) -> [R, B]
     f32: the lowered tnear where the ray's interval [tmin, tmax] enters the
-    padded box, inf where it does not or the box is inverted (lo > hi)."""
+    padded box, inf where it does not or the box is inverted (lo > hi).
+
+    With `reach` (the boxes of round cones, ops/curves.py:CONE_REACH) the
+    pad is the larger of PAD * s and sqrt(r^2 + (reach * s)^2) - r, where
+    s = |o|_inf + |box|_inf and r is the box's row 6, the least radius of
+    its cones: the distance beyond a cone's surface at which its closed form
+    can still report a hit (ROADMAP C.6)."""
     if bounds.dim() == 2:
         bounds = bounds[:, None, :]
     inv = inv_dir(d)
-    p = (ray_scale(o)[:, None] + box_scale(bounds)) * pad
+    s = ray_scale(o)[:, None] + box_scale(bounds)
+    p = s * pad
+    if reach:
+        g = s * reach
+        p = torch.maximum(p, torch.sqrt(bounds[6] * bounds[6] + g * g) - bounds[6])
     tnear = tmin[:, None]
     tfar = tmax[:, None]
     for c in range(3):

@@ -26,6 +26,8 @@ epilogue read:
   cone_tree      [8, total] f32  the boxes of the tree over the cones in
                               their order (ops/curves.py:cone_tree), which
                               K7/K8 walk
+  cone_reach     float           the reach their box tests take
+                              (ops/curves.py:cone_reach: 0 or CONE_REACH)
   cone_bounds    [8, nb], cone_sbounds [8, nsb]  the JAX package's TPU
                               sub-block / superblock boxes (kernel K9's
                               input; no sweep walks them)
@@ -129,6 +131,7 @@ class DeviceScene:
     cone_bounds: Optional[torch.Tensor] = None  # [8, nb] f32 sub-block boxes
     cone_sbounds: Optional[torch.Tensor] = None  # [8, nb / CONE_SUPER] f32 superblock boxes
     cone_tree: Optional[torch.Tensor] = None  # [8, total] f32 the cone tree's boxes (ops/curves.py:cone_tree)
+    cone_reach: float = 0.0  # the reach of the tree's box tests (ops/curves.py:cone_reach)
     curve_refine: bool = True  # cone radii are inflated; hits are refined to the exact envelope
     has_hair: bool = False  # any material row is a hair material
     textures: Optional[TextureAtlas] = None  # tensors on the scene's device
@@ -147,7 +150,7 @@ class DeviceScene:
 
     @property
     def packed_cones(self) -> PackedCones:
-        return PackedCones(self.cone_geom, self.cone_tree)
+        return PackedCones(self.cone_geom, self.cone_tree, self.cone_reach)
 
     @property
     def has_curves(self) -> bool:
@@ -341,7 +344,9 @@ def build_device_scene(
     it, with the children bvh.build, cones.build (the cones from the
     segments) and tables.upload (device_scene_from_arrays: the tables packed,
     the cones sorted and packed, their tree's boxes built, all copied to the
-    device)."""
+    device). It sets the one-shot counters scene.triangles,
+    scene.curve_segments, scene.cones and cones.tree_levels (0 without
+    curves)."""
     with P.setup_span("device_scene.build"):
         return _build_device_scene(scene, material_manager, resolve_device(device), use_bvh, curve_subdiv,
                                    curve_refine)
@@ -405,6 +410,7 @@ def _build_device_scene(scene, material_manager, device, use_bvh, curve_subdiv, 
 
     curve_arrays = {}
     curves_np = flatten_scene_curves(scene)
+    ns = 0  # curve segments before padding
     if curves_np is not None:
         curves_np["material_id"] = mat_remap[np.clip(curves_np["material_id"], 0, len(mat_remap) - 1)]
         ns = int(curves_np["p0"].shape[0])
@@ -441,7 +447,12 @@ def _build_device_scene(scene, material_manager, device, use_bvh, curve_subdiv, 
         **curve_arrays,
     }
     with P.setup_span("tables.upload"):
-        return device_scene_from_arrays(arrays, device)
+        ds = device_scene_from_arrays(arrays, device)
+    P.set_count("scene.triangles", "", num_tri)
+    P.set_count("scene.curve_segments", "", ns)
+    P.set_count("scene.cones", "", ds.num_cones)
+    P.set_count("cones.tree_levels", "", len(ds.packed_cones.levels) if ds.has_curves else 0)
+    return ds
 
 
 def _is_none(v) -> bool:
@@ -553,6 +564,7 @@ def _curve_fields(arrays: dict, device) -> dict:
         cone_bounds=to(bounds, np.float32),
         cone_sbounds=to(C.cone_super_bounds(bounds), np.float32),
         cone_tree=C.cone_tree(geom),
+        cone_reach=C.cone_reach(geom),
         curve_refine=bool(arrays.get("curve_refine", True)),
     )
 

@@ -26,11 +26,16 @@ switch it. While it is on:
     image's copy and resize outside the graph are device spans frame.copy
     and frame.resize. On the CPU a device span is stamped on the host clock;
   * lane counters: each bounce adds, on the device, the lanes alive at the
-    closest sweep, the shadow rays cast and the lanes swept.
-Always, whatever the state: the set-up spans (scene.load, device_scene.build
-with bvh.build, cones.build and tables.upload, kernels.load, launch.eager,
-launch.capture) and the one-shot counters (graph.captures and graph.nodes
-per config key, kernels.built per source, kernels.loaded), a handful a run.
+    closest sweep, the shadow rays cast, the lanes swept, and the lanes
+    whose closest hit is a curve and a triangle. On a scene with curves the
+    two sweeps of bounce.closest and of bounce.shadow are child spans each
+    (closest.triangles, closest.curves, shadow.triangles, shadow.curves).
+Always, whatever the state: the set-up spans (scene.load with usd.curves a
+BasisCurves prim, device_scene.build with bvh.build, cones.build and
+tables.upload, kernels.load, launch.eager, launch.capture) and the one-shot
+counters (graph.captures and graph.nodes per config key, kernels.built per
+source, kernels.loaded; scene.triangles, scene.curve_segments, scene.cones
+and cones.tree_levels set at device_scene.build), a handful a run.
 
 Everything stays in memory. collect() reads the spans recorded since the
 last call, the last frame's device spans (once its work has completed: a
@@ -150,7 +155,7 @@ MAX_SPANS = 1 << 16  # per-frame host spans kept between two collect() calls
 MAX_SETUP = 1024  # set-up spans kept (a rebuilt scene adds a few)
 MAX_FRAMES = 4096  # collected frames export() averages over
 LANE_ROWS = 64  # bounces a lane counter holds (a deeper bounce adds into the last row)
-LANES = ("alive", "shadow", "swept")  # the lane counter's columns
+LANES = ("alive", "shadow", "swept", "curve_hits", "triangle_hits")  # the lane counter's columns
 TOP = 10  # named idle gaps kept a collect
 
 
@@ -166,13 +171,13 @@ class _Null:
         return False
 
 
-_NULL = _Null()
+NULL = _Null()  # the context of a span that is not recorded, and of a span site where none applies
 
 
 class _Recorder:
     def __init__(self) -> None:
         self.on = False
-        self.lane_counters: dict = {}  # device -> [LANE_ROWS, 3] int64, static (a graph adds into it)
+        self.lane_counters: dict = {}  # device -> [LANE_ROWS, len(LANES)] int64, static (a graph adds into it)
         self.reset()
 
     def reset(self) -> None:
@@ -257,7 +262,7 @@ class _HostSpan:
 def span(name: str):
     """A host span around a `with` block, recorded while the recorder is on."""
     if not _REC.on:
-        return _NULL
+        return NULL
     return _HostSpan(name)
 
 
@@ -270,7 +275,7 @@ def frame_span():
     """render()'s span: a new frame (its device spans replace the last frame's)."""
     rec = _REC
     if not rec.on:
-        return _NULL
+        return NULL
     rec.frame += 1
     rec.pending = []
     return _HostSpan("render")
@@ -356,7 +361,7 @@ def launch_record(device):
     outermost one); yields the record, which a graph's capture keeps for
     replayed(). Off: yields None."""
     if not _REC.on:
-        return _NULL
+        return NULL
     import torch
 
     return _launch_record(torch.device(device))
@@ -406,7 +411,7 @@ def device_span(name: str, device=None):
     (given no device there, nothing)."""
     rec = _REC
     if not rec.on or (rec.launch is None and device is None):
-        return _NULL
+        return NULL
     import torch
 
     return _device_span(name, torch.device(device) if device is not None else None)
@@ -451,9 +456,9 @@ def _read_pending(records) -> list:
 
 
 def lane_counts(max_depth: int, device):
-    """A launch's lane counter ([max_depth, 3] int64 zeros: alive at the
-    closest sweep, shadow rays cast, lanes swept) while the recorder is on,
-    else None."""
+    """A launch's lane counter ([max_depth, 5] int64 zeros, LANES: alive at
+    the closest sweep, shadow rays cast, lanes swept, closest hits on a curve,
+    on a triangle) while the recorder is on, else None."""
     if not _REC.on:
         return None
     import torch

@@ -91,7 +91,7 @@ def _scene(seed=21, m=1100, n=144):
             t(tmax))
 
 
-def _walk_one_ray(geom, tree, o, d, tn, tx, any_hit=False):
+def _walk_one_ray(geom, tree, o, d, tn, tx, any_hit=False, reach=0.0):
     """One ray's walk of the cone tree, written out: a stack of (tnear, box),
     the entered boxes pushed with the first to visit on top (closest hit:
     the nearest, of equal tnear the lower box; any hit: the lowest box), a
@@ -109,7 +109,7 @@ def _walk_one_ray(geom, tree, o, d, tn, tx, any_hit=False):
     stack = []
 
     def push(first, count):
-        v = TC.slab_tnear(*ray, bound(), tree[:, first:first + count])[0]
+        v = TC.slab_tnear(*ray, bound(), tree[:, first:first + count], reach=reach)[0]
         entered = [(float(v[k]), first + k) for k in range(count) if v[k] < INF]
         stack.extend(reversed(entered if any_hit else sorted(entered)))
         return count
@@ -122,7 +122,7 @@ def _walk_one_ray(geom, tree, o, d, tn, tx, any_hit=False):
         if box >= leaf0:
             j = box - leaf0
             g = geom[j * leaf:(j + 1) * leaf]
-            entered = TC.slab_tnear(*ray, bound(), TC.cone_boxes(g))[0] < INF
+            entered = TC.slab_tnear(*ray, bound(), TC.cone_boxes(g), reach=reach)[0] < INF
             leaves.append(j)
             cones += (j * leaf + torch.nonzero(entered)[:, 0]).tolist()
             forms += bool(entered.any())
@@ -169,17 +169,24 @@ def test_tree_boxes_hold_their_cones_and_padding_is_inverted(m, tree_shape):
         held[box[live]] = True
         inverted = (tree[0:3, f:f + c] > tree[3:6, f:f + c]).all(axis=0)
         assert np.array_equal(inverted, ~held)  # a box is inverted exactly where it holds no live cone
+        # row 6: the least radius of the box's live cones (the reach's), 0 where it holds none
+        least = np.full(c, np.inf, np.float32)
+        np.minimum.at(least, box[live], own[6][live])
+        np.testing.assert_array_equal(tree[6, f:f + c], np.where(held, least, 0.0))
         box = box // wide
-    np.testing.assert_array_equal(tree[6:8], 0.0)
+    g = np.asarray(geom)
+    np.testing.assert_array_equal(own[6], np.where(live, np.minimum(g[:, 3], g[:, 7]), 0.0))
+    np.testing.assert_array_equal(tree[7], 0.0)
 
 
+@pytest.mark.parametrize("reach", [0.0, TC.CONE_REACH])
 @pytest.mark.parametrize("any_hit", [False, True])
-def test_near_to_far_count_equals_a_loop_over_the_rays(any_hit, tree_shape):
+def test_near_to_far_count_equals_a_loop_over_the_rays(any_hit, reach, tree_shape):
     geom, tree, o, d, tmin, tmax = _scene()
-    got = TC.cone_tree_walk(geom, tree, o, d, tmin, tmax, any_hit=any_hit, chunk=50)
+    got = TC.cone_tree_walk(geom, tree, o, d, tmin, tmax, any_hit=any_hit, chunk=50, reach=reach)
     for i in range(tmin.shape[0]):
         boxes, leaves, cones, forms, best = _walk_one_ray(geom, tree, [c[i] for c in o], [c[i] for c in d],
-                                                          float(tmin[i]), float(tmax[i]), any_hit)
+                                                          float(tmin[i]), float(tmax[i]), any_hit, reach)
         assert (int(got.boxes[i]), int(got.leaves[i]), int(got.cones[i]), int(got.forms[i])) == (
             boxes, len(leaves), len(cones), forms), i
         assert len(set(leaves)) == len(leaves) and got.t[i].item() == best, i
@@ -253,7 +260,8 @@ def test_cones_entered_counts_the_cones_whose_box_the_interval_enters():
     ra, rb = geom[:, 3:4], geom[:, 7:8]
     pad = (ra < 0).T
     boxes = torch.cat([torch.minimum(lo - ra, hi - rb).T.masked_fill(pad, 1e30),
-                       torch.maximum(lo + ra, hi + rb).T.masked_fill(pad, -1e30), torch.zeros((2, geom.shape[0]))])
+                       torch.maximum(lo + ra, hi + rb).T.masked_fill(pad, -1e30),
+                       torch.minimum(ra, rb).T.masked_fill(pad, 0.0), torch.zeros((1, geom.shape[0]))])
     assert torch.equal(boxes, TC.cone_boxes(geom))
     want = (slab.slab_tnear(o, d, tmin, tfar, boxes) < INF).sum(dim=1)
     assert torch.equal(got, torch.where(tfar > tmin, want, 0))
@@ -261,12 +269,16 @@ def test_cones_entered_counts_the_cones_whose_box_the_interval_enters():
     assert (walk.cones >= got).all() and int(got.sum()) > 0  # the walk's intervals hold the final one
 
 
-def test_slab_tnear_per_ray_boxes_equal_shared_boxes():
+@pytest.mark.parametrize("reach", [0.0, TC.CONE_REACH])
+def test_slab_tnear_per_ray_boxes_equal_shared_boxes(reach):
     geom, tree, o, d, tmin, tmax = _scene()
-    shared = TC.slab_tnear(o, d, tmin, tmax, tree)
-    own = TC.slab_tnear(o, d, tmin, tmax, tree[:, None, :].expand(8, tmin.shape[0], tree.shape[1]))
+    shared = TC.slab_tnear(o, d, tmin, tmax, tree, reach=reach)
+    own = TC.slab_tnear(o, d, tmin, tmax, tree[:, None, :].expand(8, tmin.shape[0], tree.shape[1]), reach=reach)
     assert torch.equal(shared, own)
-    assert torch.equal(TC.slab_enters(o, d, tmin, tmax, tree), shared < INF)
+    if not reach:
+        assert torch.equal(TC.slab_enters(o, d, tmin, tmax, tree), shared < INF)
+    else:  # the reach only widens the boxes
+        assert (shared <= TC.slab_tnear(o, d, tmin, tmax, tree)).all()
     entered = shared < INF
     low = (tmin - torch.abs(tmin) * slab.SLACK)[:, None].expand_as(shared)  # the margin lowers tnear by its slack
     assert bool(entered.any()) and ((shared[entered] >= low[entered])).all()

@@ -83,8 +83,8 @@ def test_counters_equal_the_plain_count_of_the_walk(ray_sets, scene, rays):
     o, d, tmin, tmax, pc = sub
     t, _, _, st7 = KC.cone_closest(*sub, stats=True)
     occ, st8 = KC.cone_any(*sub, stats=True)
-    for st, walk, done in ((st7, C.cone_tree_walk(pc.geom, pc.tree, o, d, tmin, tmax), t),
-                           (st8, C.cone_tree_walk(pc.geom, pc.tree, o, d, tmin, tmax, any_hit=True), occ)):
+    plain = lambda any_hit: C.cone_tree_walk(pc.geom, pc.tree, o, d, tmin, tmax, any_hit, reach=pc.reach)  # noqa: E731
+    for st, walk, done in ((st7, plain(False), t), (st8, plain(True), occ)):
         assert torch.equal(st.per_ray[0], walk.boxes) and torch.equal(st.per_ray[1], walk.leaves)
         assert torch.equal(st.per_ray[2], walk.cones)
         if done.dtype == torch.bool:
